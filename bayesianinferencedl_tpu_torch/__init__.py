@@ -1,0 +1,23 @@
+"""bayesianinferencedl_tpu_torch — the PyTorch/CUDA port of
+``bayesianinferencedl_tpu`` for one NVIDIA H100.
+
+The JAX package beside it is the reference: every module here keeps its
+counterpart's path and public names (``fem/dia.py``, ``ops/pcg_stencil.py``,
+``rom/galerkin.py``, ...), and the tests hold each one against it. This
+package imports ``torch``, ``numpy`` and ``scipy`` and never ``jax``; from the
+reference it reuses only the two jax-free modules ``geometry`` (the mesh) and
+``config`` (``PipelineConfig``).
+
+Layer map (this slice: the offline build and single-temperature pCN):
+
+    fem/     P1 elements, 7-diagonal stencil operator (NumPy host + torch)
+    ops/     hand-written CUDA kernels with their plain torch versions
+    rom/     snapshots, host-f64 POD, Galerkin ROM, batched reduced PCG
+    models/  the 5-parameter fin, MLP error surrogate, corrected forward
+    data/    ROM-error dataset generation
+    infer/   Gaussian prior, pCN, rank-normalised diagnostics
+    utils/   metrics logger, posterior predictive check
+    api.py   build_pipeline / run_inversion;  cli.py  ``invert``
+"""
+
+__version__ = "0.1.0"

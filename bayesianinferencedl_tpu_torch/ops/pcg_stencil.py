@@ -1,0 +1,232 @@
+"""Fused batched Jacobi-PCG on the 7-diagonal stencil (kernel K1).
+
+A FOM solve is CG on the symmetric stencil operator of ``fem/dia.py``. On a
+CUDA tensor ``pcg_stencil`` launches the hand-written kernel in
+``csrc/pcg_stencil.cu``: one thread block per sample runs the whole PCG loop,
+with the optional two-level deflation preconditioner of ``ops/deflation.py``.
+On a CPU tensor it runs ``pcg_stencil_reference``, the plain batched torch
+version of the same math, which the tests hold against the JAX Pallas
+kernel and ``chip_smoke.py`` holds the CUDA kernel against.
+
+Semantics shared by both versions (those of the JAX lanes kernel's
+``_jacobi_cg``, except that convergence is per sample, not per 128-sample
+tile):
+
+- the operator is given by its 4 upper diagonal planes [0, +o1, +o2, +o3]
+  (A is symmetric); reads outside [0, n) count as zero;
+- z = D^-1 r, plus Wt^T bf16(Binv_b (Wt bf16(r))) when deflated, with Wt
+  held in bf16 and f32 accumulation; D^-1 is 0 where the diagonal is 0;
+- alpha and beta are 0 where their denominators are not positive;
+- a sample stops once ||r||^2 <= tol^2 ||F||^2, tested every
+  ``check_every`` iterations, or at ``maxiter`` iterations; the returned
+  count is per sample.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+DIAG_SLOT = 3  # index of offset 0 in the ascending 7-offset DIA layout
+
+launches = 0  # K1 launches in this process (the CUDA path only)
+
+
+def upper_planes(vals: torch.Tensor) -> torch.Tensor:
+    """(B, n, 7) DIA values -> (B, 4, n) contiguous [diag, +o1, +o2, +o3]."""
+    return vals[..., DIAG_SLOT:].transpose(-1, -2).contiguous()
+
+
+def pcg_stencil_reference(
+    vals4: torch.Tensor,
+    F: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    *,
+    offsets: tuple,
+    tol: float,
+    maxiter: int,
+    Wt: torch.Tensor | None = None,
+    Binv: torch.Tensor | None = None,
+    check_every: int = 16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain batched torch PCG with K1's contract (module docstring).
+
+    vals4 (B, 4, n); F (n,); x0 (B, n) or None; offsets: the 3 positive
+    flat offsets; Wt (m, n) bf16 and Binv (B, m, m), both or neither.
+    Returns (x (B, n), iters (B,) int32). Converged samples are frozen
+    while the others iterate, so each sample sees exactly its own run."""
+    B, _, n = vals4.shape
+    dt = vals4.dtype
+
+    def matvec(p):
+        acc = vals4[:, 0] * p
+        for j, o in enumerate(offsets):
+            v = vals4[:, 1 + j]
+            acc[:, : n - o] += v[:, : n - o] * p[:, o:]
+            acc[:, o:] += v[:, : n - o] * p[:, : n - o]
+        return acc
+
+    diag = vals4[:, 0]
+    nz = diag != 0
+    inv_diag = torch.where(nz, 1.0 / torch.where(nz, diag, torch.ones_like(diag)), 0.0)
+    Wf = None if Wt is None else Wt.to(dt)
+
+    def precond(r):
+        z = inv_diag * r
+        if Wf is not None:
+            y = r.to(torch.bfloat16).to(dt) @ Wf.T
+            c = (Binv @ y[:, :, None])[:, :, 0]
+            z = z + c.to(torch.bfloat16).to(dt) @ Wf
+        return z
+
+    tol2 = torch.tensor(tol * tol, dtype=dt, device=F.device) * torch.sum(F * F)
+    x = torch.zeros((B, n), dtype=dt, device=F.device) if x0 is None else x0.clone()
+    r = F - matvec(x)
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z, -1)
+    iters = torch.zeros(B, dtype=torch.int32, device=F.device)
+    active = torch.ones(B, dtype=torch.bool, device=F.device)
+    done = 0
+    while True:
+        active = active & (torch.sum(r * r, -1) > tol2)
+        if done >= maxiter or not bool(active.any()):
+            break
+        inner = min(check_every, maxiter - done)
+        a = active[:, None]
+        for _ in range(inner):
+            Ap = matvec(p)
+            pAp = torch.sum(p * Ap, -1)
+            alpha = torch.where(pAp > 0, rz / torch.where(pAp > 0, pAp, 1.0), 0.0)
+            x = torch.where(a, x + alpha[:, None] * p, x)
+            r = torch.where(a, r - alpha[:, None] * Ap, r)
+            z = precond(r)
+            rz_new = torch.sum(r * z, -1)
+            beta = torch.where(rz > 0, rz_new / torch.where(rz > 0, rz, 1.0), 0.0)
+            p = torch.where(a, z + beta[:, None] * p, p)
+            rz = torch.where(active, rz_new, rz)
+        iters = iters + active.to(torch.int32) * inner
+        done += inner
+    return x, iters
+
+
+def _check(t: torch.Tensor | None, name: str, shape: tuple, dtype, device) -> None:
+    if t is None:
+        return
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def pcg_stencil(
+    vals4: torch.Tensor,
+    F: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    *,
+    offsets: tuple,
+    tol: float,
+    maxiter: int,
+    Wt: torch.Tensor | None = None,
+    Binv: torch.Tensor | None = None,
+    check_every: int = 16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's wrapper: the CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors. Arguments as for ``pcg_stencil_reference``."""
+    if vals4.dim() != 3 or vals4.shape[1] != 4:
+        raise ValueError(f"vals4 must be (B, 4, n), got {tuple(vals4.shape)}")
+    B, _, n = vals4.shape
+    dev = vals4.device
+    if (Wt is None) != (Binv is None):
+        raise ValueError("Wt and Binv come together (deflation) or not at all")
+    if len(offsets) != 3 or not all(0 < int(o) < n for o in offsets):
+        raise ValueError(f"offsets must be 3 positive flat offsets below n, got {offsets}")
+    if maxiter < 0 or check_every < 1:
+        raise ValueError("need maxiter >= 0 and check_every >= 1")
+    m = 0 if Wt is None else Wt.shape[0]
+    if m and n % 8:
+        raise ValueError(f"deflated K1 reads Wt in 8-value words: n must be a multiple of 8, got {n}")
+    _check(vals4, "vals4", (B, 4, n), torch.float32, dev)
+    _check(F, "F", (n,), torch.float32, dev)
+    _check(x0, "x0", (B, n), torch.float32, dev)
+    _check(Wt, "Wt", (m, n), torch.bfloat16, dev)
+    _check(Binv, "Binv", (B, m, m), torch.float32, dev)
+    kw = dict(offsets=tuple(int(o) for o in offsets), tol=tol, maxiter=maxiter,
+              Wt=Wt, Binv=Binv, check_every=check_every)
+    if dev.type == "cpu":
+        return pcg_stencil_reference(vals4, F, x0, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA or CPU tensors, got {dev}")
+    return _launch(vals4, F, x0, **kw)
+
+
+def _launch(vals4, F, x0, *, offsets, tol, maxiter, Wt, Binv, check_every):
+    global launches
+    from bayesianinferencedl_tpu_torch.ops._build import load_library
+
+    lib = load_library("pcg_stencil")
+    fn = lib.pcg_stencil_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 8
+        + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    )
+    B, _, n = vals4.shape
+    m = 0 if Wt is None else Wt.shape[0]
+    if Wt is not None and Wt.data_ptr() % 16:
+        raise ValueError("Wt must be 16-byte aligned")
+    with torch.cuda.device(vals4.device):
+        x = torch.empty((B, n), dtype=torch.float32, device=vals4.device)
+        iters = torch.empty((B,), dtype=torch.int32, device=vals4.device)
+        scratch = torch.empty((B, 4, n), dtype=torch.float32, device=vals4.device)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        err = fn(
+            ptr(vals4), ptr(F), ptr(x0), ptr(Wt), ptr(Binv), ptr(x), ptr(iters), ptr(scratch),
+            B, n, m, *offsets,
+            float(tol * tol), int(maxiter), int(check_every),
+            torch.cuda.current_stream(vals4.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pcg_stencil_launch failed with cudaError_t {err}")
+    launches += 1
+    return x, iters
+
+
+def solve_fom_stencil(
+    op,
+    ks: torch.Tensor,
+    *,
+    tol: float,
+    maxiter: int,
+    x0: torch.Tensor | None = None,
+    deflation=None,
+    coarse_inv: torch.Tensor | None = None,
+    check_every: int = 16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched FOM solve A(k_b) u_b = F through K1.
+
+    op: fem.dia.StencilOperator; ks: (B, 5). Returns (u (B, n), iters (B,)).
+    x0: optional (B, n) warm starts. deflation: optional
+    ops.deflation.DeflationBasis; its per-sample coarse inverses are a
+    batched Cholesky before the launch unless ``coarse_inv`` (B, m, m) is
+    given. Not differentiable: snapshot and dataset sweeps, and the
+    synthetic-truth solve."""
+    ks = torch.as_tensor(ks, dtype=op.dtype, device=op.device)
+    vals4 = upper_planes(op.vals(ks))
+    Wt = Binv = None
+    if deflation is not None:
+        Wt = deflation.Wt_bf16
+        Binv = coarse_inv if coarse_inv is not None else deflation.coarse_inverses(ks, op.biot)
+        Binv = Binv.to(op.dtype).contiguous()
+    if x0 is not None:
+        x0 = x0.contiguous()
+    return pcg_stencil(
+        vals4, op.F_root, x0, offsets=op.offsets[DIAG_SLOT + 1:], tol=tol,
+        maxiter=maxiter, Wt=Wt, Binv=Binv, check_every=check_every,
+    )

@@ -1,0 +1,123 @@
+"""Galerkin-projected reduced operator and batched online solves.
+
+The affine structure A(k) = sum_i k_i A_i + Bi M_ext projects exactly:
+Ahat(k) = sum_i k_i (V^T A_i V) + Bi (V^T M_ext V). The projection runs once
+offline in host float64; the online solves take a (C, 5) batch of
+conductivities, one row per chain.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class ReducedOperator:
+    """Reduced affine operator. Shapes: Ahat (5, r, r), Mhat (r, r),
+    Fhat (r,), Bhat (n_obs, r), V (n, r)."""
+
+    Ahat: torch.Tensor
+    Mhat: torch.Tensor
+    Fhat: torch.Tensor
+    Bhat: torch.Tensor
+    V: torch.Tensor
+    biot: float
+
+    @property
+    def r(self) -> int:
+        return self.Ahat.shape[-1]
+
+    @classmethod
+    def project_host(cls, host, biot: float, V, dtype=torch.float32, device="cpu") -> "ReducedOperator":
+        """Exact float64 projection on the host (``host`` is a FinFEMDiaHost),
+        cast to the online dtype and device."""
+        comps, M_ext = host.to_scipy_components()
+        V = np.asarray(V, np.float64)
+        Ahat = np.stack([V.T @ (A @ V) for A in comps])
+        Mhat = V.T @ (M_ext @ V)
+        Fhat = V.T @ np.asarray(host.F_root, np.float64)
+        Bhat = np.asarray(host.qoi, np.float64) @ V
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        return cls(Ahat=t(Ahat), Mhat=t(Mhat), Fhat=t(Fhat), Bhat=t(Bhat), V=t(V), biot=float(biot))
+
+    def _k(self, ks) -> torch.Tensor:
+        return torch.as_tensor(ks, dtype=self.Ahat.dtype, device=self.Ahat.device)
+
+    def assemble(self, ks: torch.Tensor) -> torch.Tensor:
+        """(C, 5) -> (C, r, r) reduced system matrices, by an elementwise
+        contraction over the five components."""
+        ks = self._k(ks)
+        A = ks[:, 0, None, None] * self.Ahat[0]
+        for i in range(1, self.Ahat.shape[0]):
+            A = A + ks[:, i, None, None] * self.Ahat[i]
+        return A + self.biot * self.Mhat
+
+    def solve(self, ks: torch.Tensor) -> torch.Tensor:
+        """Reduced solves by batched Cholesky: (C, 5) -> (C, r)."""
+        L = torch.linalg.cholesky(self.assemble(ks))
+        b = self.Fhat.expand(L.shape[0], -1)[:, :, None]
+        return torch.cholesky_solve(b, L)[:, :, 0]
+
+    def forward(self, ks: torch.Tensor) -> torch.Tensor:
+        """G_ROM: (C, 5) -> (C, n_obs), the QoI of the lifted reduced
+        solution, y_r = (B V) u_r."""
+        return self.solve(ks) @ self.Bhat.T
+
+    def preconditioner(self, k_ref=None) -> torch.Tensor:
+        """Dense P0 = Ahat(k_ref)^{-1} (default k_ref = 1), the fixed
+        preconditioner of :meth:`solve_pcg`, computed in host f64 and
+        returned in the online dtype."""
+        Ahat = self.Ahat.detach().cpu().numpy().astype(np.float64)
+        Mhat = self.Mhat.detach().cpu().numpy().astype(np.float64)
+        k_ref = np.ones(Ahat.shape[0]) if k_ref is None else np.asarray(k_ref, np.float64)
+        A = np.tensordot(k_ref, Ahat, axes=1) + self.biot * Mhat
+        return torch.as_tensor(np.linalg.inv(A), dtype=self.Ahat.dtype, device=self.Ahat.device)
+
+    def solve_pcg(self, ks: torch.Tensor, P0: torch.Tensor, n_iters: int = 25) -> torch.Tensor:
+        """Reduced solves by preconditioned CG with a FIXED iteration count:
+        (C, 5) -> (C, r). No factorisation: A(k) p for the whole batch is one
+        (C, r) @ (r, 6r) matmul against [Ahat_1^T .. Ahat_5^T | Mhat^T] plus
+        a weighted sum, and the preconditioner is one (C, r) @ (r, r)
+        matmul."""
+        ks = self._k(ks)
+        C, r = ks.shape[0], self.r
+        stack = torch.cat([self.Ahat, self.Mhat[None]], 0)  # (6, r, r)
+        AT = stack.transpose(1, 2).permute(1, 0, 2).reshape(r, -1)  # (r, 6r)
+        w = torch.cat([ks, torch.full_like(ks[:, :1], self.biot)], 1)  # (C, 6)
+
+        def amat(p):
+            return torch.sum(w[:, :, None] * (p @ AT).view(C, -1, r), 1)
+
+        def prec(v):
+            return v @ P0.T
+
+        b = self.Fhat.expand(C, r)
+        x = prec(b)  # warm start: P0 b is already close
+        res = b - amat(x)
+        z = prec(res)
+        p = z
+        rz = torch.sum(res * z, -1)
+        for _ in range(n_iters):
+            Ap = amat(p)
+            pAp = torch.sum(p * Ap, -1)
+            alpha = rz / torch.where(pAp != 0, pAp, 1.0)
+            x = x + alpha[:, None] * p
+            res = res - alpha[:, None] * Ap
+            z = prec(res)
+            rz_new = torch.sum(res * z, -1)
+            beta = rz_new / torch.where(rz != 0, rz, 1.0)
+            p = z + beta[:, None] * p
+            rz = rz_new
+        return x
+
+    def fast_forward(self, P0: torch.Tensor, n_iters: int = 25):
+        """(C, 5) -> (C, n_obs) via :meth:`solve_pcg`; the likelihood kernel
+        of the chain hot loop."""
+
+        def f(ks):
+            return self.solve_pcg(ks, P0, n_iters) @ self.Bhat.T
+
+        return f
