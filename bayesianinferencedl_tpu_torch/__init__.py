@@ -4,14 +4,16 @@
 The JAX package beside it is the reference: every module here keeps its
 counterpart's path and public names (``fem/dia.py``, ``ops/pcg_stencil.py``,
 ``rom/galerkin.py``, ...), and the tests hold each one against it. This
-package imports ``torch``, ``numpy`` and ``scipy`` and never ``jax``; from the
-reference it reuses only the two jax-free modules ``geometry`` (the mesh) and
-``config`` (``PipelineConfig``).
+package imports ``torch``, ``numpy`` and ``scipy``, never ``jax`` and nothing
+of the reference package: ``config`` and ``geometry`` are its own copies.
 
-Layer map (this slice: the offline build and single-temperature pCN):
+Layer map (the offline build, single-temperature pCN and the fused sampler):
 
+    config.py    PipelineConfig and its stage dataclasses
+    geometry/    the fin's regions and its structured P1 mesh
     fem/     P1 elements, 7-diagonal stencil operator (NumPy host + torch)
     ops/     hand-written CUDA kernels with their plain torch versions
+    experimental/  the whole pCN sampler as one CUDA kernel (K2)
     rom/     snapshots, host-f64 POD, Galerkin ROM, batched reduced PCG
     models/  the 5-parameter fin, MLP error surrogate, corrected forward
     data/    ROM-error dataset generation

@@ -23,7 +23,7 @@ from typing import Callable, Optional
 
 import torch
 
-from bayesianinferencedl_tpu.config import PipelineConfig
+from bayesianinferencedl_tpu_torch.config import PipelineConfig
 from bayesianinferencedl_tpu_torch.data.datasets import ErrorDataset, generate_error_dataset
 from bayesianinferencedl_tpu_torch.infer.diagnostics import ess_bulk, ess_tail, split_rhat
 from bayesianinferencedl_tpu_torch.infer.pcn import PCNResult, gaussian_misfit, run_pcn
@@ -127,11 +127,12 @@ def _rel(num: torch.Tensor, den: torch.Tensor) -> float:
 def build_pipeline(
     config: PipelineConfig = PipelineConfig(),
     *,
-    device,
+    device="cuda",
     dtype=torch.float32,
     metrics: Optional[MetricsLogger] = None,
 ) -> Pipeline:
-    """The offline build on ``device``. Every FOM solve (snapshots, training
+    """The offline build on ``device`` (the card unless the caller asks for
+    ``"cpu"``; without a card "cuda" raises). Every FOM solve (snapshots, training
     dataset, holdout) is one batched K1 call. Holdout errors are logged as
     the ``holdout_rel_err`` event."""
     log = metrics or MetricsLogger()

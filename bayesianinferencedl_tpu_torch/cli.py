@@ -18,7 +18,7 @@ import torch
 
 
 def cmd_invert(args) -> None:
-    from bayesianinferencedl_tpu.config import (
+    from bayesianinferencedl_tpu_torch.config import (
         FEMConfig, MCMCConfig, MeshConfig, PipelineConfig, PriorConfig, ROMConfig, SurrogateConfig,
     )
     from bayesianinferencedl_tpu_torch.api import build_pipeline, run_inversion

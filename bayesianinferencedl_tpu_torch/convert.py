@@ -25,7 +25,7 @@ from bayesianinferencedl_tpu_torch.models.surrogate import MLP, Normalizer, Trai
 from bayesianinferencedl_tpu_torch.rom.galerkin import ReducedOperator
 
 
-def pipeline_from_arrays(cfg, arrays: dict, *, device, dtype=torch.float32) -> Pipeline:
+def pipeline_from_arrays(cfg, arrays: dict, *, device="cuda", dtype=torch.float32) -> Pipeline:
     t = lambda k: torch.tensor(np.asarray(arrays[k]), dtype=dtype, device=device)
     fin = FiveParamFin.create(
         resolution=cfg.mesh.resolution, biot=cfg.fem.biot, dtype=dtype, device=device,

@@ -20,8 +20,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from bayesianinferencedl_tpu.geometry.fin import N_REGIONS
-from bayesianinferencedl_tpu.geometry.mesh import FinMesh
+from bayesianinferencedl_tpu_torch.geometry.fin import N_REGIONS
+from bayesianinferencedl_tpu_torch.geometry.mesh import FinMesh
 from bayesianinferencedl_tpu_torch.fem import p1
 
 

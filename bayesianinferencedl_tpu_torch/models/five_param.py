@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from bayesianinferencedl_tpu.geometry.mesh import FinMesh, build_fin_mesh
+from bayesianinferencedl_tpu_torch.geometry.mesh import FinMesh, build_fin_mesh
 from bayesianinferencedl_tpu_torch.fem.dia import FinFEMDiaHost, StencilOperator, assemble_fin_dia
 from bayesianinferencedl_tpu_torch.ops.deflation import DeflationBasis
 from bayesianinferencedl_tpu_torch.ops.pcg_stencil import solve_fom_stencil

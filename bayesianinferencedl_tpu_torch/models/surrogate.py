@@ -122,6 +122,12 @@ class TrainedSurrogate(NamedTuple):
     mlp: MLP
     norm: Normalizer
 
+    @property
+    def params(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """The layers as [(W (in, out), b (out,)), ...], detached: the
+        reference's ``surrogate.params`` layout."""
+        return [(W.detach(), b.detach()) for W, b in zip(self.mlp.weights, self.mlp.biases)]
+
     @torch.no_grad()
     def predict(self, log_k: torch.Tensor) -> torch.Tensor:
         """NN error prediction e_hat(k) from log-conductivity, (..., 5) ->

@@ -55,32 +55,44 @@ def _digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+def load_libraries(*names: str) -> list[ctypes.CDLL]:
+    """Build (if needed) and load ``csrc/<name>.cu`` for each name; cached per
+    process. The sources that need building get one nvcc each, all started
+    together."""
+    with _lock:
+        builds = {}
+        t0 = time.perf_counter()
+        for name in dict.fromkeys(names):
+            if name in _libs:
+                continue
+            src = CSRC / f"{name}.cu"
+            if not src.exists():
+                raise FileNotFoundError(src)
+            out = BUILD_DIR / f"lib{name}_{_digest(name)}.so"
+            proc = tmp = None
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            builds[name] = (src, out, tmp, proc)
+        for name, (src, out, tmp, proc) in builds.items():
+            if proc is not None:
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed on {src.name} (exit {proc.returncode}):\n{err[-4000:]}"
+                    )
+                os.replace(tmp, out)
+                build_logs[name] = {
+                    "seconds": time.perf_counter() - t0,
+                    "ptxas": err,
+                    "path": str(out),
+                }
+            _libs[name] = ctypes.CDLL(str(out))
+        return [_libs[name] for name in names]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        src = CSRC / f"{name}.cu"
-        if not src.exists():
-            raise FileNotFoundError(src)
-        out = BUILD_DIR / f"lib{name}_{_digest(name)}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {src.name} (exit {res.returncode}):\n{res.stderr[-4000:]}"
-                )
-            os.replace(tmp, out)
-            build_logs[name] = {
-                "seconds": time.perf_counter() - t0,
-                "ptxas": res.stderr,
-                "path": str(out),
-            }
-        lib = ctypes.CDLL(str(out))
-        _libs[name] = lib
-        return lib
+    return load_libraries(name)[0]

@@ -7,7 +7,8 @@ NVIDIA GPU, from the root of a checkout:
 Phases, one or more lines each; any failure exits non-zero with no result:
 
   0. device   require CUDA; print the card's name and power limit
-  1. build    compile kernel K1 (csrc/pcg_stencil.cu) with nvcc
+  1. build    compile kernels K1 (csrc/pcg_stencil.cu) and K2
+              (csrc/pcn_fused.cu) with nvcc, one process each, started together
   2. K1       the kernel against its plain torch version on the card at res4,
               B = 256 log-uniform conductivities, m = 128, tol 1e-7,
               maxiter 1500: deflated, undeflated and warm-started. Per-sample
@@ -27,9 +28,25 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               samples carry 45-96% of its square, so whether the surrogate
               lowers it depends on the seed, for the JAX reference as much
               as for the port.
+  4. K2       the fused pCN sampler (experimental.pcn_fused) on the slice's
+              pipeline, data and noise, cg_iters = pipe.rom_pcg_iters:
+              (a) the kernel against its plain torch version on the card,
+              1,024 chains x 200 steps (50 burn-in), the plain version
+              replaying the uniforms the kernel wrote: the uniforms equal
+              the plain Philox stream bit for bit and pass loose moment and
+              neighbour-correlation gates; at most 1% of chains accept
+              differently; on the others theta and log beta within 1e-4 and
+              phi within 1e-3 relative (see phase_k2); (b) the main path,
+              run_pcn_fused over 4,000 steps (1,000 burn-in) timed by CUDA
+              events after the warm-up of (a), with its launches counted:
+              posterior means within 5 Monte-Carlo standard errors (bulk
+              ESS of both runs) of run_inversion's pcn, sds within 10%,
+              accept rates within 0.02; split-R-hat printed beside pcn's;
+              (c) the plain version over the same 4,000 steps, timed.
 
-The last three lines are the kernel summary (JSON), the nvidia-smi line,
-and {"ok": true, "device": {...}}.
+The last three lines are the kernel summary (JSON: time, launches, bound,
+plain time of each kernel), the nvidia-smi line, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -74,18 +91,52 @@ def phase_device():
     return card
 
 
+KERNEL_SOURCES = ("pcg_stencil", "pcn_fused")
+
+# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
+PEAK_F32 = 67e12  # FLOP/s on the CUDA cores
+PEAK_BF16 = 989e12  # FLOP/s on the tensor cores
+PEAK_HBM = 3.35e12  # bytes/s
+
+
 def phase_build():
     from bayesianinferencedl_tpu_torch.ops import _build
 
-    lib = _build.load_library("pcg_stencil")
-    log = _build.build_logs.get("pcg_stencil")
-    if log is None:
-        say("build", f"cached {lib._name} (no nvcc run)")
-        return
-    say("build", f"pcg_stencil.cu -> sm_90a by nvcc in {log['seconds']:.2f} s")
-    for line in log["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            say("build", line.strip())
+    t0 = time.perf_counter()
+    libs = _build.load_libraries(*KERNEL_SOURCES)
+    say("build", f"{len(libs)} kernels ready in {time.perf_counter() - t0:.2f} s")
+    for name, lib in zip(KERNEL_SOURCES, libs):
+        log = _build.build_logs.get(name)
+        if log is None:
+            say("build", f"cached {lib._name} (no nvcc run)")
+            continue
+        say("build", f"{name}.cu -> sm_90a by nvcc in {log['seconds']:.2f} s")
+        for line in log["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                say("build", line.strip())
+
+
+def _bound(nbytes: float, f32_ops: float, bf16_ops: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / PEAK_HBM
+    t_ops = f32_ops / PEAK_F32 + bf16_ops / PEAK_BF16
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def _k1_bound(B: int, n: int, m: int, iters: np.ndarray) -> tuple[float, str]:
+    """K1's bound for one deflated batch with these per-sample iteration
+    counts (each sample also does one setup residual and preconditioner).
+    Per iteration and sample: the 4-plane stencil (13 n), the two dots, three
+    vector updates, the Jacobi scaling and rr (~13 n), the coarse solve
+    Binv y (2 m^2, float32), and the two deflation products Wt bf16(r) and
+    Wt^T bf16(c) (2 m n each): bf16 operands with float32 sums, the tensor
+    cores' type. Bytes: vals4, F, Wt, Binv read once, x and iters written."""
+    its = float(np.sum(iters + 1))
+    f32 = its * (26 * n + 2 * m * m)
+    bf16 = its * 4 * m * n
+    nbytes = 4 * (4 * B * n + n + B * m * m + B * n + B) + 2 * m * n
+    return _bound(nbytes, f32, bf16)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -218,13 +269,16 @@ def phase_kernel():
         p_ms = _time_ms(lambda: K1.pcg_stencil_reference(vals4, op.F_root, None, **args), 3)
         times[B] = (k_ms, p_ms)
         say("K1", f"deflated B={B}: kernel {k_ms:.3f} ms, plain torch {p_ms:.3f} ms per batched solve")
-    return max_abs, times
+    bound = _k1_bound(B_CHECK, op.n, defl.m, iters["deflated"])
+    say("K1", f"deflated B={B_CHECK}: bound {bound[0]:.4f} ms ({bound[1]}), kernel at "
+        f"{100 * bound[0] / times[B_CHECK][0]:.2f}% of it")
+    return max_abs, times, bound
 
 
 def phase_slice():
     import torch
 
-    from bayesianinferencedl_tpu.config import (
+    from bayesianinferencedl_tpu_torch.config import (
         FEMConfig, MCMCConfig, MeshConfig, PipelineConfig, ROMConfig, SurrogateConfig,
     )
     from bayesianinferencedl_tpu_torch.api import build_pipeline, run_inversion
@@ -282,7 +336,153 @@ def phase_slice():
         fail(f"training-set corrected error {corr_tr:.4e} not below ROM error {rom_tr:.4e}")
     if not 0.05 < acc < 0.9:
         fail(f"accept rate {acc:.3f} outside (0.05, 0.9)")
-    return n_main
+    return n_main, cfg, pipe, inv
+
+
+K2_SEED = 1234
+K2_CHECK_STEPS, K2_CHECK_BURN = 200, 50
+K2_FLIP_GATE = 0.01  # share of chains whose accept sequences may differ
+K2_STATE_GATE = 1e-4  # |d theta|, |d log beta| on the chains that agree
+K2_PHI_GATE = 1e-3  # |d phi| / max(|phi|, 1) on the chains that agree
+K2_MEAN_GATE = 5.0  # posterior-mean difference, in Monte-Carlo standard errors
+K2_SD_GATE = 0.10  # relative posterior-sd difference
+K2_ACC_GATE = 0.02  # accept-rate difference
+
+
+def _corr(a, b) -> float:
+    a, b = a.flatten().double(), b.flatten().double()
+    a, b = a - a.mean(), b - b.mean()
+    return float((a * b).sum() / (a.norm() * b.norm()))
+
+
+def _k2_bound(C: int, T: int, r: int, d: int, m: int, h1: int, h2: int,
+              cg: int) -> tuple[float, str]:
+    """K2's bound for C chains and T steps: the least work of the function,
+    whatever the formulation. One misfit per chain and step (plus the
+    initial one), each: A(k) = Bi M + sum_j k_j A_j assembled once (d FMAs
+    per entry, 2 d r^2), cg + 1 products A(k) p (2 r^2), cg + 1 products by
+    P0 (2 r^2; P0 fhat is one vector for the whole run), ~10 r of dots and
+    updates per iteration, y = x Bhat^T for the m observables and the MLP;
+    all float32 on the CUDA cores. Bytes: theta0 and the operands read
+    once, the (T, C, 8) trace written once."""
+    misfit = (2 * d * r * r + (cg + 1) * 4 * r * r + cg * 10 * r + 3 * r + 2 * m * r
+              + 2 * (d * h1 + h1 * h2 + h2 * m))
+    operands = 7 * r * r + 9 * r + 9 * h1 + h1 * h2 + 9 * h2 + 32
+    return _bound(4 * (C * 8 + operands + T * C * 8), C * (T + 1) * float(misfit))
+
+
+def phase_k2(cfg, pipe, inv):
+    import torch
+
+    from bayesianinferencedl_tpu_torch.experimental import pcn_fused as K2
+    from bayesianinferencedl_tpu_torch.infer.diagnostics import ess_bulk, split_rhat
+
+    mc = cfg.mcmc
+    C, T, NB = mc.n_chains, mc.n_steps, mc.n_burn
+    cg = pipe.rom_pcg_iters
+    gen = torch.Generator(device="cuda").manual_seed(mc.seed + 2)
+    theta0 = pipe.prior.sample(gen, (C,))
+    args = (pipe.rom, pipe.P0, pipe.surrogate.params, pipe.surrogate.norm, pipe.prior, inv.data,
+            mc.noise_sigma, theta0)
+    ops = K2.pack_operands(*args, mc.beta)
+    r, (h1, h2) = ops.astack.shape[0], ops.w2.shape
+    say("K2", f"C={C} r={r} h=({h1}, {h2}) cg_iters={cg} d={ops.d}")
+
+    # (a) the kernel against the plain version on the uniforms it drew
+    rk = K2.run_pcn_fused(*args, K2_SEED, n_steps=K2_CHECK_STEPS, n_burn=K2_CHECK_BURN,
+                          beta=mc.beta, cg_iters=cg, return_uniforms=True)
+    torch.cuda.synchronize()
+    u1, u2 = rk.uniforms
+    tp, _ = K2.pcn_fused_reference(ops, n_steps=K2_CHECK_STEPS, n_burn=K2_CHECK_BURN,
+                                   cg_iters=cg, uniforms=(u1, u2))
+    tk = rk.trace
+    if not (torch.isfinite(tk).all() and torch.isfinite(tp).all()):
+        fail("K2: non-finite trace")
+    philox = [K2.philox_uniforms(K2_SEED, t, C, device="cuda") for t in range(K2_CHECK_STEPS)]
+    same = torch.equal(torch.stack([a for a, _ in philox]), u1) and torch.equal(
+        torch.stack([b for _, b in philox]), u2)
+    u = torch.cat([u1, u2], -1)  # (T, C, 16)
+    u_mean, u_var = float(u.double().mean()), float(u.double().var())
+    c_chain, c_step = _corr(u[:, :-1], u[:, 1:]), _corr(u[:-1], u[1:])
+    say("K2", f"uniforms: equal to the plain Philox stream: {same}; mean {u_mean:.6f} "
+        f"(1/2), var {u_var:.6f} (1/12 = {1 / 12:.6f}), corr neighbouring chains {c_chain:.2e}, "
+        f"neighbouring steps {c_step:.2e}")
+    if not same:
+        fail("K2: the kernel's uniforms differ from the plain Philox4x32-10 stream")
+    if abs(u_mean - 0.5) > 0.01 or abs(u_var - 1 / 12) > 0.005 or max(abs(c_chain), abs(c_step)) > 0.01:
+        fail("K2: the uniforms fail the moment or correlation gates")
+    flips = (tk[:, :, 7] != tp[:, :, 7]).any(0)
+    agree = ~flips
+    d = (tk[:, agree] - tp[:, agree]).abs()
+    d_theta = float(d[..., :ops.d].max())
+    d_lbeta = float(d[..., 6].max())
+    d_phi = float((d[..., 5] / tp[:, agree, 5].abs().clamp(min=1.0)).max())
+    max_abs = float(d.max())
+    say("K2", f"kernel vs plain, {C} chains x {K2_CHECK_STEPS} steps: chains whose accept "
+        f"sequences differ {int(flips.sum())} ({100 * float(flips.float().mean()):.2f}%); on the "
+        f"others max |d theta| {d_theta:.3e}, |d log beta| {d_lbeta:.3e}, rel |d phi| "
+        f"{d_phi:.3e}, max abs {max_abs:.3e}; accept {float(tk[K2_CHECK_BURN:, :, 7].mean()):.4f} "
+        f"vs {float(tp[K2_CHECK_BURN:, :, 7].mean()):.4f}")
+    if float(flips.float().mean()) > K2_FLIP_GATE:
+        fail(f"K2: {int(flips.sum())} chains accept differently from the plain version")
+    if max(d_theta, d_lbeta) > K2_STATE_GATE or d_phi > K2_PHI_GATE:
+        fail("K2: kernel and plain states differ beyond the gates")
+
+    # (b) the main path: run_pcn_fused over the whole run, counted and timed
+    K2.launches = 0
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    res = K2.run_pcn_fused(*args, K2_SEED + 1, n_steps=T, n_burn=NB, beta=mc.beta, cg_iters=cg)
+    e1.record()
+    e1.synchronize()
+    launches = K2.launches
+    k_ms = e0.elapsed_time(e1)
+    eager_us = inv.wall_seconds / T * 1e6
+    n_kept = (T - NB) * C
+    say("K2", f"run_pcn_fused {T} steps ({NB} burn-in) x {C} chains: {k_ms:.3f} ms, "
+        f"{k_ms / T * 1e3:.3f} us/step, {n_kept / (k_ms / 1e3):.1f} kept samples/s, launches "
+        f"{launches}; the eager pcn step of run_inversion in this call: {eager_us:.3f} us/step, "
+        f"{inv.samples_per_sec:.1f} samples/s")
+    if launches < 1:
+        fail("K2 was not launched on the main path")
+    if not (torch.isfinite(res.samples).all() and torch.isfinite(res.phi_trace).all()):
+        fail("K2: non-finite samples")
+    if tuple(res.samples.shape) != (T - NB, C, ops.d):
+        fail(f"K2 samples shape {tuple(res.samples.shape)}")
+    ref = inv.result.samples
+    means, sds, ses, rhats = [], [], [], []
+    for x in (res.samples, ref):
+        flat = x.reshape(-1, x.shape[-1]).double()
+        means.append(flat.mean(0))
+        sds.append(flat.std(0))
+        ses.append(sds[-1] / ess_bulk(x).double().sqrt())
+        rhats.append(float(split_rhat(x).max()))
+    z = ((means[0] - means[1]).abs() / (ses[0] ** 2 + ses[1] ** 2).sqrt()).cpu().numpy()
+    sd_rel = ((sds[0] - sds[1]).abs() / sds[1]).cpu().numpy()
+    acc_k, acc_p = float(res.accept_rate.mean()), float(inv.result.accept_rate.mean())
+    say("K2", f"posterior mean K2 {np.round(means[0].cpu().numpy(), 4).tolist()} vs pcn "
+        f"{np.round(means[1].cpu().numpy(), 4).tolist()}; |diff| / MCSE "
+        f"{np.round(z, 2).tolist()}")
+    say("K2", f"posterior sd K2 {np.round(sds[0].cpu().numpy(), 4).tolist()} vs pcn "
+        f"{np.round(sds[1].cpu().numpy(), 4).tolist()}; accept {acc_k:.4f} vs {acc_p:.4f}; "
+        f"split-rhat max {rhats[0]:.4f} vs {rhats[1]:.4f}")
+    if z.max() > K2_MEAN_GATE:
+        fail(f"K2: posterior means {z.max():.2f} Monte-Carlo errors from pcn's")
+    if sd_rel.max() > K2_SD_GATE:
+        fail(f"K2: posterior sd {100 * sd_rel.max():.1f}% from pcn's")
+    if abs(acc_k - acc_p) > K2_ACC_GATE:
+        fail(f"K2: accept rate {acc_k:.4f} vs pcn {acc_p:.4f}")
+
+    # (c) the plain version over the same run
+    e0.record()
+    K2.pcn_fused_reference(ops, n_steps=T, n_burn=NB, cg_iters=cg, seed=K2_SEED + 1)
+    e1.record()
+    e1.synchronize()
+    p_ms = e0.elapsed_time(e1)
+    bound = _k2_bound(C, T, r, ops.d, pipe.rom.Bhat.shape[0], h1, h2, cg)
+    say("K2", f"plain torch version over the same {T} steps: {p_ms:.3f} ms; bound "
+        f"{bound[0]:.3f} ms ({bound[1]}), kernel at {100 * bound[0] / k_ms:.2f}% of it")
+    return dict(launches=launches, max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound=bound)
 
 
 def main() -> None:
@@ -290,8 +490,9 @@ def main() -> None:
     import torch
 
     phase_build()
-    max_abs, times = phase_kernel()
-    launches = phase_slice()
+    max_abs, times, k1_bound = phase_kernel()
+    launches, cfg, pipe, inv = phase_slice()
+    k2 = phase_k2(cfg, pipe, inv)
     k_ms, p_ms = times[B_CHECK]
     print(json.dumps({"kernels": [{
         "name": "pcg_stencil",
@@ -302,6 +503,21 @@ def main() -> None:
         "max_abs_err": max_abs,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "pcn_fused",
+        "route": "cuda",
+        "source": "bayesianinferencedl_tpu_torch/csrc/pcn_fused.cu",
+        "replaces": "bayesianinferencedl_tpu/experimental/pcn_fused.py:67",
+        "launches": k2["launches"],
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound"][0],
+        "bound_by": k2["bound"][1],
+        "library_ms": None,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,12 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from bayesianinferencedl_tpu import config as jcfg
 from bayesianinferencedl_tpu.api import build_pipeline as j_build
-from bayesianinferencedl_tpu.config import (
-    FEMConfig, MCMCConfig, MeshConfig, PipelineConfig, ROMConfig, SurrogateConfig,
-)
 from bayesianinferencedl_tpu.infer import pcn as jp
 from bayesianinferencedl_tpu_torch import api
+from bayesianinferencedl_tpu_torch import config as tcfg
 from bayesianinferencedl_tpu_torch.convert import pipeline_from_arrays
 from bayesianinferencedl_tpu_torch.infer import pcn as tp
 from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
@@ -28,13 +27,15 @@ from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
 C, D = 32, 5
 
 
-def _cfg(cg_tol, **mcmc):
-    return PipelineConfig(
-        mesh=MeshConfig(resolution=1),
-        fem=FEMConfig(biot=0.1, cg_tol=cg_tol, cg_maxiter=1500),
-        rom=ROMConfig(n_snapshots=32, basis_size=8),
-        surrogate=SurrogateConfig(hidden=(16, 16), n_train=64, epochs=20),
-        mcmc=MCMCConfig(noise_sigma=1e-2, **mcmc),
+def _cfg(cg_tol, cfg=tcfg, **mcmc):
+    """The test's PipelineConfig, from the port's config module (default) or
+    the JAX package's (``cfg=jcfg``): each side is built from its own."""
+    return cfg.PipelineConfig(
+        mesh=cfg.MeshConfig(resolution=1),
+        fem=cfg.FEMConfig(biot=0.1, cg_tol=cg_tol, cg_maxiter=1500),
+        rom=cfg.ROMConfig(n_snapshots=32, basis_size=8),
+        surrogate=cfg.SurrogateConfig(hidden=(16, 16), n_train=64, epochs=20),
+        mcmc=cfg.MCMCConfig(noise_sigma=1e-2, **mcmc),
     )
 
 
@@ -52,9 +53,8 @@ def _arrays(jpipe) -> dict:
 
 @pytest.fixture(scope="module")
 def converted():
-    cfg = _cfg(1e-10)
-    jpipe = j_build(cfg, dtype=jnp.float64)
-    tpipe = pipeline_from_arrays(cfg, _arrays(jpipe), device="cpu", dtype=torch.float64)
+    jpipe = j_build(_cfg(1e-10, jcfg), dtype=jnp.float64)
+    tpipe = pipeline_from_arrays(_cfg(1e-10), _arrays(jpipe), device="cpu", dtype=torch.float64)
     return jpipe, tpipe
 
 
@@ -125,10 +125,10 @@ def test_unported_options_raise(converted):
         api.run_inversion(tpipe, likelihood="fom")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.build_pipeline(
-            PipelineConfig(rom=ROMConfig(online_precision="high")), device="cpu")
-    if not torch.cuda.is_available():  # asking for an absent card raises, no CPU fallback
+            tcfg.PipelineConfig(rom=tcfg.ROMConfig(online_precision="high")), device="cpu")
+    if not torch.cuda.is_available():  # the card is the default; absent, it raises, no CPU fallback
         with pytest.raises(RuntimeError, match="cuda"):
-            api.build_pipeline(_cfg(1e-7), device="cuda")
+            api.build_pipeline(_cfg(1e-7))
 
 
 def test_cli_invert_prints_reference_keys(capsys):
