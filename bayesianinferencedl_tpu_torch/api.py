@@ -1,17 +1,20 @@
 """High-level pipeline API.
 
 ``build_pipeline`` runs the offline stack (mesh -> stencil FOM -> batched
-FOM snapshots through K1 -> host-f64 POD and Galerkin projection -> reduced
-preconditioner P0 -> ROM-error dataset -> tanh MLP trained with Adam) on one
-device; ``run_inversion`` runs single-temperature pCN on the ``rom`` or
-``rom_nn`` likelihood. Nothing moves between devices on its own: asking for
-``device="cuda"`` without a card raises.
+FOM snapshots through K1 or K3 -> host-f64 POD and Galerkin projection ->
+reduced preconditioner P0 -> ROM-error dataset -> tanh MLP trained with
+Adam) on one device. ``run_inversion`` runs single-temperature pCN on the
+``rom`` or ``rom_nn`` likelihood, or delayed-acceptance pCN (``da_pcn``):
+subchains on the ``da_coarse`` surrogate corrected against the ``fom``
+likelihood (or ``rom``), one batched FOM solve per outer step. Nothing moves
+between devices on its own: asking for ``device="cuda"`` without a card
+raises.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: the ``fom`` likelihood and every sampler but ``pcn``,
-the ``high``/``fast`` online precision tiers, box priors and the
-unknown-noise potential. Chains start from prior draws; the other
-initialisations are ROADMAP.md queue 1, item 20.
+ROADMAP.md item: pcn on the ``fom`` likelihood, the other samplers, the
+MALA inner kernel of da_pcn, the ``high``/``fast`` online precision tiers,
+box priors and the unknown-noise potential. Chains start from prior draws;
+the other initialisations are ROADMAP.md queue 1, item 20.
 """
 
 from __future__ import annotations
@@ -19,33 +22,35 @@ from __future__ import annotations
 import time
 import warnings
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 
 from bayesianinferencedl_tpu_torch.config import PipelineConfig
 from bayesianinferencedl_tpu_torch.data.datasets import ErrorDataset, generate_error_dataset
+from bayesianinferencedl_tpu_torch.infer.delayed_acceptance import DAResult, run_da_pcn_segmented
 from bayesianinferencedl_tpu_torch.infer.diagnostics import ess_bulk, ess_tail, split_rhat
 from bayesianinferencedl_tpu_torch.infer.pcn import PCNResult, gaussian_misfit, run_pcn
 from bayesianinferencedl_tpu_torch.infer.priors import BoxPrior, GaussianPrior
 from bayesianinferencedl_tpu_torch.models.corrected import CorrectedForward
 from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
 from bayesianinferencedl_tpu_torch.models.surrogate import TrainedSurrogate, train_surrogate
+from bayesianinferencedl_tpu_torch.ops.pcg_stencil import solve_fom_stencil
 from bayesianinferencedl_tpu_torch.rom.galerkin import ReducedOperator
 from bayesianinferencedl_tpu_torch.rom.pod import pod_basis_host
-from bayesianinferencedl_tpu_torch.rom.snapshots import generate_snapshots, sample_log_uniform
+from bayesianinferencedl_tpu_torch.rom.snapshots import sample_log_uniform
+from bayesianinferencedl_tpu_torch.utils.device import resolve_device
 from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
 from bayesianinferencedl_tpu_torch.utils.ppc import ppc_chi2_pvalue
 
-# chain steps of the untimed warm-up run that precedes the timed one
+# the untimed warm-up run that precedes the timed one: pcn runs
+# 2 * _WARMUP_STEPS steps (_WARMUP_STEPS burn-in); da_pcn runs _WARMUP_DA
+# (outer steps, burn-in), each a subchain and a batched FOM solve, enough to
+# build the kernels and allocate
 _WARMUP_STEPS = 20
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={device!r} requested but torch.cuda.is_available() is False")
-    return dev
+_WARMUP_DA = (2, 1)
+_AUDIT_MAX = 1024  # kept states re-solved by the FOM iteration audit
 
 
 def _sync(dev: torch.device) -> None:
@@ -86,12 +91,12 @@ class Pipeline:
 
     def batched_forward_fn(self, likelihood: str) -> Callable:
         """(C, d) log-conductivities -> (C, n_obs) observables for the chain
-        hot loop, through the factorisation-free reduced PCG."""
+        hot loop: ``fom`` observes one batched deflated FOM solve (tol
+        ``fin.cg_tol``, cap ``fin.cg_maxiter``) through K1 or K3; ``rom`` and
+        ``rom_nn`` go through the factorisation-free reduced PCG."""
         if likelihood == "fom":
-            raise NotImplementedError(
-                "the fom likelihood (batched K1 solves per chain step) arrives with "
-                "da_pcn: ROADMAP.md queue 1, item 12"
-            )
+            solve = make_fom_solver(self.fin, tol=self.fin.cg_tol, maxiter=self.fin.cg_maxiter)
+            return lambda thetas: self.fin.op.observe(solve(torch.exp(thetas)))
         if likelihood not in ("rom", "rom_nn"):
             raise ValueError(f"unknown likelihood {likelihood!r}")
         ff = self.rom.fast_forward(self.P0, self.rom_pcg_iters)
@@ -113,11 +118,30 @@ def make_prior(cfg_prior, dtype=torch.float32, device="cpu"):
     return BoxPrior.create(cfg_prior.dim, low=cfg_prior.low, high=cfg_prior.high, kind=cfg_prior.kind)
 
 
-def make_fom_solver(fin: FiveParamFin, *, tol: float, maxiter: int):
-    """Batched FOM solver ks (B, 5) -> u (B, n) through K1 with the two-level
-    deflation preconditioner."""
+def make_fom_solver(fin: FiveParamFin, *, tol: float, maxiter: int, with_iters: bool = False):
+    """Batched FOM solver ks (B, 5) -> u (B, n) through K1 or K3 with the
+    two-level deflation preconditioner; with_iters=True returns (u, iters),
+    the per-sample iteration counts (audit_fom_iters)."""
     defl = fin.deflation_basis()
-    return lambda ks: generate_snapshots(fin.op, ks, tol=tol, maxiter=maxiter, deflation=defl)
+
+    def solve(ks):
+        u, iters = solve_fom_stencil(fin.op, ks, tol=tol, maxiter=maxiter, deflation=defl)
+        return (u, iters) if with_iters else u
+
+    return solve
+
+
+def audit_fom_iters(pipe: "Pipeline", thetas: torch.Tensor) -> tuple[int, int, float]:
+    """Re-solve a batch of kept chain states (B, d) and report (cap,
+    max_iters, frac_at_cap). The sampler discards iteration counts; this
+    audit makes a capped (unconverged) solve visible instead of silently
+    biasing the posterior. Same solver and cap as
+    ``batched_forward_fn("fom")``: the plain ``fin.cg_maxiter``."""
+    cap = pipe.fin.cg_maxiter
+    solver = make_fom_solver(pipe.fin, tol=pipe.fin.cg_tol, maxiter=cap, with_iters=True)
+    _, iters = solver(torch.exp(thetas))
+    iters = iters.cpu().numpy()
+    return cap, int(iters.max()), float((iters >= cap).mean())
 
 
 def _rel(num: torch.Tensor, den: torch.Tensor) -> float:
@@ -137,7 +161,7 @@ def build_pipeline(
     the ``holdout_rel_err`` event."""
     log = metrics or MetricsLogger()
     cfg = config
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     _set_online_precision(cfg.rom.online_precision)
 
     with log.timer("build_fom"):
@@ -223,7 +247,7 @@ def build_pipeline(
 
 @dataclass
 class InversionResult:
-    result: PCNResult
+    result: Union[PCNResult, DAResult]
     theta_true: torch.Tensor
     data: torch.Tensor
     ess: torch.Tensor  # bulk ESS per dimension (rank-normalised, split)
@@ -233,6 +257,11 @@ class InversionResult:
     ess_per_sec: float
     ess_tail: Optional[torch.Tensor] = None
     ppc: Optional[dict] = None
+    # fom-likelihood runs only: the solver-iteration audit over kept states
+    # (audit_fom_iters); a solve at the cap is unconverged
+    fom_iter_cap: Optional[int] = None
+    fom_iter_max: Optional[int] = None
+    fom_hit_cap_frac: Optional[float] = None
 
 
 def _child(gen: torch.Generator) -> torch.Generator:
@@ -251,21 +280,37 @@ def run_inversion(
     generator: Optional[torch.Generator] = None,
     metrics: Optional[MetricsLogger] = None,
 ) -> InversionResult:
-    """Bayesian inversion with batched pCN chains on pipe's device.
+    """Bayesian inversion with batched chains on pipe's device: ``pcn`` on
+    the rom/rom_nn likelihood, or ``da_pcn`` (delayed acceptance: subchains
+    of ``cfg.subchain`` pCN steps on the ``cfg.da_coarse`` surrogate,
+    Metropolis-corrected against ``likelihood``, in segments of 64 outer
+    steps for fom and 512 otherwise; n_steps and n_burn count outer steps).
 
     data=None: theta_true is drawn from the prior (or given) and the noisy
-    observations are simulated with one K1 FOM solve. data=(n_obs,): invert
+    observations are simulated with one FOM solve. data=(n_obs,): invert
     those observations as they are. An untimed warm-up run precedes the
     timed run, which uses a fresh generator and is timed with CUDA events on
-    a card."""
+    a card. fom-likelihood runs re-solve up to 1,024 kept states and report
+    the solver's iteration audit."""
     log = metrics or MetricsLogger()
     cfg = pipe.config.mcmc
     like = likelihood or cfg.likelihood
     smp = sampler or cfg.sampler
-    if smp != "pcn":
+    if smp not in ("pcn", "da_pcn"):
         raise NotImplementedError(
             f"sampler {smp!r} is not ported yet (pt_pcn: ROADMAP.md queue 1, item 11; "
-            "da_pcn: item 12; the others: items 17-21)"
+            "the others: items 17-21)"
+        )
+    if smp == "pcn" and like == "fom":
+        raise NotImplementedError(
+            "pcn on the fom likelihood runs in segments (run_pcn_segmented), which is not "
+            "ported yet: ROADMAP.md queue 1, item 10; sampler='da_pcn' gives the fom posterior"
+        )
+    if smp == "da_pcn" and like == cfg.da_coarse:
+        raise ValueError(
+            f"sampler='da_pcn' with likelihood == da_coarse ({like!r}) is degenerate: the outer "
+            "correction always accepts and each kept sample costs subchain + 1 evaluations of "
+            "the same model. Set likelihood='fom' (the exact target) or use sampler='pcn'."
         )
     if cfg.infer_noise:
         raise NotImplementedError("infer_noise (marginal_misfit) is not ported yet: ROADMAP.md queue 1, item 10")
@@ -290,12 +335,22 @@ def run_inversion(
 
     misfit_b = gaussian_misfit(fwd_b, data, cfg.noise_sigma)
     theta0 = pipe.prior.sample(gen, (cfg.n_chains,))
-    run = lambda g, n_steps, n_burn: run_pcn(
-        misfit_b, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
-        beta=cfg.beta, thin=cfg.thin,
-    )
+    if smp == "pcn":
+        warm = (2 * _WARMUP_STEPS, _WARMUP_STEPS)
+        run = lambda g, n_steps, n_burn: run_pcn(
+            misfit_b, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
+            beta=cfg.beta, thin=cfg.thin,
+        )
+    else:
+        warm = _WARMUP_DA
+        misfit_c = gaussian_misfit(pipe.batched_forward_fn(cfg.da_coarse), data, cfg.noise_sigma)
+        segment = 64 if like == "fom" else 512
+        run = lambda g, n_steps, n_burn: run_da_pcn_segmented(
+            misfit_b, misfit_c, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
+            beta=cfg.beta, subchain=cfg.subchain, segment=segment, inner=cfg.da_inner,
+        )
 
-    run(_child(gen), min(cfg.n_steps, 2 * _WARMUP_STEPS), min(cfg.n_burn, _WARMUP_STEPS))
+    run(_child(gen), min(cfg.n_steps, warm[0]), min(cfg.n_burn, warm[1]))
     _sync(dev)
     g_run = _child(gen)
     if dev.type == "cuda":
@@ -313,21 +368,43 @@ def run_inversion(
     ess = ess_bulk(res.samples)
     ess_t = ess_tail(res.samples)
     r = split_rhat(res.samples)
-    n_kept = res.samples.shape[0] * res.samples.shape[1]
+    T, C, d = res.samples.shape
+
+    # fom runs: audit the solver's iteration counts on a spread of kept
+    # states, so that a capped, unconverged solve inside the run shows
+    cap = it_max = hit_frac = None
+    if like == "fom" and T > 0:
+        idx = np.linspace(0, T * C - 1, min(_AUDIT_MAX, T * C)).astype(np.int64)
+        states = res.samples.reshape(T * C, d)[torch.from_numpy(idx).to(dev)]
+        cap, it_max, hit_frac = audit_fom_iters(pipe, pipe.prior.to_theta(states))
+        log.log("fom_iter_audit", cap=cap, max_iters=it_max, hit_cap_frac=hit_frac)
+        if hit_frac > 0:
+            warnings.warn(
+                f"{hit_frac:.1%} of audited chain states hit the FOM solver iteration cap "
+                f"({cap}): those solves are unconverged and bias the posterior; raise cg_maxiter",
+                stacklevel=2,
+            )
+
     ppc = None
-    if res.samples.shape[0] > 0:
+    if T > 0:
         ppc = ppc_chi2_pvalue(fwd_b, res.samples, data, cfg.noise_sigma, _child(gen))
         log.log("ppc", **ppc)
 
+    n_kept = T * C
     out = InversionResult(
         result=res, theta_true=theta_true, data=data, ess=ess, rhat=r,
         wall_seconds=wall, samples_per_sec=n_kept / wall,
         ess_per_sec=float(torch.min(ess)) / wall, ess_tail=ess_t, ppc=ppc,
+        fom_iter_cap=cap, fom_iter_max=it_max, fom_hit_cap_frac=hit_frac,
     )
+    extra = {}
+    if smp == "da_pcn":
+        extra = dict(inner_accept_rate=float(torch.mean(res.inner_accept_rate)),
+                     n_fine_evals=res.n_fine_evals, subchain=cfg.subchain)
     log.log(
         "inversion", likelihood=like, sampler=smp, wall_seconds=wall,
         samples_per_sec=out.samples_per_sec, ess_min=float(torch.min(ess)),
         ess_tail_min=float(torch.min(ess_t)), ess_per_sec=out.ess_per_sec,
-        accept_rate=float(torch.mean(res.accept_rate)), rhat_max=float(torch.max(r)),
+        accept_rate=float(torch.mean(res.accept_rate)), rhat_max=float(torch.max(r)), **extra,
     )
     return out

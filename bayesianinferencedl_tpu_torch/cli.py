@@ -2,11 +2,19 @@
 
     python -m bayesianinferencedl_tpu_torch.cli invert --device cuda
 
-builds the pipeline (every FOM solve through kernel K1) and runs pCN on the
-rom_nn likelihood, then prints one JSON line with the keys of the reference
-CLI's ``invert``. Flags the slice does not support yet (other samplers, the
-fom likelihood, box priors, the bf16 precision tiers) raise
-NotImplementedError naming their ROADMAP.md item.
+builds the pipeline (every FOM solve through kernel K1, or K3 from res8 up)
+and runs pCN on the rom_nn likelihood, then prints one JSON line with the
+keys of the reference CLI's ``invert``.
+
+    python -m bayesianinferencedl_tpu_torch.cli invert --sampler da_pcn \
+        --likelihood fom --resolution 8 --noise 1e-2 --steps 500 --burn 150
+
+runs delayed acceptance on the exact FOM likelihood (``--subchain`` rom_nn
+pCN steps per batched FOM correction; steps count outer steps) and adds the
+FOM iteration audit and the outer and inner accept rates to the line.
+Flags the port does not support yet (other samplers, pcn on the fom
+likelihood, box priors, the bf16 precision tiers, the MALA inner kernel)
+raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ def cmd_invert(args) -> None:
         mcmc=MCMCConfig(
             n_chains=args.chains, n_steps=args.steps, n_burn=args.burn, beta=args.beta,
             noise_sigma=args.noise, likelihood=args.likelihood, sampler=args.sampler,
-            seed=args.seed,
+            seed=args.seed, subchain=args.subchain, da_coarse=args.da_coarse,
+            da_inner=args.da_inner,
         ),
         prior=PriorConfig(mean=args.prior_mean, sigma=args.prior_sigma, dim=5, kind=args.prior),
     )
@@ -58,6 +67,13 @@ def cmd_invert(args) -> None:
     }
     if inv.ppc is not None:
         out["ppc_p_value"] = inv.ppc["p_value"]
+    if args.sampler == "da_pcn":
+        out["outer_accept"] = out["accept_rate"]
+        out["inner_accept"] = float(torch.mean(inv.result.inner_accept_rate))
+    if inv.fom_iter_cap is not None:
+        out["fom_iter_cap"] = inv.fom_iter_cap
+        out["fom_iter_max"] = inv.fom_iter_max
+        out["fom_hit_cap_frac"] = inv.fom_hit_cap_frac
     print(json.dumps(out))
 
 
@@ -69,7 +85,7 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda", help="torch device; cpu runs the plain kernel versions")
     p.add_argument("--resolution", type=int, default=4)
     p.add_argument("--biot", type=float, default=0.1)
-    p.add_argument("--cg-maxiter", type=int, default=1500, help="K1 iteration cap per FOM solve")
+    p.add_argument("--cg-maxiter", type=int, default=1500, help="iteration cap per FOM solve")
     p.add_argument("--metrics", type=str, default=None, help="JSONL metrics path")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--prior", choices=["gaussian", "uniform", "log_uniform"], default="gaussian")
@@ -92,6 +108,10 @@ def main(argv=None) -> None:
                  "mlda_pcn", "mala", "mala_lap", "hmc", "hmc_lap"],
         default="pcn",
     )
+    p.add_argument("--subchain", type=int, default=64, help="da_pcn inner steps per fine correction")
+    p.add_argument("--da-coarse", choices=["rom", "rom_nn"], default="rom_nn")
+    p.add_argument("--da-inner", choices=["pcn", "mala"], default="pcn",
+                   help="da_pcn subchain kernel (mala is not ported yet)")
     p.set_defaults(fn=cmd_invert)
 
     args = ap.parse_args(argv)

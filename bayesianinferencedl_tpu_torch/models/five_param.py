@@ -1,9 +1,10 @@
 """The 5-parameter thermal fin: piecewise-constant conductivity (one k_i per
 subfin pair + post), affine stencil assembly, FOM forward and QoI.
 
-Every FOM solve here goes through K1 (``ops.pcg_stencil.solve_fom_stencil``)
-with the two-level deflation preconditioner; the differentiable solve of the
-JAX package (``fem/solve.py``) is not part of this slice.
+Every FOM solve here goes through K1 or K3
+(``ops.pcg_stencil.solve_fom_stencil``) with the two-level deflation
+preconditioner; the differentiable solve of the JAX package
+(``fem/solve.py``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from bayesianinferencedl_tpu_torch.geometry.mesh import FinMesh, build_fin_mesh
 from bayesianinferencedl_tpu_torch.fem.dia import FinFEMDiaHost, StencilOperator, assemble_fin_dia
 from bayesianinferencedl_tpu_torch.ops.deflation import DeflationBasis
 from bayesianinferencedl_tpu_torch.ops.pcg_stencil import solve_fom_stencil
+from bayesianinferencedl_tpu_torch.utils.device import resolve_device
 
 
 @dataclass
@@ -36,17 +38,20 @@ class FiveParamFin:
         resolution: int = 4,
         biot: float = 0.1,
         dtype=torch.float32,
-        device="cpu",
+        device="cuda",
         cg_tol: float = 1e-10,
         cg_maxiter: int = 3000,
     ) -> "FiveParamFin":
+        """The fin on ``device``: the card unless the caller asks for "cpu";
+        without a card "cuda" raises."""
+        device = resolve_device(device)
         mesh = build_fin_mesh(resolution)
         host = assemble_fin_dia(mesh)
         op = StencilOperator.from_host(host, biot=biot, dtype=dtype, device=device)
         return cls(mesh=mesh, host=host, op=op, cg_tol=cg_tol, cg_maxiter=cg_maxiter)
 
     def deflation_basis(self) -> DeflationBasis:
-        """The two-level deflation basis for K1 (m = 128 modes), built once
+        """The two-level deflation basis (m = 128 modes), built once
         (host f64 eigensolve) and cached on the fin."""
         if self._deflation is None:
             self._deflation = DeflationBasis.create(

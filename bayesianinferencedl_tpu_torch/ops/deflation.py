@@ -78,9 +78,14 @@ class DeflationBasis:
 
     def coarse_inverses(self, ks: torch.Tensor, biot: float) -> torch.Tensor:
         """(B, 5) -> (B, m, m) inverses of the SPD coarse matrices by a
-        batched Cholesky factorisation."""
-        L = torch.linalg.cholesky(self.coarse_matrices(ks, biot))
-        return torch.cholesky_inverse(L)
+        batched Cholesky factorisation. B(k) is SPD for positive k. The
+        factorisation's status stays on the device, so that a chain step
+        that solves the FOM never waits on the host: a sample whose factor
+        failed gets an all-NaN inverse (the JAX package's Newton-Schulz
+        iteration diverges there), and ``solve_fom_stencil`` returns NaN
+        for it."""
+        L, info = torch.linalg.cholesky_ex(self.coarse_matrices(ks, biot))
+        return torch.where((info == 0)[:, None, None], torch.cholesky_inverse(L), torch.nan)
 
 
 def _eig_modes(As, Mext, biot: float, mask: np.ndarray, m: int) -> np.ndarray:

@@ -1,16 +1,23 @@
-"""Fused batched Jacobi-PCG on the 7-diagonal stencil (kernel K1).
+"""Fused batched Jacobi-PCG on the 7-diagonal stencil (kernels K1 and K3).
 
-A FOM solve is CG on the symmetric stencil operator of ``fem/dia.py``. On a
-CUDA tensor ``pcg_stencil`` launches the hand-written kernel in
-``csrc/pcg_stencil.cu``: one thread block per sample runs the whole PCG loop,
-with the optional two-level deflation preconditioner of ``ops/deflation.py``.
-On a CPU tensor it runs ``pcg_stencil_reference``, the plain batched torch
-version of the same math, which the tests hold against the JAX Pallas
-kernel and ``chip_smoke.py`` holds the CUDA kernel against.
+A FOM solve is CG on the symmetric stencil operator of ``fem/dia.py``, with
+the optional two-level deflation preconditioner of ``ops/deflation.py``. Two
+hand-written CUDA kernels compute it, with one contract:
 
-Semantics shared by both versions (those of the JAX lanes kernel's
-``_jacobi_cg``, except that convergence is per sample, not per 128-sample
-tile):
+- K1, ``pcg_stencil`` (``csrc/pcg_stencil.cu``): one thread block per
+  sample, for the meshes the JAX package solves with its lanes kernel;
+- K3, ``pcg_stencil_tile`` (``csrc/pcg_stencil_tile.cu``): a tile of 8
+  samples per block that share each pass over the deflation basis, for the
+  larger meshes the JAX package solves with its sublanes kernel (res >= 8).
+
+``solve_fom_stencil`` picks between them by the mesh size alone
+(``kernel_for``). On a CUDA tensor a wrapper launches its kernel; on a CPU
+tensor it runs ``pcg_stencil_reference``, the plain batched torch version of
+the same math, which the tests hold against the JAX Pallas kernels and
+``chip_smoke.py`` holds both CUDA kernels against.
+
+Semantics shared by all versions (those of the JAX kernels' ``_jacobi_cg``,
+except that convergence is per sample, not per tile of samples):
 
 - the operator is given by its 4 upper diagonal planes [0, +o1, +o2, +o3]
   (A is symmetric); reads outside [0, n) count as zero;
@@ -19,7 +26,8 @@ tile):
 - alpha and beta are 0 where their denominators are not positive;
 - a sample stops once ||r||^2 <= tol^2 ||F||^2, tested every
   ``check_every`` iterations, or at ``maxiter`` iterations; the returned
-  count is per sample.
+  count is per sample; a stopped sample is frozen while the others iterate;
+- x0 = None starts from zero (the JAX sublanes kernel's cold-start variant).
 """
 
 from __future__ import annotations
@@ -31,6 +39,15 @@ import torch
 DIAG_SLOT = 3  # index of offset 0 in the ascending 7-offset DIA layout
 
 launches = 0  # K1 launches in this process (the CUDA path only)
+tile_launches = 0  # K3 launches in this process (the CUDA path only)
+
+# The largest n the JAX package solves with its lanes kernel: that layout's
+# VMEM working set, 11 * n * 128 * 4 bytes, must fit its 100 MiB budget
+# (bayesianinferencedl_tpu/ops/pcg_stencil.py, pick_layout). Up to this
+# size the port takes K1, above it K3. res4 (n = 6,400) is below; res8
+# (24,960) and res16 (99,072) are above.
+LANES_MAX_N = (100 * 1024 * 1024) // (11 * 128 * 4)  # 18,618
+TILE_MAX_M = 128  # the largest coarse space K3 is built for
 
 
 def upper_planes(vals: torch.Tensor) -> torch.Tensor:
@@ -50,7 +67,7 @@ def pcg_stencil_reference(
     Binv: torch.Tensor | None = None,
     check_every: int = 16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain batched torch PCG with K1's contract (module docstring).
+    """Plain batched torch PCG: the contract of K1 and K3 (module docstring).
 
     vals4 (B, 4, n); F (n,); x0 (B, n) or None; offsets: the 3 positive
     flat offsets; Wt (m, n) bf16 and Binv (B, m, m), both or neither.
@@ -124,6 +141,37 @@ def _check(t: torch.Tensor | None, name: str, shape: tuple, dtype, device) -> No
         raise ValueError(f"{name} must be contiguous")
 
 
+def _checked(kernel, vals4, F, x0, *, offsets, maxiter, Wt, Binv, check_every, words_always,
+             max_m=None) -> dict:
+    """The checks both wrappers make; returns the keyword arguments of the
+    plain version. words_always: n % 8 == 0 even without deflation (K3 reads
+    every vector in 8-value words)."""
+    if vals4.dim() != 3 or vals4.shape[1] != 4:
+        raise ValueError(f"vals4 must be (B, 4, n), got {tuple(vals4.shape)}")
+    B, _, n = vals4.shape
+    dev = vals4.device
+    if (Wt is None) != (Binv is None):
+        raise ValueError("Wt and Binv come together (deflation) or not at all")
+    if len(offsets) != 3 or not all(0 < int(o) < n for o in offsets):
+        raise ValueError(f"offsets must be 3 positive flat offsets below n, got {offsets}")
+    if maxiter < 0 or check_every < 1:
+        raise ValueError("need maxiter >= 0 and check_every >= 1")
+    m = 0 if Wt is None else Wt.shape[0]
+    if (m or words_always) and n % 8:
+        raise ValueError(f"{kernel} reads 8-value words: n must be a multiple of 8, got {n}")
+    if max_m is not None and m > max_m:
+        raise ValueError(f"{kernel} takes a coarse space of at most {max_m} modes, got {m}")
+    _check(vals4, "vals4", (B, 4, n), torch.float32, dev)
+    _check(F, "F", (n,), torch.float32, dev)
+    _check(x0, "x0", (B, n), torch.float32, dev)
+    _check(Wt, "Wt", (m, n), torch.bfloat16, dev)
+    _check(Binv, "Binv", (B, m, m), torch.float32, dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel} runs on CUDA or CPU tensors, got {dev}")
+    return dict(offsets=tuple(int(o) for o in offsets), maxiter=maxiter, Wt=Wt, Binv=Binv,
+                check_every=check_every)
+
+
 def pcg_stencil(
     vals4: torch.Tensor,
     F: torch.Tensor,
@@ -138,39 +186,48 @@ def pcg_stencil(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1's wrapper: the CUDA kernel on CUDA tensors, the plain version on
     CPU tensors. Arguments as for ``pcg_stencil_reference``."""
-    if vals4.dim() != 3 or vals4.shape[1] != 4:
-        raise ValueError(f"vals4 must be (B, 4, n), got {tuple(vals4.shape)}")
-    B, _, n = vals4.shape
-    dev = vals4.device
-    if (Wt is None) != (Binv is None):
-        raise ValueError("Wt and Binv come together (deflation) or not at all")
-    if len(offsets) != 3 or not all(0 < int(o) < n for o in offsets):
-        raise ValueError(f"offsets must be 3 positive flat offsets below n, got {offsets}")
-    if maxiter < 0 or check_every < 1:
-        raise ValueError("need maxiter >= 0 and check_every >= 1")
-    m = 0 if Wt is None else Wt.shape[0]
-    if m and n % 8:
-        raise ValueError(f"deflated K1 reads Wt in 8-value words: n must be a multiple of 8, got {n}")
-    _check(vals4, "vals4", (B, 4, n), torch.float32, dev)
-    _check(F, "F", (n,), torch.float32, dev)
-    _check(x0, "x0", (B, n), torch.float32, dev)
-    _check(Wt, "Wt", (m, n), torch.bfloat16, dev)
-    _check(Binv, "Binv", (B, m, m), torch.float32, dev)
-    kw = dict(offsets=tuple(int(o) for o in offsets), tol=tol, maxiter=maxiter,
-              Wt=Wt, Binv=Binv, check_every=check_every)
-    if dev.type == "cpu":
-        return pcg_stencil_reference(vals4, F, x0, **kw)
-    if dev.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or CPU tensors, got {dev}")
-    return _launch(vals4, F, x0, **kw)
+    kw = _checked("K1", vals4, F, x0, offsets=offsets, maxiter=maxiter, Wt=Wt, Binv=Binv,
+                  check_every=check_every, words_always=False)
+    if vals4.device.type == "cpu":
+        return pcg_stencil_reference(vals4, F, x0, tol=tol, **kw)
+    return _launch("pcg_stencil", vals4, F, x0, tol=tol, **kw)
 
 
-def _launch(vals4, F, x0, *, offsets, tol, maxiter, Wt, Binv, check_every):
-    global launches
+def pcg_stencil_tile(
+    vals4: torch.Tensor,
+    F: torch.Tensor,
+    x0: torch.Tensor | None = None,
+    *,
+    offsets: tuple,
+    tol: float,
+    maxiter: int,
+    Wt: torch.Tensor | None = None,
+    Binv: torch.Tensor | None = None,
+    check_every: int = 16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's wrapper: the CUDA kernel (8 samples per block) on CUDA tensors,
+    the plain version on CPU tensors. Arguments as for
+    ``pcg_stencil_reference``; n must be a multiple of 8 and m at most 128."""
+    kw = _checked("K3", vals4, F, x0, offsets=offsets, maxiter=maxiter, Wt=Wt, Binv=Binv,
+                  check_every=check_every, words_always=True, max_m=TILE_MAX_M)
+    if vals4.device.type == "cpu":
+        return pcg_stencil_reference(vals4, F, x0, tol=tol, **kw)
+    return _launch("pcg_stencil_tile", vals4, F, x0, tol=tol, **kw)
+
+
+def kernel_for(n: int):
+    """The wrapper that solves n-node systems: K1 up to ``LANES_MAX_N``
+    nodes, K3 above."""
+    return pcg_stencil if n <= LANES_MAX_N else pcg_stencil_tile
+
+
+def _launch(name, vals4, F, x0, *, offsets, tol, maxiter, Wt, Binv, check_every):
+    """Launch ``csrc/<name>.cu`` (K1 and K3 share one C signature) and count
+    the launch."""
+    global launches, tile_launches
     from bayesianinferencedl_tpu_torch.ops._build import load_library
 
-    lib = load_library("pcg_stencil")
-    fn = lib.pcg_stencil_launch
+    fn = getattr(load_library(name), f"{name}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p] * 8
@@ -179,8 +236,9 @@ def _launch(vals4, F, x0, *, offsets, tol, maxiter, Wt, Binv, check_every):
     )
     B, _, n = vals4.shape
     m = 0 if Wt is None else Wt.shape[0]
-    if Wt is not None and Wt.data_ptr() % 16:
-        raise ValueError("Wt must be 16-byte aligned")
+    for t, what in ((vals4, "vals4"), (x0, "x0"), (Wt, "Wt")):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{what} must be 16-byte aligned")
     with torch.cuda.device(vals4.device):
         x = torch.empty((B, n), dtype=torch.float32, device=vals4.device)
         iters = torch.empty((B,), dtype=torch.int32, device=vals4.device)
@@ -193,8 +251,11 @@ def _launch(vals4, F, x0, *, offsets, tol, maxiter, Wt, Binv, check_every):
             torch.cuda.current_stream(vals4.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"pcg_stencil_launch failed with cudaError_t {err}")
-    launches += 1
+        raise RuntimeError(f"{name}_launch failed with cudaError_t {err}")
+    if name == "pcg_stencil":
+        launches += 1
+    else:
+        tile_launches += 1
     return x, iters
 
 
@@ -209,14 +270,17 @@ def solve_fom_stencil(
     coarse_inv: torch.Tensor | None = None,
     check_every: int = 16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched FOM solve A(k_b) u_b = F through K1.
+    """Batched FOM solve A(k_b) u_b = F through K1 or K3 (``kernel_for``).
 
     op: fem.dia.StencilOperator; ks: (B, 5). Returns (u (B, n), iters (B,)).
     x0: optional (B, n) warm starts. deflation: optional
     ops.deflation.DeflationBasis; its per-sample coarse inverses are a
     batched Cholesky before the launch unless ``coarse_inv`` (B, m, m) is
-    given. Not differentiable: snapshot and dataset sweeps, and the
-    synthetic-truth solve."""
+    given. A sample whose coarse inverse is not finite (a failed
+    factorisation) gets a NaN solution: the guards on alpha and beta would
+    otherwise leave it at its start, finite and wrong. Not differentiable:
+    snapshot and dataset sweeps, the synthetic-truth solve and the fom
+    likelihood."""
     ks = torch.as_tensor(ks, dtype=op.dtype, device=op.device)
     vals4 = upper_planes(op.vals(ks))
     Wt = Binv = None
@@ -226,7 +290,10 @@ def solve_fom_stencil(
         Binv = Binv.to(op.dtype).contiguous()
     if x0 is not None:
         x0 = x0.contiguous()
-    return pcg_stencil(
+    x, iters = kernel_for(op.n)(
         vals4, op.F_root, x0, offsets=op.offsets[DIAG_SLOT + 1:], tol=tol,
         maxiter=maxiter, Wt=Wt, Binv=Binv, check_every=check_every,
     )
+    if Binv is not None:
+        x = torch.where(torch.isfinite(Binv).all(dim=(1, 2))[:, None], x, torch.nan)
+    return x, iters

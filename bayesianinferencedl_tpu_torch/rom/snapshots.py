@@ -1,12 +1,11 @@
-"""Parameter sampling and snapshot generation: one batched FOM solve."""
+"""Parameter sampling for the snapshot and dataset sweeps (the solves are
+``api.make_fom_solver``)."""
 
 from __future__ import annotations
 
 import math
 
 import torch
-
-from bayesianinferencedl_tpu_torch.ops.pcg_stencil import solve_fom_stencil
 
 
 def sample_log_uniform(
@@ -17,9 +16,3 @@ def sample_log_uniform(
     generator's device."""
     u = torch.rand((n, dim), generator=gen, device=gen.device, dtype=dtype)
     return torch.exp(math.log(lo) + u * (math.log(hi) - math.log(lo)))
-
-
-def generate_snapshots(op, ks: torch.Tensor, *, tol: float, maxiter: int, deflation=None) -> torch.Tensor:
-    """Solve the FOM at each parameter sample; returns (n_samples, n)."""
-    u, _ = solve_fom_stencil(op, ks, tol=tol, maxiter=maxiter, deflation=deflation)
-    return u

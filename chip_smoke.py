@@ -7,8 +7,9 @@ NVIDIA GPU, from the root of a checkout:
 Phases, one or more lines each; any failure exits non-zero with no result:
 
   0. device   require CUDA; print the card's name and power limit
-  1. build    compile kernels K1 (csrc/pcg_stencil.cu) and K2
-              (csrc/pcn_fused.cu) with nvcc, one process each, started together
+  1. build    compile kernels K1 (csrc/pcg_stencil.cu), K2 (csrc/pcn_fused.cu)
+              and K3 (csrc/pcg_stencil_tile.cu) with nvcc, one process each,
+              started together
   2. K1       the kernel against its plain torch version on the card at res4,
               B = 256 log-uniform conductivities, m = 128, tol 1e-7,
               maxiter 1500: deflated, undeflated and warm-started. Per-sample
@@ -16,7 +17,8 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               deflated solutions within 1e-4 of a float64 direct solve, and
               iteration counts that show the preconditioner is the plain
               version's (see phase_kernel). Kernel and plain times by CUDA
-              events, also at the build's batch sizes 1024 and 128
+              events, also at the build's batch sizes 1024 and 128, with
+              K3's time on the same inputs for the record
   3. slice    build_pipeline (res4, 256 snapshots, r = 40, 1024 + 128
               training/holdout samples, (64, 64) tanh MLP, 300 epochs) and
               run_inversion (pcn, rom_nn, 1024 chains, 4000 steps, 1000 burn,
@@ -43,6 +45,31 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               ESS of both runs) of run_inversion's pcn, sds within 10%,
               accept rates within 0.02; split-R-hat printed beside pcn's;
               (c) the plain version over the same 4,000 steps, timed.
+  5. K3       the tiled PCG kernel against its plain torch version at res8
+              (n = 24,960), B = 256, m = 128, tol 1e-7, maxiter 1500: deflated
+              cold (x0 = None, the da_pcn case), undeflated cold, deflated
+              warm. No sample at the cap; deflated counts within 16 of the
+              plain version's per sample, undeflated means within 5%;
+              deflated runs under half their undeflated iterations; against
+              a float64 direct solve (8 samples) within 1e-4, or within 1.5x
+              the plain version's own error where f32 CG cannot reach 1e-4
+              (printed with the reason); kernel vs plain per sample within the
+              plain version's own error against the direct solve. The
+              masked last tile (deflated cold at B = 1 and 250, deflated
+              warm at 250) against the plain version with the same
+              per-sample gates. Times at
+              B = 256 and 1,024 for K3, K1 on the same inputs (for the
+              record) and the plain version, with K3's bound
+  6. DA       build_pipeline at res8 with phase 3's widths, then
+              run_inversion(da_pcn, fom): 1,024 chains, subchains of 64
+              rom_nn pCN steps, noise 1e-2, 100 outer steps (30 burn-in; the
+              reference bench runs 500 / 150). K3 must carry every FOM solve
+              (>= 3 launches in the build, >= 101 in the run) and K1 none;
+              outputs finite, samples (70, 1024, 5), outer accept > 0.6, inner
+              accept in (0.05, 0.9), no audited state at the iteration cap.
+              Prints stage seconds, ESS/s, outer steps/s, split-R-hat against
+              the reference's 1.05 gate, the posterior mean against the truth
+              and the share of a batched fine solve in the outer step.
 
 The last three lines are the kernel summary (JSON: time, launches, bound,
 plain time of each kernel), the nvidia-smi line, and
@@ -91,7 +118,7 @@ def phase_device():
     return card
 
 
-KERNEL_SOURCES = ("pcg_stencil", "pcn_fused")
+KERNEL_SOURCES = ("pcg_stencil", "pcn_fused", "pcg_stencil_tile")
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 PEAK_F32 = 67e12  # FLOP/s on the CUDA cores
@@ -153,26 +180,27 @@ def _time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def _direct_rel_err(fin, ks: np.ndarray, u: np.ndarray) -> tuple[float, float, float]:
-    """max over samples of: ||u - u*|| / ||u*|| against the float64 sparse
-    direct solve u*, the f64 relative residual of u, and that residual for
-    u* rounded to float32 (the floor any float32 solution sits on)."""
+def _direct_rel_err(fin, ks: np.ndarray, u: np.ndarray) -> tuple[np.ndarray, np.ndarray, float]:
+    """Per sample: ||u - u*|| / ||u*|| against the float64 sparse direct
+    solve u*, and the f64 relative residual of u; and the max over samples
+    of that residual for u* rounded to float32 (the floor any float32
+    solution sits on)."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
     As, Mext = fin.host.to_scipy_components()
     mask = sum(A.diagonal() for A in As) > 0
     F = fin.host.F_root
-    err = res = floor = 0.0
+    err, res, floor = [], [], 0.0
     for k, ub in zip(ks, u):
         A = sum(float(ki) * Ai for ki, Ai in zip(k, As)) + fin.op.biot * Mext
         A = (A + sp.diags(np.where(mask, 0.0, 1.0))).tocsc()
         us = spla.spsolve(A, F)
         ub = ub.astype(np.float64)
-        err = max(err, np.linalg.norm(ub - us) / np.linalg.norm(us))
-        res = max(res, np.linalg.norm(F - A @ ub) / np.linalg.norm(F))
+        err.append(np.linalg.norm(ub - us) / np.linalg.norm(us))
+        res.append(np.linalg.norm(F - A @ ub) / np.linalg.norm(F))
         floor = max(floor, np.linalg.norm(F - A @ us.astype(np.float32)) / np.linalg.norm(F))
-    return err, res, floor
+    return np.array(err), np.array(res), floor
 
 
 def phase_kernel():
@@ -251,6 +279,7 @@ def phase_kernel():
         if name == "deflated":
             sub = slice(0, 16)
             err, res, floor = _direct_rel_err(fin, ks_np[sub], xk[sub].cpu().numpy())
+            err, res = err.max(), res.max()
             say("K1", f"{name}: vs float64 direct solve (16 samples): max rel err {err:.3e}; "
                 f"f64 rel residual {res:.3e} (float32-rounded exact solution: {floor:.3e})")
             if err > REL_GATE:
@@ -268,7 +297,11 @@ def phase_kernel():
         k_ms = _time_ms(lambda: K1.pcg_stencil(vals4, op.F_root, None, **args), 5)
         p_ms = _time_ms(lambda: K1.pcg_stencil_reference(vals4, op.F_root, None, **args), 3)
         times[B] = (k_ms, p_ms)
-        say("K1", f"deflated B={B}: kernel {k_ms:.3f} ms, plain torch {p_ms:.3f} ms per batched solve")
+        # K3 on K1's inputs, for the record: the K1/K3 split (LANES_MAX_N) is
+        # the JAX package's layout rule, and these times say where it sits
+        k3_ms = _time_ms(lambda: K1.pcg_stencil_tile(vals4, op.F_root, None, **args), 5)
+        say("K1", f"deflated B={B}: kernel {k_ms:.3f} ms, plain torch {p_ms:.3f} ms per batched "
+            f"solve; K3 on the same inputs {k3_ms:.3f} ms (for the record)")
     bound = _k1_bound(B_CHECK, op.n, defl.m, iters["deflated"])
     say("K1", f"deflated B={B_CHECK}: bound {bound[0]:.4f} ms ({bound[1]}), kernel at "
         f"{100 * bound[0] / times[B_CHECK][0]:.2f}% of it")
@@ -485,6 +518,253 @@ def phase_k2(cfg, pipe, inv):
     return dict(launches=launches, max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound=bound)
 
 
+K3_RES = 8
+K3_DIRECT = 8  # samples held against the float64 direct solve
+K3_BATCHES = (B_CHECK, 1024)
+
+
+def phase_k3():
+    """K3 (csrc/pcg_stencil_tile.cu) against its plain version at res8."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+
+    t0 = time.perf_counter()
+    fin = FiveParamFin.create(resolution=K3_RES, biot=0.1, device="cuda", cg_tol=TOL,
+                              cg_maxiter=MAXITER)
+    defl = fin.deflation_basis()
+    op = fin.op
+    offs = op.offsets[4:]
+    say("K3", f"res{K3_RES} n={op.n} offsets={offs} m={defl.m}; fin + deflation basis "
+        f"{time.perf_counter() - t0:.2f} s; solve_fom_stencil takes "
+        f"{K.kernel_for(op.n).__name__} (K1 up to n = {K.LANES_MAX_N})")
+    if K.kernel_for(op.n) is not K.pcg_stencil_tile:
+        fail(f"solve_fom_stencil does not route n = {op.n} to K3")
+    rng = np.random.default_rng(0)
+
+    def inputs(B):
+        ks_np = np.exp(rng.uniform(np.log(0.1), np.log(10.0), (B, 5)))
+        ks = torch.tensor(ks_np, dtype=torch.float32, device="cuda")
+        return ks_np, ks, K.upper_planes(op.vals(ks)), defl.coarse_inverses(ks, op.biot).contiguous()
+
+    ks_np, ks, vals4, Binv = inputs(B_CHECK)
+    kw = dict(offsets=offs, tol=TOL, maxiter=MAXITER)
+    ks_near = ks * 1.05  # warm starts: deflated solutions at conductivities 5% away
+    x0, _ = K.pcg_stencil_reference(
+        K.upper_planes(op.vals(ks_near)), op.F_root, None, Wt=defl.Wt_bf16,
+        Binv=defl.coarse_inverses(ks_near, op.biot).contiguous(), **kw,
+    )
+    cases = {
+        "deflated cold": dict(x0=None, Wt=defl.Wt_bf16, Binv=Binv),
+        "undeflated cold": dict(x0=None, Wt=None, Binv=None),
+        "deflated warm": dict(x0=x0.contiguous(), Wt=defl.Wt_bf16, Binv=Binv),
+    }
+    max_abs = 0.0
+    iters, full = {}, {}
+    for name, c in cases.items():
+        xk, itk = K.pcg_stencil_tile(vals4, op.F_root, c["x0"], Wt=c["Wt"], Binv=c["Binv"], **kw)
+        torch.cuda.synchronize()
+        xp, itp = K.pcg_stencil_reference(vals4, op.F_root, c["x0"], Wt=c["Wt"], Binv=c["Binv"], **kw)
+        if not torch.isfinite(xk).all():
+            fail(f"K3 {name}: non-finite solution")
+        rel_s = (torch.linalg.norm(xk - xp, dim=1) / torch.linalg.norm(xp, dim=1)).cpu().numpy()
+        abs_err = (xk - xp).abs().max().item()
+        max_abs = max(max_abs, abs_err)
+        it, itp = itk.cpu().numpy(), itp.cpu().numpy()
+        iters[name] = it
+        it_diff = np.abs(it - itp)
+        mean_shift = abs(it.mean() / itp.mean() - 1)
+        say("K3", f"{name}: per-sample rel diff vs plain max {rel_s.max():.3e} median "
+            f"{np.median(rel_s):.3e} (max abs {abs_err:.3e}); iters kernel min/median/max "
+            f"{it.min()}/{int(np.median(it))}/{it.max()}, plain {itp.min()}/{int(np.median(itp))}/"
+            f"{itp.max()}; per-sample count difference max {it_diff.max()}, "
+            f"{int((it_diff > CHECK_EVERY).sum())} samples > {CHECK_EVERY}; mean count "
+            f"{it.mean():.2f} vs {itp.mean():.2f}")
+        if it.max() >= MAXITER or itp.max() >= MAXITER:
+            fail(f"K3 {name}: {int((it >= MAXITER).sum())} kernel and {int((itp >= MAXITER).sum())} "
+                 f"plain samples hit the {MAXITER}-iteration cap")
+        # the counts show that the preconditioner is the plain version's
+        # (PR 1 Findings): per sample to one check block when deflated, the
+        # batch mean to 5% undeflated, where f32 CG's residual is not
+        # monotone near tol
+        if c["Wt"] is not None and it_diff.max() > CHECK_EVERY:
+            fail(f"K3 {name}: iteration counts differ from the plain version's by "
+                 f"{it_diff.max()} > {CHECK_EVERY} for some sample")
+        if mean_shift > 0.05:
+            fail(f"K3 {name}: mean iteration count {it.mean():.2f} vs plain {itp.mean():.2f}")
+        if name == "deflated cold":
+            sub = slice(0, K3_DIRECT)
+            err_k, res_k, floor = _direct_rel_err(fin, ks_np[sub], xk[sub].cpu().numpy())
+            err_p, _, _ = _direct_rel_err(fin, ks_np[sub], xp[sub].cpu().numpy())
+            say("K3", f"{name}: vs float64 direct solve ({K3_DIRECT} samples): kernel max rel err "
+                f"{err_k.max():.3e}, plain {err_p.max():.3e}; f64 rel residual {res_k.max():.3e} "
+                f"(float32-rounded exact solution: {floor:.3e}); kernel vs plain on these samples "
+                f"{np.round(rel_s[sub], 8).tolist()}, plain vs direct {np.round(err_p, 8).tolist()}")
+            gate = REL_GATE
+            if 1.5 * err_p.max() > REL_GATE:
+                gate = 1.5 * err_p.max()
+                say("K3", f"accuracy gate {gate:.3e} = 1.5 x the plain version's own error: f32 CG "
+                    f"at res{K3_RES} does not reach {REL_GATE:g} against the direct solve")
+            if err_k.max() > gate:
+                fail(f"K3 {name}: relative error {err_k.max():.3e} against the f64 direct solve > {gate:.3e}")
+            if rel_s.max() > err_p.max():
+                fail(f"K3 {name}: kernel vs plain {rel_s.max():.3e} exceeds the plain version's own "
+                     f"error against the direct solve, {err_p.max():.3e}")
+            rel_gate = err_p.max()
+        full[name] = xk
+    for name in ("deflated cold", "deflated warm"):
+        slow = int((2 * iters[name] > iters["undeflated cold"]).sum())
+        if slow:
+            fail(f"K3 {name}: {slow} samples took more than half their undeflated iterations")
+
+    # the masked last tile: batches that are not a multiple of the tile's 8
+    # samples, as the synthetic-truth solve (B = 1) sends, held against the
+    # plain version with the gates of the full-tile cases
+    for B, name, c in ((1, "deflated cold", cases["deflated cold"]),
+                       (250, "deflated cold", cases["deflated cold"]),
+                       (250, "deflated warm", cases["deflated warm"])):
+        v = vals4[:B].contiguous()
+        x0_b = None if c["x0"] is None else c["x0"][:B].contiguous()
+        args = dict(Wt=c["Wt"], Binv=c["Binv"][:B].contiguous(), **kw)
+        xk, itk = K.pcg_stencil_tile(v, op.F_root, x0_b, **args)
+        torch.cuda.synchronize()
+        xp, itp = K.pcg_stencil_reference(v, op.F_root, x0_b, **args)
+        if not torch.isfinite(xk).all():
+            fail(f"K3 {name} B={B}: non-finite solution")
+        rel_s = (torch.linalg.norm(xk - xp, dim=1) / torch.linalg.norm(xp, dim=1)).cpu().numpy()
+        max_abs = max(max_abs, (xk - xp).abs().max().item())
+        it, itp = itk.cpu().numpy(), itp.cpu().numpy()
+        it_diff = np.abs(it - itp)
+        same = torch.equal(xk, full[name][:B])
+        say("K3", f"{name} B={B} (last tile {B % 8 or 8} of 8): per-sample rel diff vs plain max "
+            f"{rel_s.max():.3e}; iters kernel min/max {it.min()}/{it.max()}, plain "
+            f"{itp.min()}/{itp.max()}, per-sample count difference max {it_diff.max()}; "
+            f"bit-identical to the B={B_CHECK} run's first {B} samples: {same}")
+        if it.max() >= MAXITER or itp.max() >= MAXITER:
+            fail(f"K3 {name} B={B}: samples hit the {MAXITER}-iteration cap")
+        if it_diff.max() > CHECK_EVERY:
+            fail(f"K3 {name} B={B}: iteration counts differ from the plain version's by "
+                 f"{it_diff.max()} > {CHECK_EVERY} for some sample")
+        if rel_s.max() > rel_gate:
+            fail(f"K3 {name} B={B}: kernel vs plain {rel_s.max():.3e} exceeds the plain version's "
+                 f"own error against the direct solve, {rel_gate:.3e}")
+
+    times = {}
+    for B in K3_BATCHES:
+        if B != B_CHECK:
+            _, _, vals4, Binv = inputs(B)
+        args = dict(Wt=defl.Wt_bf16, Binv=Binv, **kw)
+        _, it_b = K.pcg_stencil_tile(vals4, op.F_root, None, **args)
+        k3_ms = _time_ms(lambda: K.pcg_stencil_tile(vals4, op.F_root, None, **args), 5)
+        k1_ms = _time_ms(lambda: K.pcg_stencil(vals4, op.F_root, None, **args), 3)
+        p_ms = _time_ms(lambda: K.pcg_stencil_reference(vals4, op.F_root, None, **args), 3)
+        bound = _k1_bound(B, op.n, defl.m, it_b.cpu().numpy())
+        times[B] = dict(ms=k3_ms, k1_ms=k1_ms, plain_ms=p_ms, bound=bound)
+        say("K3", f"deflated cold B={B}: K3 {k3_ms:.3f} ms, K1 on the same inputs {k1_ms:.3f} ms "
+            f"(for the record), plain torch {p_ms:.3f} ms per batched solve; mean count "
+            f"{it_b.float().mean().item():.2f}; bound {bound[0]:.4f} ms ({bound[1]}), K3 at "
+            f"{100 * bound[0] / k3_ms:.2f}% of it")
+    return dict(max_abs_err=max_abs, times=times)
+
+
+DA_OUTER, DA_BURN = 100, 30  # cut from the reference bench's 500 / 150 outer steps
+RHAT_GATE = 1.05  # the reference bench's split-R-hat gate
+
+
+def phase_da():
+    """The slice: the res8 build and da_pcn on the fom likelihood."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.api import build_pipeline, run_inversion
+    from bayesianinferencedl_tpu_torch.config import (
+        FEMConfig, MCMCConfig, MeshConfig, PipelineConfig, ROMConfig, SurrogateConfig,
+    )
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+    from bayesianinferencedl_tpu_torch.utils.ppc import thin_samples
+
+    cfg = PipelineConfig(
+        mesh=MeshConfig(resolution=K3_RES),
+        fem=FEMConfig(biot=0.1, cg_tol=TOL, cg_maxiter=MAXITER),
+        rom=ROMConfig(n_snapshots=256, basis_size=40, online_precision="highest"),
+        surrogate=SurrogateConfig(hidden=(64, 64), n_train=1024, epochs=300),
+        mcmc=MCMCConfig(n_chains=1024, n_steps=DA_OUTER, n_burn=DA_BURN, beta=0.25,
+                        noise_sigma=1e-2, likelihood="fom", sampler="da_pcn", subchain=64,
+                        da_coarse="rom_nn", da_inner="pcn"),
+    )
+    mc = cfg.mcmc
+    log = MetricsLogger()
+    K.launches = K.tile_launches = 0
+    t0 = time.perf_counter()
+    pipe = build_pipeline(cfg, device="cuda", metrics=log)
+    build_s = time.perf_counter() - t0
+    k3_build, k1_build = K.tile_launches, K.launches
+    inv = run_inversion(pipe, metrics=log)
+    torch.cuda.synchronize()
+    k3_all, k1_all = K.tile_launches, K.launches
+    s = log.summary()
+    stages = {k: s[k]["seconds"] for k in ("build_fom", "snapshots", "project_rom", "error_dataset",
+                                          "train_surrogate", "holdout_eval")}
+    say("DA", f"build_pipeline res{K3_RES} (n = {pipe.fin.op.n}) {build_s:.2f} s; stages (s) "
+        + json.dumps(stages))
+    say("DA", f"K3 launches: {k3_build} in the build, {k3_all - k3_build} in run_inversion; "
+        f"K1 launches: {k1_all} ({k1_build} in the build)")
+    res = inv.result
+    outer = float(res.accept_rate.mean())
+    inner = float(res.inner_accept_rate.mean())
+    rhat = float(inv.rhat.max())
+    say("DA", f"da_pcn fom, {mc.n_chains} chains, subchain {mc.subchain}, {mc.n_steps} outer steps "
+        f"({mc.n_burn} burn-in): {inv.wall_seconds:.3f} s, {mc.n_steps / inv.wall_seconds:.3f} outer "
+        f"steps/s, {inv.samples_per_sec:.1f} kept samples/s, ESS/s {inv.ess_per_sec:.2f} (bulk ESS "
+        f"min {inv.ess.min().item():.1f}, tail min {inv.ess_tail.min().item():.1f}); outer accept "
+        f"{outer:.4f}, inner accept {inner:.4f}; fine evaluations {res.n_fine_evals}")
+    say("DA", f"split-rhat max {rhat:.4f} against the reference bench's {RHAT_GATE} gate: "
+        f"{'pass' if rhat <= RHAT_GATE else 'fail'} (printed, not gated: {mc.n_steps - mc.n_burn} "
+        f"kept outer steps); iteration audit cap {inv.fom_iter_cap}, max {inv.fom_iter_max}, "
+        f"at cap {inv.fom_hit_cap_frac}; ppc p {inv.ppc['p_value']:.3f}")
+    post = res.samples.mean(dim=(0, 1)).cpu().numpy()
+    say("DA", f"posterior mean log k {np.round(post, 4).tolist()} vs truth "
+        f"{np.round(inv.theta_true.cpu().numpy(), 4).tolist()}")
+
+    if k3_build < 3:
+        fail(f"K3 was launched {k3_build} times in build_pipeline at res{K3_RES} (expected >= 3)")
+    if k3_all - k3_build < mc.n_steps + 1:
+        fail(f"K3 was launched {k3_all - k3_build} times in the da_pcn run (expected >= "
+             f"{mc.n_steps + 1})")
+    if k1_all:
+        fail(f"K1 was launched {k1_all} times at res{K3_RES}, where K3 carries every FOM solve")
+    for name, t in (("samples", res.samples), ("phi", res.phi_trace), ("ess", inv.ess),
+                    ("ess_tail", inv.ess_tail), ("rhat", inv.rhat), ("data", inv.data)):
+        if not torch.isfinite(t).all():
+            fail(f"non-finite {name}")
+    if tuple(res.samples.shape) != (mc.n_steps - mc.n_burn, mc.n_chains, 5):
+        fail(f"samples shape {tuple(res.samples.shape)}")
+    if not outer > 0.6:
+        fail(f"outer accept {outer:.4f} not above 0.6")
+    if not 0.05 < inner < 0.9:
+        fail(f"inner accept {inner:.4f} outside (0.05, 0.9)")
+    if inv.fom_hit_cap_frac != 0:
+        fail(f"{inv.fom_hit_cap_frac:.2%} of audited states hit the FOM iteration cap")
+
+    # the fine correction alone: one batched FOM forward of 1,024 kept states
+    fwd = pipe.batched_forward_fn("fom")
+    states = thin_samples(res.samples, mc.n_chains)
+    fine_ms = _time_ms(lambda: fwd(states), 3)
+    step_ms = inv.wall_seconds * 1e3 / mc.n_steps
+    say("DA", f"batched fine solve of {states.shape[0]} kept states {fine_ms:.3f} ms; outer step "
+        f"{step_ms:.3f} ms, of which the fine solve is {100 * fine_ms / step_ms:.1f}% and the "
+        f"{mc.subchain} rom_nn steps the rest")
+    return k3_all
+
+
+def _kernel_entry(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
+                  ms: float, plain_ms: float, bound: tuple) -> dict:
+    return {"name": name, "route": "cuda", "source": f"bayesianinferencedl_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+
+
 def main() -> None:
     card = phase_device()
     import torch
@@ -493,32 +773,19 @@ def main() -> None:
     max_abs, times, k1_bound = phase_kernel()
     launches, cfg, pipe, inv = phase_slice()
     k2 = phase_k2(cfg, pipe, inv)
+    k3 = phase_k3()
+    k3_launches = phase_da()
     k_ms, p_ms = times[B_CHECK]
-    print(json.dumps({"kernels": [{
-        "name": "pcg_stencil",
-        "route": "cuda",
-        "source": "bayesianinferencedl_tpu_torch/csrc/pcg_stencil.cu",
-        "replaces": "bayesianinferencedl_tpu/ops/pcg_stencil.py:236",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": k1_bound[0],
-        "bound_by": k1_bound[1],
-        "library_ms": None,
-    }, {
-        "name": "pcn_fused",
-        "route": "cuda",
-        "source": "bayesianinferencedl_tpu_torch/csrc/pcn_fused.cu",
-        "replaces": "bayesianinferencedl_tpu/experimental/pcn_fused.py:67",
-        "launches": k2["launches"],
-        "max_abs_err": k2["max_abs_err"],
-        "ms": k2["ms"],
-        "plain_ms": k2["plain_ms"],
-        "bound_ms": k2["bound"][0],
-        "bound_by": k2["bound"][1],
-        "library_ms": None,
-    }]}))
+    t3 = k3["times"][1024]
+    print(json.dumps({"kernels": [
+        _kernel_entry("pcg_stencil", "pcg_stencil.cu", "bayesianinferencedl_tpu/ops/pcg_stencil.py:236",
+                      launches, max_abs, k_ms, p_ms, k1_bound),
+        _kernel_entry("pcn_fused", "pcn_fused.cu", "bayesianinferencedl_tpu/experimental/pcn_fused.py:67",
+                      k2["launches"], k2["max_abs_err"], k2["ms"], k2["plain_ms"], k2["bound"]),
+        _kernel_entry("pcg_stencil_tile", "pcg_stencil_tile.cu",
+                      "bayesianinferencedl_tpu/ops/pcg_stencil.py:385", k3_launches,
+                      k3["max_abs_err"], t3["ms"], t3["plain_ms"], t3["bound"]),
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -82,6 +82,23 @@ def test_cholesky_coarse_inverses_match_newton_schulz(setup):
         assert np.abs(Bk[b] @ Xt[b] - np.eye(64)).max() < 1e-3
 
 
+def test_failed_coarse_factor_gives_nan_for_that_sample_only(setup):
+    s = setup
+    ks = torch.from_numpy(s["ks"])
+    bad = ks.clone()
+    bad[2] = -bad[2]  # negative conductivities: B(k) is not positive definite
+    X_ok = s["defl"].coarse_inverses(ks, BIOT)
+    X_bad = s["defl"].coarse_inverses(bad, BIOT)
+    keep = [b for b in range(B) if b != 2]
+    assert torch.isnan(X_bad[2]).all()
+    torch.testing.assert_close(X_bad[keep], X_ok[keep], rtol=0, atol=0)
+    kw = dict(tol=TOL, maxiter=800, deflation=s["defl"])
+    u_ok, _ = solve_fom_stencil(s["op"], ks, **kw)
+    u_bad, _ = solve_fom_stencil(s["op"], bad, **kw)
+    assert torch.isnan(u_bad[2]).all()
+    torch.testing.assert_close(u_bad[keep], u_ok[keep], rtol=0, atol=0)
+
+
 def test_deflated_solve_matches_pallas_and_oracle(setup):
     s = setup
     Binv_j = s["jdefl"].coarse_inverses(jnp.asarray(s["ks"]), BIOT)

@@ -122,7 +122,7 @@ def test_unported_options_raise(converted):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.run_inversion(tpipe, sampler="pt_pcn")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.run_inversion(tpipe, likelihood="fom")
+        api.run_inversion(tpipe, sampler="pcn", likelihood="fom")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.build_pipeline(
             tcfg.PipelineConfig(rom=tcfg.ROMConfig(online_precision="high")), device="cpu")
