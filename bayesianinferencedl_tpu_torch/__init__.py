@@ -11,15 +11,18 @@ Layer map (the offline build, single-temperature pCN and the fused sampler):
 
     config.py    PipelineConfig and its stage dataclasses
     geometry/    the fin's regions and its structured P1 mesh
-    fem/     P1 elements, 7-diagonal stencil operator (NumPy host + torch)
-    ops/     hand-written CUDA kernels with their plain torch versions
-    experimental/  the whole pCN sampler as one CUDA kernel (K2)
+    fem/     P1 elements, 7-diagonal stencil operator (NumPy host + torch),
+             the differentiable Jacobi-PCG solve
+    ops/     hand-written CUDA kernels (K1, K3, K4) with their plain versions
+    experimental/  the whole pCN sampler as one CUDA kernel (K2); the
+             shift-cost probe (K5)
     rom/     snapshots, host-f64 POD, Galerkin ROM, batched reduced PCG
     models/  the 5-parameter fin, MLP error surrogate, corrected forward
     data/    ROM-error dataset generation
     infer/   Gaussian prior, pCN, rank-normalised diagnostics
     utils/   metrics logger, posterior predictive check
-    api.py   build_pipeline / run_inversion;  cli.py  ``invert``
+    api.py   build_pipeline / run_inversion;  cli.py  ``fom``, ``snapshots``,
+             ``rom``, ``invert``
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """High-level pipeline API.
 
 ``build_pipeline`` runs the offline stack (mesh -> stencil FOM -> batched
-FOM snapshots through K1 or K3 -> host-f64 POD and Galerkin projection ->
+FOM snapshots through K1, K3 or K4 -> host-f64 POD and Galerkin projection ->
 reduced preconditioner P0 -> ROM-error dataset -> tanh MLP trained with
 Adam) on one device. ``run_inversion`` runs single-temperature pCN on the
 ``rom`` or ``rom_nn`` likelihood, or delayed-acceptance pCN (``da_pcn``):
@@ -29,6 +29,7 @@ import torch
 
 from bayesianinferencedl_tpu_torch.config import PipelineConfig
 from bayesianinferencedl_tpu_torch.data.datasets import ErrorDataset, generate_error_dataset
+from bayesianinferencedl_tpu_torch.fem.solve import pcg_fom
 from bayesianinferencedl_tpu_torch.infer.delayed_acceptance import DAResult, run_da_pcn_segmented
 from bayesianinferencedl_tpu_torch.infer.diagnostics import ess_bulk, ess_tail, split_rhat
 from bayesianinferencedl_tpu_torch.infer.pcn import PCNResult, gaussian_misfit, run_pcn
@@ -91,9 +92,9 @@ class Pipeline:
 
     def batched_forward_fn(self, likelihood: str) -> Callable:
         """(C, d) log-conductivities -> (C, n_obs) observables for the chain
-        hot loop: ``fom`` observes one batched deflated FOM solve (tol
-        ``fin.cg_tol``, cap ``fin.cg_maxiter``) through K1 or K3; ``rom`` and
-        ``rom_nn`` go through the factorisation-free reduced PCG."""
+        hot loop: ``fom`` observes one batched FOM solve (tol ``fin.cg_tol``,
+        cap ``fin.cg_maxiter``, ``make_fom_solver``); ``rom`` and ``rom_nn``
+        go through the factorisation-free reduced PCG."""
         if likelihood == "fom":
             solve = make_fom_solver(self.fin, tol=self.fin.cg_tol, maxiter=self.fin.cg_maxiter)
             return lambda thetas: self.fin.op.observe(solve(torch.exp(thetas)))
@@ -110,8 +111,9 @@ class Pipeline:
         return lambda theta: fb(theta[None])[0]
 
 
-def make_prior(cfg_prior, dtype=torch.float32, device="cpu"):
-    """PriorConfig -> prior object (log-normal k: Gaussian on theta = log k)."""
+def make_prior(cfg_prior, dtype=torch.float32, device="cuda"):
+    """PriorConfig -> prior object (log-normal k: Gaussian on theta = log k),
+    on ``device`` (the card unless the caller asks for "cpu")."""
     if cfg_prior.kind == "gaussian":
         return GaussianPrior.iid(cfg_prior.dim, mean=cfg_prior.mean, sigma=cfg_prior.sigma,
                                  dtype=dtype, device=device)
@@ -119,10 +121,22 @@ def make_prior(cfg_prior, dtype=torch.float32, device="cpu"):
 
 
 def make_fom_solver(fin: FiveParamFin, *, tol: float, maxiter: int, with_iters: bool = False):
-    """Batched FOM solver ks (B, 5) -> u (B, n) through K1 or K3 with the
-    two-level deflation preconditioner; with_iters=True returns (u, iters),
-    the per-sample iteration counts (audit_fom_iters)."""
-    defl = fin.deflation_basis()
+    """Batched FOM solver ks (B, 5) -> u (B, n); with_iters=True returns (u,
+    iters), the per-sample iteration counts (audit_fom_iters).
+
+    By the operator's dtype, as in the JAX package: float32 goes through
+    the stencil kernels (K1 or K3 with the two-level deflation
+    preconditioner; K4, undeflated, on the largest meshes, where no basis
+    is built), float64 through the plain PCG of ``fem/solve.py``."""
+    if fin.op.dtype != torch.float32:
+        def solve(ks):
+            ks = torch.as_tensor(ks, dtype=fin.op.dtype, device=fin.op.device)
+            u, iters, _ = pcg_fom(fin.op, ks, fin.op.F_root.expand(ks.shape[0], -1), tol=tol,
+                                  maxiter=maxiter)
+            return (u, iters) if with_iters else u
+
+        return solve
+    defl = fin.deflation_for_kernels()
 
     def solve(ks):
         u, iters = solve_fom_stencil(fin.op, ks, tol=tol, maxiter=maxiter, deflation=defl)
@@ -156,9 +170,9 @@ def build_pipeline(
     metrics: Optional[MetricsLogger] = None,
 ) -> Pipeline:
     """The offline build on ``device`` (the card unless the caller asks for
-    ``"cpu"``; without a card "cuda" raises). Every FOM solve (snapshots, training
-    dataset, holdout) is one batched K1 call. Holdout errors are logged as
-    the ``holdout_rel_err`` event."""
+    ``"cpu"``; without a card "cuda" raises). Every FOM solve (snapshots,
+    training dataset, holdout) is one batched call of K1, K3 or K4, by the
+    mesh size. Holdout errors are logged as the ``holdout_rel_err`` event."""
     log = metrics or MetricsLogger()
     cfg = config
     dev = resolve_device(device)
@@ -170,7 +184,8 @@ def build_pipeline(
             cg_tol=cfg.fem.cg_tol, cg_maxiter=cfg.fem.cg_maxiter,
         )
         fom_solver = make_fom_solver(fin, tol=cfg.fem.cg_tol, maxiter=cfg.fem.cg_maxiter)
-    log.log("fom_built", n_dof=fin.op.n_dof, n_padded=fin.op.n, m=fin.deflation_basis().m,
+    defl = fin.deflation_for_kernels()
+    log.log("fom_built", n_dof=fin.op.n_dof, n_padded=fin.op.n, m=None if defl is None else defl.m,
             device=str(dev))
 
     gen = torch.Generator(device=dev).manual_seed(cfg.rom.seed)

@@ -1,8 +1,19 @@
-"""Command-line interface of the port.
+"""Command-line interface of the port: the reference CLI's FOM commands
+(BASELINE configs 1-3) and ``invert``, with its flags and JSON keys plus
+``--device`` (default ``cuda``; ``cpu`` runs the plain kernel versions).
+
+    python -m bayesianinferencedl_tpu_torch.cli fom --resolution 32
+    python -m bayesianinferencedl_tpu_torch.cli snapshots --resolution 32 --n 256
+    python -m bayesianinferencedl_tpu_torch.cli rom --resolution 32 --n-snapshots 256 --r 40
+
+``fom`` is one differentiable plain-torch solve (``FiveParamFin.solve``);
+``snapshots`` and ``rom`` solve their batches through ``make_fom_solver``:
+K1, K3 or, from res22 up, K4 in float32, the plain PCG in float64. Each
+prints one JSON line.
 
     python -m bayesianinferencedl_tpu_torch.cli invert --device cuda
 
-builds the pipeline (every FOM solve through kernel K1, or K3 from res8 up)
+builds the pipeline (every FOM solve through K1, K3 or K4, by the mesh size)
 and runs pCN on the rom_nn likelihood, then prints one JSON line with the
 keys of the reference CLI's ``invert``.
 
@@ -13,16 +24,128 @@ runs delayed acceptance on the exact FOM likelihood (``--subchain`` rom_nn
 pCN steps per batched FOM correction; steps count outer steps) and adds the
 FOM iteration audit and the outer and inner accept rates to the line.
 Flags the port does not support yet (other samplers, pcn on the fom
-likelihood, box priors, the bf16 precision tiers, the MALA inner kernel)
-raise NotImplementedError naming their ROADMAP.md item.
+likelihood, box priors, the bf16 precision tiers, the MALA inner kernel,
+the greedy ROM basis) raise NotImplementedError naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import time
 
+import numpy as np
 import torch
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda", help="torch device; cpu runs the plain kernel versions")
+    p.add_argument("--resolution", type=int, default=4)
+    p.add_argument("--biot", type=float, default=0.1)
+    p.add_argument("--dtype", choices=["float32", "float64"], default="float32")
+    p.add_argument("--metrics", type=str, default=None, help="JSONL metrics path")
+    p.add_argument("--seed", type=int, default=0)
+
+
+def _dtype(args) -> torch.dtype:
+    return torch.float64 if args.dtype == "float64" else torch.float32
+
+
+def _cg_maxiter(args) -> int:
+    """The reference CLI's FOM iteration cap: max(480, 120 * resolution) in
+    float32 (its Jacobi-PCG needs ~85 x resolution iterations at tol 1e-7),
+    4,000 in float64 (tol 1e-10)."""
+    if args.dtype == "float64":
+        return 4000
+    return max(480, 120 * args.resolution)
+
+
+def _fin(args):
+    from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+
+    return FiveParamFin.create(
+        resolution=args.resolution, biot=args.biot, dtype=_dtype(args), device=args.device,
+        cg_tol=1e-10 if args.dtype == "float64" else 1e-7, cg_maxiter=_cg_maxiter(args),
+    )
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def cmd_fom(args) -> None:
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    log = MetricsLogger(args.metrics, run_config=vars(args))
+    fin = _fin(args)
+    dev = fin.op.device
+    k = torch.tensor(args.k, dtype=_dtype(args), device=dev)
+    with log.timer("solve_warmup"):
+        fin.solve(k)
+        _sync(dev)
+    t0 = time.perf_counter()
+    u = fin.solve(k)
+    _sync(dev)
+    log.log("solve", seconds=time.perf_counter() - t0, n_dof=fin.op.n_dof)
+    y = fin.qoi(u).cpu().numpy()
+    if args.save_obs:
+        # observation file for `invert --data` (the noiseless forward)
+        np.savez(args.save_obs, data=y, k_true=k.cpu().numpy())
+        log.log("saved_obs", path=args.save_obs)
+    print(json.dumps({"qoi": y.tolist(), "n_dof": fin.op.n_dof}))
+
+
+def cmd_snapshots(args) -> None:
+    from bayesianinferencedl_tpu_torch.api import make_fom_solver
+    from bayesianinferencedl_tpu_torch.rom.snapshots import sample_log_uniform
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    log = MetricsLogger(args.metrics, run_config=vars(args))
+    fin = _fin(args)
+    dev = fin.op.device
+    solver = make_fom_solver(fin, tol=fin.cg_tol, maxiter=fin.cg_maxiter)
+    ks = sample_log_uniform(torch.Generator(device=dev).manual_seed(args.seed), args.n, dtype=_dtype(args))
+    with log.timer("snapshots_warmup"):  # builds the kernel; one sample
+        solver(ks[:1])
+        _sync(dev)
+    t0 = time.perf_counter()
+    S = solver(ks)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    log.log("snapshots", seconds=dt, solves_per_sec=args.n / dt)
+    if args.out:
+        np.savez_compressed(args.out, snapshots=S.cpu().numpy(), ks=ks.cpu().numpy())
+    print(json.dumps({"n": args.n, "seconds": dt, "fom_solves_per_sec": args.n / dt}))
+
+
+def cmd_rom(args) -> None:
+    from bayesianinferencedl_tpu_torch.api import make_fom_solver
+    from bayesianinferencedl_tpu_torch.rom.galerkin import ReducedOperator
+    from bayesianinferencedl_tpu_torch.rom.pod import pod_basis_host
+    from bayesianinferencedl_tpu_torch.rom.snapshots import sample_log_uniform
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    if args.method == "greedy":
+        raise NotImplementedError("rom --method greedy (rom/greedy.py) is not ported yet: "
+                                  "ROADMAP.md queue 1, item 21")
+    log = MetricsLogger(args.metrics, run_config=vars(args))
+    fin = _fin(args)
+    dev, dt = fin.op.device, _dtype(args)
+    solver = make_fom_solver(fin, tol=fin.cg_tol, maxiter=fin.cg_maxiter)
+    ks = sample_log_uniform(torch.Generator(device=dev).manual_seed(args.seed), args.n_snapshots, dtype=dt)
+    V, _ = pod_basis_host(solver(ks), args.r)
+    rom = ReducedOperator.project_host(fin.host, args.biot, V, dtype=dt, device=dev)
+
+    k_test = sample_log_uniform(torch.Generator(device=dev).manual_seed(args.seed + 1), 64, dtype=dt)
+    y_fom = fin.op.observe(solver(k_test))
+    y_rom = rom.forward(k_test)
+    rel = float(torch.linalg.norm(y_rom - y_fom) / torch.linalg.norm(y_fom))
+    log.log("rom_rel_err", value=rel, r=args.r, method=args.method)
+    if args.out:
+        np.savez_compressed(args.out, V=np.asarray(V))
+    print(json.dumps({"r": args.r, "method": args.method, "rel_err_vs_fom": rel}))
 
 
 def cmd_invert(args) -> None:
@@ -35,7 +158,8 @@ def cmd_invert(args) -> None:
     log = MetricsLogger(args.metrics)
     cfg = PipelineConfig(
         mesh=MeshConfig(resolution=args.resolution),
-        fem=FEMConfig(biot=args.biot, cg_tol=1e-7, cg_maxiter=args.cg_maxiter),
+        fem=FEMConfig(biot=args.biot, cg_tol=1e-7,
+                      cg_maxiter=_cg_maxiter(args) if args.cg_maxiter is None else args.cg_maxiter),
         rom=ROMConfig(
             n_snapshots=args.n_snapshots, basis_size=args.r, seed=args.seed,
             online_precision=args.online_precision,
@@ -81,11 +205,33 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="bayesianinferencedl_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("fom", help="config 1: single FOM solve")
+    _add_common(p)
+    p.add_argument("--k", type=float, nargs=5, default=[1.0, 1.0, 1.0, 1.0, 1.0])
+    p.add_argument("--save-obs", type=str, default=None,
+                   help="write the QoI vector as an observation npz for `invert --data`")
+    p.set_defaults(fn=cmd_fom)
+
+    p = sub.add_parser("snapshots", help="config 2: batched FOM solves")
+    _add_common(p)
+    p.add_argument("--n", type=int, default=256)
+    p.add_argument("--out", type=str, default=None)
+    p.set_defaults(fn=cmd_snapshots)
+
+    p = sub.add_parser("rom", help="config 3: reduced basis + rel-err")
+    _add_common(p)
+    p.add_argument("--n-snapshots", type=int, default=256)
+    p.add_argument("--r", type=int, default=40)
+    p.add_argument("--method", choices=["pod", "greedy"], default="pod")
+    p.add_argument("--out", type=str, default=None)
+    p.set_defaults(fn=cmd_rom)
+
     p = sub.add_parser("invert", help="offline build + pCN inversion")
     p.add_argument("--device", default="cuda", help="torch device; cpu runs the plain kernel versions")
     p.add_argument("--resolution", type=int, default=4)
     p.add_argument("--biot", type=float, default=0.1)
-    p.add_argument("--cg-maxiter", type=int, default=1500, help="iteration cap per FOM solve")
+    p.add_argument("--cg-maxiter", type=int, default=None,
+                   help="iteration cap per FOM solve (default: the reference's max(480, 120 * resolution))")
     p.add_argument("--metrics", type=str, default=None, help="JSONL metrics path")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--prior", choices=["gaussian", "uniform", "log_uniform"], default="gaussian")
@@ -112,7 +258,7 @@ def main(argv=None) -> None:
     p.add_argument("--da-coarse", choices=["rom", "rom_nn"], default="rom_nn")
     p.add_argument("--da-inner", choices=["pcn", "mala"], default="pcn",
                    help="da_pcn subchain kernel (mala is not ported yet)")
-    p.set_defaults(fn=cmd_invert)
+    p.set_defaults(fn=cmd_invert, dtype="float32")  # the pipeline runs in float32
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -23,6 +23,7 @@ import torch
 from bayesianinferencedl_tpu_torch.geometry.fin import N_REGIONS
 from bayesianinferencedl_tpu_torch.geometry.mesh import FinMesh
 from bayesianinferencedl_tpu_torch.fem import p1
+from bayesianinferencedl_tpu_torch.utils.device import resolve_device
 
 
 @dataclass
@@ -162,8 +163,10 @@ class StencilOperator:
 
     @classmethod
     def from_host(
-        cls, host: FinFEMDiaHost, biot: float, dtype=torch.float32, device="cpu"
+        cls, host: FinFEMDiaHost, biot: float, dtype=torch.float32, device="cuda"
     ) -> "StencilOperator":
+        """The operator on ``device``: the card unless the caller asks for "cpu"."""
+        device = resolve_device(device)
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
         return cls(
             comp_vals=t(host.comp_vals),
@@ -242,3 +245,39 @@ class StencilOperator:
         """QoI map y = B u, (..., n) -> (..., n_obs), in full fp32 (the
         callers keep TF32 off)."""
         return torch.matmul(u, self.qoi.T)
+
+    # --- 2-D grid view (the single-sample stencil kernel K4) ---------------
+    # The shapes are the JAX package's: the grid padded to (8, 128) tiles,
+    # whose padded cells carry zero planes. Every view takes leading batch
+    # dimensions.
+    @property
+    def grid_shape0(self) -> tuple[int, int]:
+        """True structured-grid shape (nx+1, ny+1); flat id = ix*(ny+1)+iy."""
+        y0 = self.offsets[-2]  # the ny+1 offset
+        return self.n_grid // y0, y0
+
+    @property
+    def grid_shape(self) -> tuple[int, int]:
+        """Padded grid shape: the first dim to a multiple of 8, the second
+        to a multiple of 128."""
+        x0, y0 = self.grid_shape0
+        return ((x0 + 7) // 8) * 8, ((y0 + 127) // 128) * 128
+
+    def to_grid(self, v_flat: torch.Tensor) -> torch.Tensor:
+        """(..., n) flat vectors -> (..., X, Y) padded grid arrays, contiguous."""
+        x0, y0 = self.grid_shape0
+        x, y = self.grid_shape
+        a = v_flat[..., : self.n_grid].reshape(*v_flat.shape[:-1], x0, y0)
+        return torch.nn.functional.pad(a, (0, y - y0, 0, x - x0)).contiguous()
+
+    def from_grid(self, a: torch.Tensor) -> torch.Tensor:
+        """(..., X, Y) grid arrays -> (..., n) flat vectors (padding tail
+        zeroed)."""
+        x0, y0 = self.grid_shape0
+        flat = a[..., :x0, :y0].reshape(*a.shape[:-2], x0 * y0)
+        return torch.nn.functional.pad(flat, (0, self.n - self.n_grid))
+
+    def vals_grid(self, k: torch.Tensor) -> torch.Tensor:
+        """(..., 5) conductivities -> (..., 7, X, Y) diagonal planes of A(k)."""
+        vals = self.vals(k)[..., : self.n_grid, :]  # (..., n_grid, 7)
+        return self.to_grid(vals.transpose(-1, -2))

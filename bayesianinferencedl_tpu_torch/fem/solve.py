@@ -1,0 +1,117 @@
+"""Batched Jacobi-PCG FOM solve, differentiable in k and F.
+
+The counterpart of the JAX package's ``fem/solve.py``, in plain torch: the
+JAX code is XLA, not a kernel, so this is its port on the card as on the
+CPU.
+
+- ``pcg`` runs over a leading batch dimension and freezes each sample once
+  it has converged, which is what a vmapped ``lax.while_loop`` does: every
+  sample sees exactly its own run.
+- ``solve_fom`` is a ``torch.autograd.Function`` whose backward is one
+  adjoint solve with the same PCG (A(k) is symmetric), the convention of
+  ``lax.custom_linear_solve(symmetric=True)``: it never backpropagates
+  through the iterations. The backward is written with differentiable ops
+  and calls the Function again, so a second backward gives Hessian-vector
+  products.
+
+The f64 route of ``api.make_fom_solver`` and ``FiveParamFin.solve`` run
+here; the batched f32 sweeps go through the stencil kernels
+(``ops/pcg_stencil.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def pcg(matvec, b: torch.Tensor, diag: torch.Tensor, *, tol: float = 1e-10, maxiter: int = 2000,
+        x0: torch.Tensor | None = None):
+    """Jacobi-preconditioned CG for SPD systems over a batch (..., n).
+
+    Stops each sample at ||r|| <= tol ||b|| or at maxiter iterations.
+    Returns (x (..., n), iters (...) int32, relres (...)). matvec maps
+    (..., n) to (..., n); diag broadcasts against b."""
+    dt = b.dtype
+    inv_diag = torch.where(diag != 0, 1.0 / torch.where(diag != 0, diag, torch.ones_like(diag)), 0.0)
+    inv_diag = inv_diag.to(dt)
+    x = torch.zeros_like(b) if x0 is None else x0 + torch.zeros_like(b)
+    r = b - matvec(x)
+    z = inv_diag * r
+    p = z
+    rz = torch.sum(r * z, -1)
+    b_nrm2 = torch.clamp(torch.sum(b * b, -1), min=torch.finfo(dt).tiny)
+    tol2 = torch.tensor(tol, dtype=dt, device=b.device) ** 2 * b_nrm2
+    iters = torch.zeros(rz.shape, dtype=torch.int32, device=b.device)
+    for _ in range(maxiter):
+        active = torch.sum(r * r, -1) > tol2
+        if not bool(active.any()):
+            break
+        Ap = matvec(p)
+        pAp = torch.sum(p * Ap, -1)
+        alpha = torch.where(pAp > 0, rz / torch.where(pAp > 0, pAp, 1.0), 0.0)
+        a = active[..., None]
+        x = torch.where(a, x + alpha[..., None] * p, x)
+        r = torch.where(a, r - alpha[..., None] * Ap, r)
+        z = inv_diag * r
+        rz_new = torch.sum(r * z, -1)
+        beta = torch.where(rz > 0, rz_new / torch.where(rz > 0, rz, 1.0), 0.0)
+        p = torch.where(a, z + beta[..., None] * p, p)
+        rz = torch.where(active, rz_new, rz)
+        iters = iters + active.to(torch.int32)
+    relres = torch.sqrt(torch.sum(r * r, -1) / b_nrm2)
+    return x, iters, relres
+
+
+def pcg_fom(op, k: torch.Tensor, F: torch.Tensor, *, tol: float, maxiter: int):
+    """``pcg`` on the flat stencil operator A(k) of ``op``: k (..., 5), F
+    broadcasting to (..., n). Returns (x, iters, relres); not
+    differentiable (``solve_fom`` is)."""
+    vals = op.vals(k)
+    return pcg(lambda v: op.matvec(vals, v), F, op.diag(vals), tol=tol, maxiter=maxiter)
+
+
+class _Solve(torch.autograd.Function):
+    """x = A(k)^-1 F with an adjoint-solve backward (see module docstring)."""
+
+    @staticmethod
+    def forward(ctx, k, F, op, tol, maxiter):
+        x, _, _ = pcg_fom(op, k, F, tol=tol, maxiter=maxiter)
+        ctx.save_for_backward(k, x)
+        ctx.op, ctx.tol, ctx.maxiter = op, tol, maxiter
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        k, x = ctx.saved_tensors
+        op = ctx.op
+        # A symmetric: the adjoint system is A(k) lam = g
+        lam = _Solve.apply(k, g, op, ctx.tol, ctx.maxiter)
+        grad_k = None
+        if ctx.needs_input_grad[0]:
+            # dx = -A^-1 (dA/dk_i) x dk_i: grad_k_i = -lam . (A_i x)
+            comps = op.comp_vals.shape[2]
+            grad_k = -torch.stack(
+                [torch.sum(lam * op.matvec(op.comp_vals[:, :, i], x), -1) for i in range(comps)], -1
+            )
+        return grad_k, lam, None, None, None
+
+
+def solve_fom(op, k: torch.Tensor, F: torch.Tensor | None = None, *, tol: float = 1e-8,
+              maxiter: int = 2000) -> torch.Tensor:
+    """Solve A(k) u = F for k (5,) or (B, 5), differentiable in k and F.
+    F defaults to the root load ``op.F_root``; a batch of k broadcasts it."""
+    k = torch.as_tensor(k, dtype=op.dtype, device=op.device)
+    F = op.F_root if F is None else torch.as_tensor(F, dtype=op.dtype, device=op.device)
+    F = F.expand(*k.shape[:-1], op.n)
+    return _Solve.apply(k, F, op, tol, maxiter)
+
+
+def forward(op, k: torch.Tensor, **kw) -> torch.Tensor:
+    """G_FOM: k -> QoI observables y = B u(k)."""
+    return op.observe(solve_fom(op, k, **kw))
+
+
+def solve_fom_batch(op, ks: torch.Tensor, **kw) -> torch.Tensor:
+    """FOM solves over a batch (B, 5) -> (B, n); the batch is the leading
+    dimension of ``solve_fom``."""
+    return solve_fom(op, ks, **kw)

@@ -6,6 +6,8 @@ from typing import NamedTuple
 
 import torch
 
+from bayesianinferencedl_tpu_torch.utils.device import resolve_device
+
 
 class GaussianPrior(NamedTuple):
     """N(mean, C) with C given by its Cholesky factor (C = L L^T)."""
@@ -14,7 +16,10 @@ class GaussianPrior(NamedTuple):
     chol: torch.Tensor  # (d, d) lower-triangular
 
     @classmethod
-    def iid(cls, dim: int, mean: float = 0.0, sigma: float = 0.6, dtype=torch.float32, device="cpu"):
+    def iid(cls, dim: int, mean: float = 0.0, sigma: float = 0.6, dtype=torch.float32, device="cuda"):
+        """N(mean, sigma^2 I) on ``device`` (the card unless the caller asks
+        for "cpu")."""
+        device = resolve_device(device)
         return cls(
             mean=torch.full((dim,), mean, dtype=dtype, device=device),
             chol=torch.eye(dim, dtype=dtype, device=device) * sigma,

@@ -25,6 +25,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from bayesianinferencedl_tpu_torch.utils.device import resolve_device
+
 
 @dataclass(frozen=True)
 class DeflationBasis:
@@ -49,10 +51,12 @@ class DeflationBasis:
         *,
         m: int = 128,
         dtype=torch.float32,
-        device="cpu",
+        device="cuda",
     ) -> "DeflationBasis":
-        """Build from a FinFEMDiaHost; all algebra in host float64. The
+        """Build from a FinFEMDiaHost; all algebra in host float64, the result
+        on ``device`` (the card unless the caller asks for "cpu"). The
         eigenmodes fall back to cosine modes if the eigensolve fails."""
+        device = resolve_device(device)
         As, Mext = host.to_scipy_components()
         mask = sum(A.diagonal() for A in As) > 0  # stiffness-domain rows
 

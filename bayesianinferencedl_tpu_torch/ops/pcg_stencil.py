@@ -1,22 +1,27 @@
-"""Fused batched Jacobi-PCG on the 7-diagonal stencil (kernels K1 and K3).
+"""Fused batched Jacobi-PCG on the 7-diagonal stencil (kernels K1, K3, K4).
 
-A FOM solve is CG on the symmetric stencil operator of ``fem/dia.py``, with
-the optional two-level deflation preconditioner of ``ops/deflation.py``. Two
-hand-written CUDA kernels compute it, with one contract:
+A FOM solve is CG on the symmetric stencil operator of ``fem/dia.py``. Three
+hand-written CUDA kernels compute it, one for each layout of the JAX
+package's ``solve_fom_stencil_pallas``, chosen by the mesh size alone
+(``layout_for``, the JAX package's ``pick_layout`` rule):
 
-- K1, ``pcg_stencil`` (``csrc/pcg_stencil.cu``): one thread block per
-  sample, for the meshes the JAX package solves with its lanes kernel;
-- K3, ``pcg_stencil_tile`` (``csrc/pcg_stencil_tile.cu``): a tile of 8
-  samples per block that share each pass over the deflation basis, for the
-  larger meshes the JAX package solves with its sublanes kernel (res >= 8).
+- "lanes", K1, ``pcg_stencil`` (``csrc/pcg_stencil.cu``): one thread block
+  per sample, with the optional two-level deflation preconditioner of
+  ``ops/deflation.py``, up to n = 18,618 (res4);
+- "sublanes", K3, ``pcg_stencil_tile`` (``csrc/pcg_stencil_tile.cu``): a
+  tile of 8 samples per block that share each pass over the deflation
+  basis, up to n = 182,044 (res8 to res21);
+- "single", K4, ``pcg_stencil_grid`` (``csrc/pcg_stencil_grid.cu``): one
+  sample's undeflated Jacobi-PCG on its 2-D grid, above that (res >= 22).
+  Like the JAX package's single-sample layout, it applies no deflation even
+  when one is passed, and checks convergence every iteration.
 
-``solve_fom_stencil`` picks between them by the mesh size alone
-(``kernel_for``). On a CUDA tensor a wrapper launches its kernel; on a CPU
-tensor it runs ``pcg_stencil_reference``, the plain batched torch version of
-the same math, which the tests hold against the JAX Pallas kernels and
-``chip_smoke.py`` holds both CUDA kernels against.
+On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs the
+plain batched torch version of the same math (``pcg_stencil_reference``,
+``pcg_stencil_grid_reference``), which the tests hold against the JAX Pallas
+kernels and ``chip_smoke.py`` holds the CUDA kernels against.
 
-Semantics shared by all versions (those of the JAX kernels' ``_jacobi_cg``,
+Semantics shared by K1 and K3 (those of the JAX kernels' ``_jacobi_cg``,
 except that convergence is per sample, not per tile of samples):
 
 - the operator is given by its 4 upper diagonal planes [0, +o1, +o2, +o3]
@@ -36,10 +41,17 @@ import ctypes
 
 import torch
 
+from bayesianinferencedl_tpu_torch.fem.solve import pcg
+
 DIAG_SLOT = 3  # index of offset 0 in the ascending 7-offset DIA layout
 
 launches = 0  # K1 launches in this process (the CUDA path only)
 tile_launches = 0  # K3 launches in this process (the CUDA path only)
+grid_launches = 0  # K4 launches in this process (the CUDA path only)
+
+# the JAX package's 2-D stencil offsets (dx, dy), in the DIA plane order
+# [-(ny+2), -(ny+1), -1, 0, 1, ny+1, ny+2]
+OFFSETS_2D = ((-1, -1), (-1, 0), (0, -1), (0, 0), (0, 1), (1, 0), (1, 1))
 
 # The largest n the JAX package solves with its lanes kernel: that layout's
 # VMEM working set, 11 * n * 128 * 4 bytes, must fit its 100 MiB budget
@@ -47,6 +59,12 @@ tile_launches = 0  # K3 launches in this process (the CUDA path only)
 # size the port takes K1, above it K3. res4 (n = 6,400) is below; res8
 # (24,960) and res16 (99,072) are above.
 LANES_MAX_N = (100 * 1024 * 1024) // (11 * 128 * 4)  # 18,618
+# The largest n the JAX package solves with its sublanes kernel: a tile of 8
+# samples needs ~18 * 8 * n * 4 bytes of its 100 MiB VMEM budget (the same
+# pick_layout). Above it the JAX package takes its single-sample kernel and
+# the port K4: res21 (n = 170,240) is below, res22 (186,752) and res32
+# (394,624) are above.
+SUBLANES_MAX_N = (100 * 1024 * 1024) // (18 * 8 * 4)  # 182,044
 TILE_MAX_M = 128  # the largest coarse space K3 is built for
 
 
@@ -215,10 +233,111 @@ def pcg_stencil_tile(
     return _launch("pcg_stencil_tile", vals4, F, x0, tol=tol, **kw)
 
 
-def kernel_for(n: int):
-    """The wrapper that solves n-node systems: K1 up to ``LANES_MAX_N``
-    nodes, K3 above."""
-    return pcg_stencil if n <= LANES_MAX_N else pcg_stencil_tile
+def layout_for(n: int) -> str:
+    """The JAX package's layout for an n-node batch of 256 (its
+    ``pick_layout``): "lanes" (K1) up to ``LANES_MAX_N``, "sublanes" (K3) up
+    to ``SUBLANES_MAX_N``, "single" (K4) above."""
+    if n <= LANES_MAX_N:
+        return "lanes"
+    return "sublanes" if n <= SUBLANES_MAX_N else "single"
+
+
+def pcg_stencil_grid_reference(
+    vals2d: torch.Tensor,
+    F2d: torch.Tensor,
+    x02d: torch.Tensor | None = None,
+    *,
+    tol: float,
+    maxiter: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain batched torch version of K4: each sample's undeflated
+    Jacobi-PCG on its 2-D grid, the JAX package's ``_pcg_kernel``.
+
+    vals2d (B, 7, X, Y) planes in ``OFFSETS_2D`` order; F2d (X, Y); x02d
+    (B, X, Y) warm starts or None (zeros). Reads outside the grid count as
+    zero and the matvec sums the diagonal term first, as the JAX kernel
+    does. The loop is ``fem.solve.pcg`` over (B, X * Y) views: z = D^-1 r
+    with D^-1 = 0 where the diagonal is 0; alpha and beta are 0 where their
+    denominators are not positive; a sample runs while ||r||^2 > tol^2
+    ||F||^2, tested before every iteration, and at most ``maxiter``
+    iterations, frozen once it stops. Returns (x (B, X, Y), iters (B,)
+    int32)."""
+    B, _, X, Y = vals2d.shape
+
+    def matvec(p):
+        p = p.reshape(B, X, Y)
+        pp = torch.nn.functional.pad(p, (1, 1, 1, 1))
+        acc = vals2d[:, DIAG_SLOT] * p
+        for s, (dx, dy) in enumerate(OFFSETS_2D):
+            if s != DIAG_SLOT:
+                acc = acc + vals2d[:, s] * pp[:, 1 + dx : 1 + dx + X, 1 + dy : 1 + dy + Y]
+        return acc.reshape(B, X * Y)
+
+    x, iters, _ = pcg(matvec, F2d.reshape(1, X * Y).expand(B, -1),
+                      vals2d[:, DIAG_SLOT].reshape(B, X * Y), tol=tol, maxiter=maxiter,
+                      x0=None if x02d is None else x02d.reshape(B, X * Y))
+    return x.reshape(B, X, Y), iters
+
+
+def pcg_stencil_grid(
+    vals2d: torch.Tensor,
+    F2d: torch.Tensor,
+    x02d: torch.Tensor | None = None,
+    *,
+    tol: float,
+    maxiter: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's wrapper: the CUDA kernel (one block per sample, float32) on CUDA
+    tensors, the plain version on CPU tensors (float32, or float64 for
+    oracle tests). Arguments as for ``pcg_stencil_grid_reference``; Y must
+    be a multiple of 4 (``StencilOperator.grid_shape`` pads it to 128)."""
+    if vals2d.dim() != 4 or vals2d.shape[1] != 7:
+        raise ValueError(f"vals2d must be (B, 7, X, Y), got {tuple(vals2d.shape)}")
+    B, _, X, Y = vals2d.shape
+    dev = vals2d.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"K4 runs on CUDA or CPU tensors, got {dev}")
+    if maxiter < 0:
+        raise ValueError("need maxiter >= 0")
+    if Y % 4:
+        raise ValueError(f"K4 reads 4-cell words along a grid row: Y must be a multiple of 4, got {Y}")
+    dt = vals2d.dtype
+    if dt != torch.float32 and not (dt == torch.float64 and dev.type == "cpu"):
+        raise TypeError(f"K4 takes float32 (float64 only on the CPU), got {dt}")
+    _check(vals2d, "vals2d", (B, 7, X, Y), dt, dev)
+    _check(F2d, "F2d", (X, Y), dt, dev)
+    _check(x02d, "x02d", (B, X, Y), dt, dev)
+    if dev.type == "cpu":
+        return pcg_stencil_grid_reference(vals2d, F2d, x02d, tol=tol, maxiter=maxiter)
+    return _launch_grid(vals2d, F2d, x02d, tol=tol, maxiter=maxiter)
+
+
+def _launch_grid(vals2d, F2d, x02d, *, tol, maxiter):
+    """Launch ``csrc/pcg_stencil_grid.cu`` and count the launch."""
+    global grid_launches
+    from bayesianinferencedl_tpu_torch.ops._build import load_library
+
+    fn = load_library("pcg_stencil_grid").pcg_stencil_grid_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    B, _, X, Y = vals2d.shape
+    for t, what in ((vals2d, "vals2d"), (F2d, "F2d"), (x02d, "x02d")):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{what} must be 16-byte aligned")
+    with torch.cuda.device(vals2d.device):
+        x = torch.empty((B, X, Y), dtype=torch.float32, device=vals2d.device)
+        iters = torch.empty((B,), dtype=torch.int32, device=vals2d.device)
+        scratch = torch.empty((B, 3, X * Y), dtype=torch.float32, device=vals2d.device)
+        err = fn(
+            vals2d.data_ptr(), F2d.data_ptr(), None if x02d is None else x02d.data_ptr(),
+            x.data_ptr(), iters.data_ptr(), scratch.data_ptr(), B, X, Y,
+            float(tol * tol), int(maxiter), torch.cuda.current_stream(vals2d.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pcg_stencil_grid_launch failed with cudaError_t {err}")
+    grid_launches += 1
+    return x, iters
 
 
 def _launch(name, vals4, F, x0, *, offsets, tol, maxiter, Wt, Binv, check_every):
@@ -270,18 +389,27 @@ def solve_fom_stencil(
     coarse_inv: torch.Tensor | None = None,
     check_every: int = 16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched FOM solve A(k_b) u_b = F through K1 or K3 (``kernel_for``).
+    """Batched FOM solve A(k_b) u_b = F through K1, K3 or K4, by the mesh
+    size (``layout_for``).
 
     op: fem.dia.StencilOperator; ks: (B, 5). Returns (u (B, n), iters (B,)).
-    x0: optional (B, n) warm starts. deflation: optional
-    ops.deflation.DeflationBasis; its per-sample coarse inverses are a
-    batched Cholesky before the launch unless ``coarse_inv`` (B, m, m) is
-    given. A sample whose coarse inverse is not finite (a failed
-    factorisation) gets a NaN solution: the guards on alpha and beta would
-    otherwise leave it at its start, finite and wrong. Not differentiable:
+    x0: optional (B, n) warm starts.
+    deflation: optional ops.deflation.DeflationBasis for K1 and K3; its
+    per-sample coarse inverses are a batched Cholesky before the launch
+    unless ``coarse_inv`` (B, m, m) is given. A sample whose coarse inverse
+    is not finite (a failed factorisation) gets a NaN solution: the guards on
+    alpha and beta would otherwise leave it at its start, finite and wrong.
+    The "single" layout, as in the JAX package, neither applies nor computes
+    deflation and checks convergence every iteration. Not differentiable:
     snapshot and dataset sweeps, the synthetic-truth solve and the fom
-    likelihood."""
+    likelihood (``fem/solve.py`` is the differentiable solve)."""
+    layout = layout_for(op.n)
     ks = torch.as_tensor(ks, dtype=op.dtype, device=op.device)
+    if layout == "single":
+        x02d = None if x0 is None else op.to_grid(x0)
+        x2d, iters = pcg_stencil_grid(op.vals_grid(ks), op.to_grid(op.F_root), x02d, tol=tol,
+                                      maxiter=maxiter)
+        return op.from_grid(x2d), iters
     vals4 = upper_planes(op.vals(ks))
     Wt = Binv = None
     if deflation is not None:
@@ -290,7 +418,8 @@ def solve_fom_stencil(
         Binv = Binv.to(op.dtype).contiguous()
     if x0 is not None:
         x0 = x0.contiguous()
-    x, iters = kernel_for(op.n)(
+    kernel = pcg_stencil if layout == "lanes" else pcg_stencil_tile
+    x, iters = kernel(
         vals4, op.F_root, x0, offsets=op.offsets[DIAG_SLOT + 1:], tol=tol,
         maxiter=maxiter, Wt=Wt, Binv=Binv, check_every=check_every,
     )

@@ -1,2 +1,2 @@
-"""Reduced-order model: snapshots (batched K1 solves), host-f64 POD and
+"""Reduced-order model: snapshots (batched FOM solves), host-f64 POD and
 Galerkin projection, and the batched fixed-iteration reduced PCG."""

@@ -13,6 +13,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from bayesianinferencedl_tpu_torch.utils.device import resolve_device
+
 
 @dataclass(frozen=True)
 class ReducedOperator:
@@ -31,9 +33,11 @@ class ReducedOperator:
         return self.Ahat.shape[-1]
 
     @classmethod
-    def project_host(cls, host, biot: float, V, dtype=torch.float32, device="cpu") -> "ReducedOperator":
+    def project_host(cls, host, biot: float, V, dtype=torch.float32, device="cuda") -> "ReducedOperator":
         """Exact float64 projection on the host (``host`` is a FinFEMDiaHost),
-        cast to the online dtype and device."""
+        cast to the online dtype and device (the card unless the caller asks
+        for "cpu")."""
+        device = resolve_device(device)
         comps, M_ext = host.to_scipy_components()
         V = np.asarray(V, np.float64)
         Ahat = np.stack([V.T @ (A @ V) for A in comps])

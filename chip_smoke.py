@@ -7,9 +7,10 @@ NVIDIA GPU, from the root of a checkout:
 Phases, one or more lines each; any failure exits non-zero with no result:
 
   0. device   require CUDA; print the card's name and power limit
-  1. build    compile kernels K1 (csrc/pcg_stencil.cu), K2 (csrc/pcn_fused.cu)
-              and K3 (csrc/pcg_stencil_tile.cu) with nvcc, one process each,
-              started together
+  1. build    compile kernels K1 (csrc/pcg_stencil.cu), K2 (csrc/pcn_fused.cu),
+              K3 (csrc/pcg_stencil_tile.cu), K4 (csrc/pcg_stencil_grid.cu) and
+              K5 (csrc/shift_cost.cu) with nvcc, one process each, started
+              together
   2. K1       the kernel against its plain torch version on the card at res4,
               B = 256 log-uniform conductivities, m = 128, tol 1e-7,
               maxiter 1500: deflated, undeflated and warm-started. Per-sample
@@ -71,6 +72,43 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               the reference's 1.05 gate, the posterior mean against the truth
               and the share of a batched fine solve in the outer step.
 
+  7. K4       the single-sample grid PCG kernel against its plain torch version
+              at res32 (769 x 513 grid, padded to 776 x 640), tol 1e-7, the
+              reference CLI's cap max(480, 120 res) = 3,840: B = 32 cold, B = 32
+              warm (x0 = the plain version's solutions at conductivities 5%
+              away) and B = 1. No cold sample at the cap; on the 2 samples a
+              float64 direct solve covers, the kernel within max(1e-4, 1.5x
+              the plain version's error) of the direct solve and a
+              per-sample relative L2 gap from the plain version no larger
+              than the plain version's own error (the reasons are printed); on every sample a gap below 1e-3; mean counts within
+              5% of the plain version's; the warm batch's mean count under the
+              cold one's. At B = 256 and 64 (the CLI's batches) the kernel and
+              the plain version are timed by CUDA events on the same inputs
+              and held to the same per-sample 1e-3 gap and 5% mean counts,
+              with both count spreads and how many solves hit the cap
+              (printed, not gated: the cap is the reference's own); K3
+              undeflated is timed on them for the record, beside K4's bound
+  8. FOM CLI  cli.main in-process at --resolution 32: fom, snapshots --n 256,
+              rom --n-snapshots 256 --r 40, each with the launch counts set to
+              0 before it and read after. K4 carries every batched solve (>= 1
+              launch for snapshots, >= 2 for rom), K1 and K3 take none and no
+              deflation basis is built; JSON lines finite, the fom QoI positive
+              with 5 entries; rom's rel_err_vs_fom < 0.1; solves/s printed.
+              The fom k is also solved by K4, its plain version and the fom
+              command's flat loop with its matvec summed diagonal first: K4's
+              QoI within 1e-4 of the plain version's, and each of the four
+              QoIs within 1e-3 of the float64 direct solve's (the readings and
+              which plain solve is the outlier are printed)
+  9. K5       the shift-cost probe at res8, B = 64, tile 8, 256 iterations: with
+              the shifts on A's planes, without them on |A|'s (a CG of an SPD
+              diagonal operator; on A's own planes its values are set by
+              rounding, see experimental/shift_cost.py), each against the
+              plain version within max(1e-4, 3x the plain float32 run's gap
+              from its float64 run), reason printed; then its entry point,
+              shift_cost.main(["8", "8"]), counted, with the per-tile-iteration
+              times of both variants, their gap and K3's time per iteration
+              at res8 from phase 5 beside them
+
 The last three lines are the kernel summary (JSON: time, launches, bound,
 plain time of each kernel), the nvidia-smi line, and
 {"ok": true, "device": {...}}.
@@ -78,6 +116,8 @@ plain time of each kernel), the nvidia-smi line, and
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -118,7 +158,7 @@ def phase_device():
     return card
 
 
-KERNEL_SOURCES = ("pcg_stencil", "pcn_fused", "pcg_stencil_tile")
+KERNEL_SOURCES = ("pcg_stencil", "pcn_fused", "pcg_stencil_tile", "pcg_stencil_grid", "shift_cost")
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 PEAK_F32 = 67e12  # FLOP/s on the CUDA cores
@@ -201,6 +241,18 @@ def _direct_rel_err(fin, ks: np.ndarray, u: np.ndarray) -> tuple[np.ndarray, np.
         res.append(np.linalg.norm(F - A @ ub) / np.linalg.norm(F))
         floor = max(floor, np.linalg.norm(F - A @ us.astype(np.float32)) / np.linalg.norm(F))
     return np.array(err), np.array(res), floor
+
+
+def _direct_qoi(fin, k: np.ndarray) -> np.ndarray:
+    """The QoI of the float64 sparse direct solve at conductivities k."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    As, Mext = fin.host.to_scipy_components()
+    mask = sum(A.diagonal() for A in As) > 0
+    A = sum(float(ki) * Ai for ki, Ai in zip(k, As)) + fin.op.biot * Mext
+    A = (A + sp.diags(np.where(mask, 0.0, 1.0))).tocsc()
+    return fin.host.qoi @ spla.spsolve(A, fin.host.F_root)
 
 
 def phase_kernel():
@@ -537,9 +589,9 @@ def phase_k3():
     op = fin.op
     offs = op.offsets[4:]
     say("K3", f"res{K3_RES} n={op.n} offsets={offs} m={defl.m}; fin + deflation basis "
-        f"{time.perf_counter() - t0:.2f} s; solve_fom_stencil takes "
-        f"{K.kernel_for(op.n).__name__} (K1 up to n = {K.LANES_MAX_N})")
-    if K.kernel_for(op.n) is not K.pcg_stencil_tile:
+        f"{time.perf_counter() - t0:.2f} s; solve_fom_stencil takes layout "
+        f"{K.layout_for(op.n)} (K1 up to n = {K.LANES_MAX_N})")
+    if K.layout_for(op.n) != "sublanes":
         fail(f"solve_fom_stencil does not route n = {op.n} to K3")
     rng = np.random.default_rng(0)
 
@@ -660,7 +712,8 @@ def phase_k3():
         k1_ms = _time_ms(lambda: K.pcg_stencil(vals4, op.F_root, None, **args), 3)
         p_ms = _time_ms(lambda: K.pcg_stencil_reference(vals4, op.F_root, None, **args), 3)
         bound = _k1_bound(B, op.n, defl.m, it_b.cpu().numpy())
-        times[B] = dict(ms=k3_ms, k1_ms=k1_ms, plain_ms=p_ms, bound=bound)
+        times[B] = dict(ms=k3_ms, k1_ms=k1_ms, plain_ms=p_ms, bound=bound,
+                        iters_mean=it_b.float().mean().item())
         say("K3", f"deflated cold B={B}: K3 {k3_ms:.3f} ms, K1 on the same inputs {k1_ms:.3f} ms "
             f"(for the record), plain torch {p_ms:.3f} ms per batched solve; mean count "
             f"{it_b.float().mean().item():.2f}; bound {bound[0]:.4f} ms ({bound[1]}), K3 at "
@@ -758,6 +811,377 @@ def phase_da():
     return k3_all
 
 
+K4_RES = 32
+K4_CAP = max(480, 120 * K4_RES)  # the reference CLI's _cg_maxiter in float32
+K4_CHECK_B = 32
+K4_DIRECT = 2  # samples held against the float64 direct solve
+K4_BATCHES = (256, 64)  # the snapshots/rom batch and rom's test batch
+
+
+def _time_once_ms(fn) -> tuple[float, object]:
+    """One call timed by CUDA events (for calls of seconds, after the kernel
+    has been built and run once); returns (ms, the call's result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1), out
+
+
+def _k4_bound(B: int, cells: int, nodes: int, iters: np.ndarray) -> tuple[float, str]:
+    """K4's bound for one cold batch with these per-sample counts (each
+    sample also does one setup residual). Per iteration and grid node: the
+    7-plane stencil (13), p.Ap, the x and r updates, z, r.z, r.r and the p
+    update (13): 26 float32 operations, counted on the true grid's nodes
+    (the padded cells have zero planes and need none). Bytes: the (B, 7,
+    X, Y) planes and F read once, x and the counts written once."""
+    f32 = float(np.sum(iters + 1)) * 26 * nodes
+    nbytes = 4 * (7 * B * cells + cells + B * cells + B)
+    return _bound(nbytes, f32)
+
+
+def phase_k4():
+    """K4 (csrc/pcg_stencil_grid.cu) against its plain version at res32."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+
+    t0 = time.perf_counter()
+    fin = FiveParamFin.create(resolution=K4_RES, biot=0.1, device="cuda", cg_tol=TOL, cg_maxiter=K4_CAP)
+    op = fin.op
+    X, Y = op.grid_shape
+    say("K4", f"res{K4_RES} n={op.n} grid {op.grid_shape0} padded to {op.grid_shape}; fin "
+        f"{time.perf_counter() - t0:.2f} s; layout {K.layout_for(op.n)} (K3 up to n = "
+        f"{K.SUBLANES_MAX_N}); cap {K4_CAP}")
+    if K.layout_for(op.n) != "single":
+        fail(f"solve_fom_stencil does not route n = {op.n} to K4")
+    rng = np.random.default_rng(0)
+    F2d = op.to_grid(op.F_root)
+    kw = dict(tol=TOL, maxiter=K4_CAP)
+
+    def inputs(B):
+        ks_np = np.exp(rng.uniform(np.log(0.1), np.log(10.0), (B, 5)))
+        ks = torch.tensor(ks_np, dtype=torch.float32, device="cuda")
+        return ks_np, ks, op.vals_grid(ks)
+
+    ks_np, ks, v2 = inputs(K4_CHECK_B)
+    x0, _ = K.pcg_stencil_grid_reference(op.vals_grid(ks * 1.05), F2d, None, **kw)
+    cases = {"cold": (v2, None), "warm": (v2, x0), "cold B=1": (v2[:1].contiguous(), None)}
+    max_abs, iters = 0.0, {}
+    for name, (v, x0c) in cases.items():
+        xk, itk = K.pcg_stencil_grid(v, F2d, x0c, **kw)
+        torch.cuda.synchronize()
+        xp, itp = K.pcg_stencil_grid_reference(v, F2d, x0c, **kw)
+        if not torch.isfinite(xk).all():
+            fail(f"K4 {name}: non-finite solution")
+        rel_s = (torch.linalg.norm((xk - xp).flatten(1), dim=1)
+                 / torch.linalg.norm(xp.flatten(1), dim=1)).cpu().numpy()
+        max_abs = max(max_abs, (xk - xp).abs().max().item())
+        it, itp = itk.cpu().numpy(), itp.cpu().numpy()
+        iters[name] = it
+        mean_shift = abs(it.mean() / itp.mean() - 1)
+        say("K4", f"{name}: per-sample rel diff vs plain max {rel_s.max():.3e} median "
+            f"{np.median(rel_s):.3e}; iters kernel min/mean/max {it.min()}/{it.mean():.1f}/{it.max()}, "
+            f"plain {itp.min()}/{itp.mean():.1f}/{itp.max()}; per-sample count difference max "
+            f"{np.abs(it - itp).max()}")
+        if name.startswith("cold") and (it.max() >= K4_CAP or itp.max() >= K4_CAP):
+            fail(f"K4 {name}: {int((it >= K4_CAP).sum())} kernel and {int((itp >= K4_CAP).sum())} "
+                 f"plain samples hit the {K4_CAP}-iteration cap")
+        if mean_shift > 0.05:
+            fail(f"K4 {name}: mean iteration count {it.mean():.2f} vs plain {itp.mean():.2f}")
+        # f32 CG at res32 stops 0.5-1.5e-4 from the direct solve (its
+        # attainable accuracy, which the stencil's rounding sets) and its
+        # residual hovers near tol for hundreds of iterations, so the two
+        # versions can stop hundreds of iterations apart. With the same
+        # summation order and roundings (K4 contracts no FMA) they follow one
+        # trajectory: per sample their gap is held against the plain version's
+        # own error, and the kernel's error within 1.5x the plain version's,
+        # the rule of phase 5. On every sample the gap must stay below 1e-3,
+        # ten times that error: beyond it is a fault, not rounding
+        sub = slice(0, min(K4_DIRECT, len(it)))
+        flat = lambda x: op.from_grid(x[sub]).cpu().numpy()
+        err_k, res_k, floor = _direct_rel_err(fin, ks_np[sub], flat(xk))
+        err_p, _, _ = _direct_rel_err(fin, ks_np[sub], flat(xp))
+        gate = max(REL_GATE, 1.5 * err_p.max())
+        say("K4", f"{name}: vs float64 direct solve (samples {sub.start}-{sub.stop - 1}): kernel rel err "
+            f"{np.round(err_k, 8).tolist()}, plain {np.round(err_p, 8).tolist()}, kernel vs plain "
+            f"{np.round(rel_s[sub], 8).tolist()}; f64 rel residual {res_k.max():.3e} (float32-rounded "
+            f"exact solution: {floor:.3e}); accuracy gate {gate:.3e} = max({REL_GATE:g}, 1.5 x the plain "
+            f"version's error: f32 CG's attainable accuracy at res{K4_RES} is its own)")
+        if err_k.max() > gate:
+            fail(f"K4 {name}: relative error {err_k.max():.3e} against the f64 direct solve > {gate:.3e}")
+        if (rel_s[sub] > err_p).any():
+            fail(f"K4 {name}: kernel vs plain {np.round(rel_s[sub], 8).tolist()} exceeds the plain "
+                 f"version's own error against the direct solve, {np.round(err_p, 8).tolist()}")
+        if rel_s.max() > 1e-3:
+            fail(f"K4 {name}: kernel vs plain {rel_s.max():.3e} > 1e-3 on some sample")
+    same = bool(iters["cold B=1"][0] == iters["cold"][0])
+    say("K4", f"B=1 count equal to the B={K4_CHECK_B} run's first sample: {same}")
+    # a warm start lowers the batch's mean count; single samples can take
+    # more, since near tol the count moves by hundreds of iterations
+    w, c = iters["warm"], iters["cold"]
+    say("K4", f"warm vs cold: mean count {w.mean():.1f} vs {c.mean():.1f}; {int((w >= c).sum())} of "
+        f"{len(c)} samples took no fewer iterations warm")
+    if not w.mean() < c.mean():
+        fail(f"K4 warm: mean count {w.mean():.1f} not below the cold {c.mean():.1f}")
+
+    # the CLI's batches: timed, and the kernel held against the plain version
+    # on every sample with the gates that need no direct solve
+    times = {}
+    for B in K4_BATCHES:
+        _, ks, v2 = inputs(B)
+        k4_ms, (xk, it_b) = _time_once_ms(lambda: K.pcg_stencil_grid(v2, F2d, None, **kw))
+        p_ms, (xp, itp_b) = _time_once_ms(lambda: K.pcg_stencil_grid_reference(v2, F2d, None, **kw))
+        rel_s = (torch.linalg.norm((xk - xp).flatten(1), dim=1)
+                 / torch.linalg.norm(xp.flatten(1), dim=1)).cpu().numpy()
+        max_abs = max(max_abs, (xk - xp).abs().max().item())
+        finite = bool(torch.isfinite(xk).all())
+        del xk, xp
+        vals4 = K.upper_planes(op.vals(ks))
+        k3_ms, _ = _time_once_ms(lambda: K.pcg_stencil_tile(vals4, op.F_root, None,
+                                                             offsets=op.offsets[4:], **kw))
+        del vals4
+        it, itp = it_b.cpu().numpy(), itp_b.cpu().numpy()
+        bound = _k4_bound(B, X * Y, op.n_grid, it)
+        times[B] = dict(ms=k4_ms, plain_ms=p_ms, k3_ms=k3_ms, bound=bound, iters_mean=float(it.mean()))
+        say("K4", f"cold B={B}: K4 {k4_ms:.3f} ms ({B / k4_ms * 1e3:.2f} solves/s), plain torch "
+            f"{p_ms:.3f} ms, K3 undeflated on the same inputs {k3_ms:.3f} ms (for the record); "
+            f"bound {bound[0]:.4f} ms ({bound[1]}), K4 at {100 * bound[0] / k4_ms:.2f}% of it")
+        say("K4", f"cold B={B}: per-sample rel diff vs plain max {rel_s.max():.3e} median "
+            f"{np.median(rel_s):.3e}; counts min/mean/max kernel {it.min()}/{it.mean():.1f}/{it.max()}, "
+            f"plain {itp.min()}/{itp.mean():.1f}/{itp.max()}; per-sample count difference max "
+            f"{np.abs(it - itp).max()}; at the {K4_CAP} cap: kernel {int((it >= K4_CAP).sum())}, plain "
+            f"{int((itp >= K4_CAP).sum())} (printed, not gated: the cap is the reference CLI's own)")
+        if not finite:
+            fail(f"K4 cold B={B}: non-finite solution")
+        if abs(it.mean() / itp.mean() - 1) > 0.05:
+            fail(f"K4 cold B={B}: mean iteration count {it.mean():.2f} vs plain {itp.mean():.2f}")
+        if rel_s.max() > 1e-3:
+            fail(f"K4 cold B={B}: kernel vs plain {rel_s.max():.3e} > 1e-3 on some sample")
+    return dict(fin=fin, max_abs_err=max_abs, times=times)
+
+
+def phase_fom_cli(k4):
+    """The slice: the reference CLI's FOM commands at res32, in-process."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch import cli
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+    from bayesianinferencedl_tpu_torch.ops.deflation import DeflationBasis
+
+    builds = []
+    create = DeflationBasis.create
+
+    def counted_create(*a, **kw):
+        builds.append(1)
+        return create(*a, **kw)
+
+    res = str(K4_RES)
+    k_fom = ["0.5", "2.0", "1.0", "3.0", "0.8"]
+    commands = (("fom", ["fom", "--resolution", res, "--k", *k_fom], 0),
+                ("snapshots", ["snapshots", "--resolution", res, "--n", "256"], 1),
+                ("rom", ["rom", "--resolution", res, "--n-snapshots", "256", "--r", "40"], 2))
+    out, k4_launches = {}, 0
+    DeflationBasis.create = counted_create
+    try:
+        for name, argv, min_k4 in commands:
+            K.launches = K.tile_launches = K.grid_launches = 0
+            builds.clear()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n4, n1, n3, nb = K.grid_launches, K.launches, K.tile_launches, len(builds)
+            line = buf.getvalue().strip().splitlines()[-1]
+            out[name] = rec = json.loads(line)
+            say("CLI", f"{' '.join(argv)}: {wall:.2f} s wall; {line}")
+            say("CLI", f"{name}: launches K4 {n4}, K1 {n1}, K3 {n3}; deflation bases built {nb}")
+            if n4 < min_k4:
+                fail(f"{name}: K4 was launched {n4} times (expected >= {min_k4})")
+            if n1 or n3 or nb:
+                fail(f"{name}: K1 {n1} / K3 {n3} launches and {nb} deflation bases at res{K4_RES}, "
+                     f"where K4 carries every batched solve undeflated")
+            if not np.isfinite(np.array(list(_numbers(rec)), dtype=float)).all():
+                fail(f"{name}: non-finite output {line}")
+            k4_launches += n4
+    finally:
+        DeflationBasis.create = create
+
+    qoi = np.array(out["fom"]["qoi"])
+    if qoi.shape != (5,) or not (qoi > 0).all():
+        fail(f"fom: QoI {qoi.tolist()} is not 5 positive entries")
+    _fom_qoi_check(k4["fin"], np.array([float(v) for v in k_fom]), qoi)
+    rel = out["rom"]["rel_err_vs_fom"]
+    say("CLI", f"snapshots: {out['snapshots']['fom_solves_per_sec']:.2f} FOM solves/s at res{K4_RES}; "
+        f"rom r=40 rel_err_vs_fom {rel:.4e}")
+    if not rel < 0.1:
+        fail(f"rom: rel_err_vs_fom {rel} not below 0.1")
+    return k4_launches
+
+
+# K4 vs its plain version: one trajectory, with the stencil summed in one order
+# and every product and sum rounded on its own (K4 contracts no FMA)
+K4_QOI_GAP = 1e-4
+# any f32 solve of the fom k vs the float64 direct solve at res32, tol 1e-7:
+# f32 Jacobi-PCG stops where the stencil's rounding lets it, 6.4e-5 to 8.4e-4
+# from the direct solve's QoI across the summation orders this phase runs
+K4_QOI_ERR = 1e-3
+
+
+def _fom_qoi_check(fin, k_np: np.ndarray, qoi: np.ndarray) -> None:
+    """The fom command's QoI at k against the float64 direct solve's, beside
+    three more float32 solves of the same k at the same tol and cap: K4, its
+    plain version, and the fom command's flat plain loop with its matvec
+    summed diagonal first, as both grid versions sum it. Where the flat loop
+    lands with that order tells which of the two plain solves is the outlier:
+    f32 CG stops at an accuracy that the matvec's rounding sets."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.fem.solve import pcg
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+
+    op = fin.op
+    k = torch.tensor(k_np[None], dtype=torch.float32, device="cuda")
+    kw = dict(tol=TOL, maxiter=K4_CAP)
+    v2, F2d = op.vals_grid(k), op.to_grid(op.F_root)
+    x4, it4 = K.pcg_stencil_grid(v2, F2d, None, **kw)
+    xg, itg = K.pcg_stencil_grid_reference(v2, F2d, None, **kw)
+    vals, m = op.vals(k), op.max_offset
+
+    def matvec_diag_first(p):
+        pp = torch.nn.functional.pad(p, (m, m))
+        acc = vals[..., K.DIAG_SLOT] * p
+        for s, o in enumerate(op.offsets):
+            if s != K.DIAG_SLOT:
+                acc = acc + vals[..., s] * pp[..., m + o : m + o + op.n]
+        return acc
+
+    xf, itf, _ = pcg(matvec_diag_first, op.F_root[None], op.diag(vals), **kw)
+    q = {"fom": qoi,
+         "K4": fin.qoi(op.from_grid(x4))[0].cpu().numpy(),
+         "plain grid": fin.qoi(op.from_grid(xg))[0].cpu().numpy(),
+         "flat, diagonal first": fin.qoi(xf)[0].cpu().numpy()}
+    its = {"K4": int(it4[0]), "plain grid": int(itg[0]), "flat, diagonal first": int(itf[0])}
+    qd = _direct_qoi(fin, k_np)
+    err = {name: np.abs(v - qd).max() / np.abs(qd).max() for name, v in q.items()}
+    gap = np.abs(q["K4"] - q["plain grid"]).max() / np.abs(q["plain grid"]).max()
+    say("CLI", f"fom QoI {np.round(qoi, 6).tolist()}; max rel error against the float64 direct solve's "
+        f"QoI: " + ", ".join(f"{name} {e:.3e}" + (f" ({its[name]} iterations)" if name in its else "")
+                             for name, e in err.items()))
+    outlier = "fom (flat, offsets order)" if (abs(err["fom"] - err["flat, diagonal first"])
+                                             > abs(err["plain grid"] - err["flat, diagonal first"])) \
+        else "plain grid"
+    say("CLI", f"the plain solve farther from the flat loop summed diagonal first: {outlier}; K4 vs plain "
+        f"grid QoI gap {gap:.3e} (gate {K4_QOI_GAP:g}: one trajectory, one summation order, the same "
+        f"roundings); every solve vs direct gated at {K4_QOI_ERR:g} (f32 Jacobi-PCG's attainable "
+        f"accuracy at res{K4_RES}, tol {TOL:g}, which the stencil's summation order moves by up to 13x)")
+    if gap > K4_QOI_GAP:
+        fail(f"fom: K4's QoI differs from its plain version's by {gap:.3e} > {K4_QOI_GAP:g}")
+    for name, e in err.items():
+        if e > K4_QOI_ERR:
+            fail(f"fom: {name} QoI error {e:.3e} against the direct solve > {K4_QOI_ERR:g}")
+
+
+def _numbers(rec):
+    for v in rec.values():
+        if isinstance(v, list):
+            yield from v
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            yield v
+
+
+K5_RES, K5_B, K5_TILE = 8, 64, 8
+K5_ITERS = 256  # the reference probe's iteration count
+K5_GATE_FLOOR = 1e-4
+
+
+def _k5_bound(B: int, n: int, n_iters: int) -> tuple[float, str]:
+    """K5's bound for one run: per iteration and node the 7-plane matvec
+    (13), p.Ap, the x and r updates, z, r.z and the p update (11): 24
+    float32 operations, and ~4 for the setup. Bytes: the (B, n, 7) values
+    and F read once, x written once."""
+    return _bound(4 * (7 * B * n + n + B * n), float(B) * n * (24 * n_iters + 4))
+
+
+def phase_k5(k3):
+    """K5 (csrc/shift_cost.cu) against its plain version at res8, then its
+    entry point."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.experimental import shift_cost as K5
+    from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+    from bayesianinferencedl_tpu_torch.rom.snapshots import sample_log_uniform
+
+    fin = FiveParamFin.create(resolution=K5_RES, biot=0.1, device="cuda", cg_tol=TOL, cg_maxiter=2000)
+    op = fin.op
+    vals = op.vals(sample_log_uniform(torch.Generator(device="cuda").manual_seed(1), K5_B))
+    max_abs = 0.0
+    why = ("a fixed-iteration f32 CG with no stop test keeps every rounding difference of its sums, so "
+           "two float32 runs differ by about what each differs from the float64 one")
+    # without the shifts the operator is the diagonal of A's row sums, which
+    # cancel to rounding level off the convective boundary, so on A's own
+    # planes the values are set by rounding from the second iteration on
+    # (experimental/shift_cost.py); on |A|'s planes the row sums are
+    # positive, the loop is a CG of an SPD diagonal operator, and the
+    # comparison is as tight as with the shifts
+    variants = ((True, vals, "A's planes"), (False, vals.abs(), "|A|'s planes"))
+    for use_rolls, v, what in variants:
+        n_iters = K5_ITERS
+        kw = dict(offsets=op.offsets, n_iters=n_iters, use_rolls=use_rolls)
+        xk = K5.shift_cost(v, op.F_root, tile=K5_TILE, **kw)
+        torch.cuda.synchronize()
+        xp = K5.shift_cost_reference(v, op.F_root, **kw)
+        x64 = K5.shift_cost_reference(v.double(), op.F_root.double(), **kw)
+        rel = lambda a, b: (torch.linalg.norm(a.double() - b.double(), dim=1)
+                            / torch.linalg.norm(b.double(), dim=1)).max().item()
+        r_kp, r_p64, r_k64 = rel(xk, xp), rel(xp, x64), rel(xk, x64)
+        gate = max(K5_GATE_FLOOR, 3 * r_p64)
+        max_abs = max(max_abs, (xk - xp).abs().max().item())
+        say("K5", f"{'shifts' if use_rolls else 'no shifts'} on {what}, {n_iters} iterations, B={K5_B}, "
+            f"tile {K5_TILE}: kernel vs plain max per-sample rel diff {r_kp:.3e}; plain float32 vs its "
+            f"float64 run {r_p64:.3e}, kernel vs float64 {r_k64:.3e}; gate {gate:.3e} = "
+            f"max({K5_GATE_FLOOR:g}, 3x the plain float32 run's gap from its float64 run): {why}")
+        if not torch.isfinite(xk).all():
+            fail("K5: non-finite output")
+        if r_kp > gate:
+            fail(f"K5: kernel vs plain {r_kp:.3e} > {gate:.3e}")
+
+    # the main path: the probe's entry point
+    K5.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        K5.main([str(K5_RES), str(K5_TILE)])
+    launches = K5.launches
+    rows = {r["use_rolls"]: r for r in (json.loads(line) for line in buf.getvalue().splitlines()
+                                        if line.startswith("{"))}
+    for r in rows.values():
+        say("K5", json.dumps(r))
+    if launches < 2 or set(rows) != {True, False}:
+        fail(f"K5's entry point made {launches} launches and printed {len(rows)} variants")
+    us_s, us_n = rows[True]["per_tile_iter_us"], rows[False]["per_tile_iter_us"]
+    t3 = k3["times"][B_CHECK]
+    k3_us = t3["ms"] * 1e3 / t3["iters_mean"]
+    say("K5", f"launches {launches}; per tile-iteration: shifts {us_s:.4f} us, no shifts {us_n:.4f} us, "
+        f"shift cost {us_s - us_n:.4f} us ({100 * (us_s - us_n) / us_s:.1f}%); K3 deflated at res8, "
+        f"B={B_CHECK} (phase 5): {k3_us:.3f} us per batch iteration, "
+        f"{k3_us / (B_CHECK // 8):.4f} us per tile-iteration in the reference's division")
+    vals2 = op.vals(sample_log_uniform(torch.Generator(device="cuda").manual_seed(2), K5_B))
+    p_ms, _ = _time_once_ms(lambda: K5.shift_cost_reference(vals2, op.F_root, offsets=op.offsets,
+                                                           n_iters=K5_ITERS, use_rolls=True))
+    ms = rows[True]["total_s"] * 1e3
+    bound = _k5_bound(K5_B, op.n, K5_ITERS)
+    say("K5", f"shifts, {K5_ITERS} iterations: kernel {ms:.3f} ms, plain torch {p_ms:.3f} ms; bound "
+        f"{bound[0]:.4f} ms ({bound[1]}), kernel at {100 * bound[0] / ms:.2f}% of it")
+    return dict(launches=launches, max_abs_err=max_abs, ms=ms, plain_ms=p_ms, bound=bound)
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
                   ms: float, plain_ms: float, bound: tuple) -> dict:
     return {"name": name, "route": "cuda", "source": f"bayesianinferencedl_tpu_torch/csrc/{source}",
@@ -775,8 +1199,12 @@ def main() -> None:
     k2 = phase_k2(cfg, pipe, inv)
     k3 = phase_k3()
     k3_launches = phase_da()
+    k4 = phase_k4()
+    k4_launches = phase_fom_cli(k4)
+    k5 = phase_k5(k3)
     k_ms, p_ms = times[B_CHECK]
     t3 = k3["times"][1024]
+    t4 = k4["times"][K4_BATCHES[0]]
     print(json.dumps({"kernels": [
         _kernel_entry("pcg_stencil", "pcg_stencil.cu", "bayesianinferencedl_tpu/ops/pcg_stencil.py:236",
                       launches, max_abs, k_ms, p_ms, k1_bound),
@@ -785,6 +1213,11 @@ def main() -> None:
         _kernel_entry("pcg_stencil_tile", "pcg_stencil_tile.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385", k3_launches,
                       k3["max_abs_err"], t3["ms"], t3["plain_ms"], t3["bound"]),
+        _kernel_entry("pcg_stencil_grid", "pcg_stencil_grid.cu",
+                      "bayesianinferencedl_tpu/ops/pcg_stencil.py:58", k4_launches,
+                      k4["max_abs_err"], t4["ms"], t4["plain_ms"], t4["bound"]),
+        _kernel_entry("shift_cost", "shift_cost.cu", "scripts/diag_roll_cost.py:27", k5["launches"],
+                      k5["max_abs_err"], k5["ms"], k5["plain_ms"], k5["bound"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -48,7 +48,7 @@ def _problem(seed=0):
              prior=JPrior.iid(D, mean=0.0, sigma=1.0, dtype=jnp.float64))
     t = dict(fine=t_misfit(lambda x: x @ Ht.T, dt, SIGMA),
              coarse=t_misfit(lambda x: x @ Ht.T + bt, dt, SIGMA),
-             prior=TPrior.iid(D, mean=0.0, sigma=1.0, dtype=torch.float64))
+             prior=TPrior.iid(D, mean=0.0, sigma=1.0, dtype=torch.float64, device="cpu"))
     return j, t, mu, Cpost
 
 

@@ -29,7 +29,7 @@ def test_assembly_equals_reference(hosts):
 def test_operator_matches_reference_f64(hosts):
     jh, th = hosts
     jop = jdia.StencilOperator.from_host(jh, biot=0.1, dtype=jnp.float64)
-    top = tdia.StencilOperator.from_host(th, biot=0.1, dtype=torch.float64)
+    top = tdia.StencilOperator.from_host(th, biot=0.1, dtype=torch.float64, device="cpu")
     rng = np.random.default_rng(7)
     ks = np.exp(rng.uniform(np.log(0.1), np.log(10), (3, 5)))
     us = rng.normal(size=(3, th.n))

@@ -38,8 +38,8 @@ def setup(mesh_r1):
     jop = JStencil.from_host(jhost, biot=BIOT, dtype=jnp.float32)
     jdefl = JDefl.create(jhost, biot=BIOT, m=64, dtype=jnp.float32)
     host = assemble_fin_dia(mesh_r1, pad_to=128)
-    op = StencilOperator.from_host(host, biot=BIOT, dtype=torch.float32)
-    defl = DeflationBasis.create(host, biot=BIOT, m=64)
+    op = StencilOperator.from_host(host, biot=BIOT, dtype=torch.float32, device="cpu")
+    defl = DeflationBasis.create(host, biot=BIOT, m=64, device="cpu")
     ks = np.exp(np.random.default_rng(3).uniform(np.log(0.1), np.log(10), (B, 5))).astype(np.float32)
     n_res = mesh_r1.resolution
     h = 0.25 / n_res

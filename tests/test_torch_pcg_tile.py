@@ -41,8 +41,8 @@ def setup(mesh_r1):
     jop = JStencil.from_host(jhost, biot=BIOT, dtype=jnp.float32)
     jdefl = JDefl.create(jhost, biot=BIOT, m=64, dtype=jnp.float32)
     host = assemble_fin_dia(mesh_r1, pad_to=128)
-    op = StencilOperator.from_host(host, biot=BIOT, dtype=torch.float32)
-    defl = DeflationBasis.create(host, biot=BIOT, m=64)
+    op = StencilOperator.from_host(host, biot=BIOT, dtype=torch.float32, device="cpu")
+    defl = DeflationBasis.create(host, biot=BIOT, m=64, device="cpu")
     ks = np.exp(np.random.default_rng(11).uniform(np.log(0.1), np.log(10), (B, 5))).astype(np.float32)
     h = 0.25 / mesh_r1.resolution
     ny = 16 * mesh_r1.resolution
@@ -59,7 +59,7 @@ def setup(mesh_r1):
 def via_k3(setup, monkeypatch):
     """Send solve_fom_stencil at res1 to K3's wrapper."""
     monkeypatch.setattr(K, "LANES_MAX_N", 0)
-    assert K.kernel_for(setup["op"].n) is K.pcg_stencil_tile
+    assert K.layout_for(setup["op"].n) == "sublanes"
 
 
 def _rel(a, b):
@@ -153,11 +153,11 @@ def test_cap_hits_agree_with_pallas(setup, deflated):
 
 def test_routing_by_size():
     assert K.LANES_MAX_N == 18_618  # 11 * n * 128 * 4 bytes <= 100 MiB
-    assert K.kernel_for(6_400) is K.pcg_stencil  # res4
-    assert K.kernel_for(24_960) is K.pcg_stencil_tile  # res8
-    assert K.kernel_for(99_072) is K.pcg_stencil_tile  # res16
-    assert K.kernel_for(K.LANES_MAX_N) is K.pcg_stencil
-    assert K.kernel_for(K.LANES_MAX_N + 1) is K.pcg_stencil_tile
+    assert K.layout_for(6_400) == "lanes"  # res4, K1
+    assert K.layout_for(24_960) == "sublanes"  # res8, K3
+    assert K.layout_for(99_072) == "sublanes"  # res16, K3
+    assert K.layout_for(K.LANES_MAX_N) == "lanes"
+    assert K.layout_for(K.LANES_MAX_N + 1) == "sublanes"
 
 
 def test_wrapper_checks_inputs_and_counts_only_launches(setup):

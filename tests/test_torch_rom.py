@@ -46,7 +46,7 @@ def test_pod_and_projection_equal_reference(setup):
     s = setup
     np.testing.assert_allclose(s["V"], s["Vj"], rtol=0, atol=1e-10)
     rj = JROM.project_host(s["jhost"], BIOT, s["Vj"], dtype=jnp.float64)
-    rt = ReducedOperator.project_host(s["host"], BIOT, s["V"], dtype=torch.float64)
+    rt = ReducedOperator.project_host(s["host"], BIOT, s["V"], dtype=torch.float64, device="cpu")
     for f in ("Ahat", "Mhat", "Fhat", "Bhat", "V"):
         a, b = getattr(rt, f).numpy(), np.asarray(getattr(rj, f))
         np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-10 * np.abs(b).max(), err_msg=f)
@@ -65,7 +65,7 @@ def test_pod_and_projection_equal_reference(setup):
 def test_solve_pcg_and_fast_forward_match_reference(setup, tdt, jdt, tol):
     s = setup
     rj = JROM.project_host(s["jhost"], BIOT, s["Vj"], dtype=jdt)
-    rt = ReducedOperator.project_host(s["host"], BIOT, s["V"], dtype=tdt)
+    rt = ReducedOperator.project_host(s["host"], BIOT, s["V"], dtype=tdt, device="cpu")
     P0j, P0t = rj.preconditioner(), rt.preconditioner()
     ks = s["ks"]
     uj = np.asarray(jax.vmap(lambda k: rj.solve_pcg(k, P0j, ITERS, differentiable=False))(
