@@ -1,4 +1,4 @@
-"""Fused batched Jacobi-PCG on the 7-diagonal stencil (kernels K1, K3, K4).
+"""Fused batched Jacobi-PCG on the 7-diagonal stencil (kernels K1, K3, K4r, K4).
 
 A FOM solve is CG on the symmetric stencil operator of ``fem/dia.py``. Three
 hand-written CUDA kernels compute it, one for each layout of the JAX
@@ -11,10 +11,15 @@ package's ``solve_fom_stencil_pallas``, chosen by the mesh size alone
 - "sublanes", K3, ``pcg_stencil_tile`` (``csrc/pcg_stencil_tile.cu``): a
   tile of 8 samples per block that share each pass over the deflation
   basis, up to n = 182,044 (res8 to res21);
-- "single", K4, ``pcg_stencil_grid`` (``csrc/pcg_stencil_grid.cu``): one
-  sample's undeflated Jacobi-PCG on its 2-D grid, above that (res >= 22).
-  Like the JAX package's single-sample layout, it applies no deflation even
-  when one is passed, and checks convergence every iteration.
+- "single", ``pcg_stencil_grid``: one sample's undeflated Jacobi-PCG on its
+  2-D grid, above that (res >= 22). Like the JAX package's single-sample
+  layout, it applies no deflation even when one is passed, and checks
+  convergence every iteration. Two kernels compute it, chosen by
+  ``grid_route`` from the grid's size and the card's shared memory: K4r
+  (``csrc/pcg_stencil_grid_resident.cu``) keeps one sample's whole solve in
+  the shared memory of every SM, one row strip per SM, wherever the strips
+  fit (res22-38 on an H100); K4 (``csrc/pcg_stencil_grid.cu``) streams each
+  sample's state from device memory, one block per sample, beyond that.
 
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs the
 plain batched torch version of the same math (``pcg_stencil_reference``,
@@ -48,6 +53,7 @@ DIAG_SLOT = 3  # index of offset 0 in the ascending 7-offset DIA layout
 launches = 0  # K1 launches in this process (the CUDA path only)
 tile_launches = 0  # K3 launches in this process (the CUDA path only)
 grid_launches = 0  # K4 launches in this process (the CUDA path only)
+grid_resident_launches = 0  # K4r launches in this process (the CUDA path only)
 
 # the JAX package's 2-D stencil offsets (dx, dy), in the DIA plane order
 # [-(ny+2), -(ny+1), -1, 0, 1, ny+1, ny+2]
@@ -242,6 +248,37 @@ def layout_for(n: int) -> str:
     return "sublanes" if n <= SUBLANES_MAX_N else "single"
 
 
+# K4r's float64 reduction scratch per block: 4 * 32 doubles
+RESIDENT_RED_BYTES = 1024
+
+
+def grid_strips(X0: int, n_blocks: int) -> list[tuple[int, int]]:
+    """K4r's row strips: block j owns the true grid rows [j X0 // n_blocks,
+    (j + 1) X0 // n_blocks), ceil(X0 / n_blocks) rows or one fewer."""
+    return [(j * X0 // n_blocks, (j + 1) * X0 // n_blocks) for j in range(n_blocks)]
+
+
+def resident_bytes(X0: int, Y0: int, n_blocks: int) -> int:
+    """The shared memory one K4r block needs for its strip of the true
+    (X0, Y0) grid over n_blocks blocks (the kernel's ``strip_bytes``): per
+    cell of its rows the 7 planes, D^-1, x, r and Ap (11 float32); p with a
+    halo row above and below and a zero column on each side; D^-1 of the two
+    halo rows; and the reduction scratch."""
+    rows = -(-X0 // n_blocks)
+    floats = 11 * rows * Y0 + (rows + 2) * (Y0 + 2) + 2 * Y0
+    return RESIDENT_RED_BYTES + 4 * floats
+
+
+def grid_route(X0: int, Y0: int, n_sm: int, smem_per_block: int) -> str:
+    """The kernel for one sample's grid solve on a card with ``n_sm`` SMs and
+    ``smem_per_block`` bytes of shared memory a block can opt in to:
+    "resident" (K4r: one block per SM, min(n_sm, X0) blocks, each holding its
+    strip) where a strip fits, else "stream" (K4). A pure function of its
+    arguments; ``pcg_stencil_grid`` passes the card's own numbers."""
+    nb = min(n_sm, X0)
+    return "resident" if resident_bytes(X0, Y0, nb) <= smem_per_block else "stream"
+
+
 def pcg_stencil_grid_reference(
     vals2d: torch.Tensor,
     F2d: torch.Tensor,
@@ -286,11 +323,16 @@ def pcg_stencil_grid(
     *,
     tol: float,
     maxiter: int,
+    shape0: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4's wrapper: the CUDA kernel (one block per sample, float32) on CUDA
-    tensors, the plain version on CPU tensors (float32, or float64 for
-    oracle tests). Arguments as for ``pcg_stencil_grid_reference``; Y must
-    be a multiple of 4 (``StencilOperator.grid_shape`` pads it to 128)."""
+    """The single layout's wrapper: on CUDA tensors (float32) K4r or K4, as
+    ``grid_route`` says for this grid and card; on CPU tensors the plain
+    version (float32, or float64 for oracle tests). Arguments as for
+    ``pcg_stencil_grid_reference``; Y must be a multiple of 4
+    (``StencilOperator.grid_shape`` pads it to 128). shape0: the true grid
+    (X0, Y0) in the top-left corner of (X, Y) (``op.grid_shape0``), None for
+    all of it; cells outside it must hold zero planes, zero F and zero
+    x02d (the grid views give them so), and the solution is zero there."""
     if vals2d.dim() != 4 or vals2d.shape[1] != 7:
         raise ValueError(f"vals2d must be (B, 7, X, Y), got {tuple(vals2d.shape)}")
     B, _, X, Y = vals2d.shape
@@ -299,6 +341,9 @@ def pcg_stencil_grid(
         raise ValueError(f"K4 runs on CUDA or CPU tensors, got {dev}")
     if maxiter < 0:
         raise ValueError("need maxiter >= 0")
+    X0, Y0 = (X, Y) if shape0 is None else (int(shape0[0]), int(shape0[1]))
+    if not (0 < X0 <= X and 0 < Y0 <= Y):
+        raise ValueError(f"shape0 {shape0} must lie inside the grid {(X, Y)}")
     if Y % 4:
         raise ValueError(f"K4 reads 4-cell words along a grid row: Y must be a multiple of 4, got {Y}")
     dt = vals2d.dtype
@@ -309,7 +354,64 @@ def pcg_stencil_grid(
     _check(x02d, "x02d", (B, X, Y), dt, dev)
     if dev.type == "cpu":
         return pcg_stencil_grid_reference(vals2d, F2d, x02d, tol=tol, maxiter=maxiter)
+    n_sm, smem = device_limits(dev)
+    if grid_route(X0, Y0, n_sm, smem) == "resident":
+        return _launch_grid_resident(vals2d, F2d, x02d, (X0, Y0), min(n_sm, X0), tol=tol,
+                                     maxiter=maxiter)
     return _launch_grid(vals2d, F2d, x02d, tol=tol, maxiter=maxiter)
+
+
+_limits: dict[int, tuple[int, int]] = {}
+
+
+def device_limits(dev: torch.device) -> tuple[int, int]:
+    """(SM count, shared memory a block can opt in to) of a CUDA device, read
+    from the card by K4r's library."""
+    idx = torch.device(dev).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _limits:
+        from bayesianinferencedl_tpu_torch.ops._build import load_library
+
+        fn = load_library("pcg_stencil_grid_resident").pcg_stencil_grid_resident_device
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+        n_sm, smem = ctypes.c_int(), ctypes.c_int()
+        err = fn(idx, ctypes.byref(n_sm), ctypes.byref(smem))
+        if err != 0:
+            raise RuntimeError(f"pcg_stencil_grid_resident_device failed with cudaError_t {err}")
+        _limits[idx] = (n_sm.value, smem.value)
+    return _limits[idx]
+
+
+def _launch_grid_resident(vals2d, F2d, x02d, shape0, n_blocks, *, tol, maxiter):
+    """Launch ``csrc/pcg_stencil_grid_resident.cu`` (a cooperative grid of
+    n_blocks blocks) and count the launch. A launch the card refuses raises."""
+    global grid_resident_launches
+    from bayesianinferencedl_tpu_torch.ops._build import load_library
+
+    fn = load_library("pcg_stencil_grid_resident").pcg_stencil_grid_resident_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    B, _, X, Y = vals2d.shape
+    X0, Y0 = shape0
+    dev = vals2d.device
+    with torch.cuda.device(dev):
+        x = torch.empty((B, X, Y), dtype=torch.float32, device=dev)
+        iters = torch.empty((B,), dtype=torch.int32, device=dev)
+        counter = torch.zeros((1,), dtype=torch.int64, device=dev)  # the grid barrier's
+        slots = torch.empty((4, n_blocks), dtype=torch.float64, device=dev)  # per-block partials
+        pub = torch.empty((n_blocks, 2, Y0), dtype=torch.float32, device=dev)  # r's edge rows
+        err = fn(
+            vals2d.data_ptr(), F2d.data_ptr(), None if x02d is None else x02d.data_ptr(),
+            x.data_ptr(), iters.data_ptr(), counter.data_ptr(), slots.data_ptr(), pub.data_ptr(),
+            B, X, Y, X0, Y0, n_blocks, float(tol * tol), int(maxiter),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pcg_stencil_grid_resident_launch failed with cudaError_t {err}")
+    grid_resident_launches += 1
+    return x, iters
 
 
 def _launch_grid(vals2d, F2d, x02d, *, tol, maxiter):
@@ -389,8 +491,9 @@ def solve_fom_stencil(
     coarse_inv: torch.Tensor | None = None,
     check_every: int = 16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched FOM solve A(k_b) u_b = F through K1, K3 or K4, by the mesh
-    size (``layout_for``).
+    """Batched FOM solve A(k_b) u_b = F through K1, K3 or the single
+    layout's K4r / K4, by the mesh size (``layout_for``, then
+    ``grid_route``).
 
     op: fem.dia.StencilOperator; ks: (B, 5). Returns (u (B, n), iters (B,)).
     x0: optional (B, n) warm starts.
@@ -408,7 +511,7 @@ def solve_fom_stencil(
     if layout == "single":
         x02d = None if x0 is None else op.to_grid(x0)
         x2d, iters = pcg_stencil_grid(op.vals_grid(ks), op.to_grid(op.F_root), x02d, tol=tol,
-                                      maxiter=maxiter)
+                                      maxiter=maxiter, shape0=op.grid_shape0)
         return op.from_grid(x2d), iters
     vals4 = upper_planes(op.vals(ks))
     Wt = Binv = None

@@ -8,9 +8,9 @@ Phases, one or more lines each; any failure exits non-zero with no result:
 
   0. device   require CUDA; print the card's name and power limit
   1. build    compile kernels K1 (csrc/pcg_stencil.cu), K2 (csrc/pcn_fused.cu),
-              K3 (csrc/pcg_stencil_tile.cu), K4 (csrc/pcg_stencil_grid.cu) and
-              K5 (csrc/shift_cost.cu) with nvcc, one process each, started
-              together
+              K3 (csrc/pcg_stencil_tile.cu), K4 (csrc/pcg_stencil_grid.cu), K4r
+              (csrc/pcg_stencil_grid_resident.cu) and K5 (csrc/shift_cost.cu)
+              with nvcc, one process each, started together
   2. K1       the kernel against its plain torch version on the card at res4,
               B = 256 log-uniform conductivities, m = 128, tol 1e-7,
               maxiter 1500: deflated, undeflated and warm-started. Per-sample
@@ -72,33 +72,46 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               the reference's 1.05 gate, the posterior mean against the truth
               and the share of a batched fine solve in the outer step.
 
-  7. K4       the single-sample grid PCG kernel against its plain torch version
+  7. K4r, K4  the single layout's two kernels against the plain torch version
               at res32 (769 x 513 grid, padded to 776 x 640), tol 1e-7, the
-              reference CLI's cap max(480, 120 res) = 3,840: B = 32 cold, B = 32
-              warm (x0 = the plain version's solutions at conductivities 5%
-              away) and B = 1. No cold sample at the cap; on the 2 samples a
-              float64 direct solve covers, the kernel within max(1e-4, 1.5x
-              the plain version's error) of the direct solve and a
-              per-sample relative L2 gap from the plain version no larger
-              than the plain version's own error (the reasons are printed); on every sample a gap below 1e-3; mean counts within
+              reference CLI's cap max(480, 120 res) = 3,840. First the route:
+              grid_route's answer for this grid and card, the bytes a block
+              needs (the Python count and the kernel's own, which must agree)
+              and K4r's registers from ptxas. K4r, through pcg_stencil_grid,
+              at B = 32 cold, B = 32 warm (x0 = the plain version's solutions
+              at conductivities 5% away) and B = 1; K4, through its launcher,
+              at B = 32 cold on the same inputs. Each: no cold sample at the
+              cap; on the 2 samples a float64 direct solve covers, the kernel
+              within max(1e-4, 1.5x the plain version's error) of the direct
+              solve and a per-sample relative L2 gap from the plain version
+              no larger than the plain version's own error (the reasons are
+              printed); on every sample a gap below 1e-3; mean counts within
               5% of the plain version's; the warm batch's mean count under the
-              cold one's. At B = 256 and 64 (the CLI's batches) the kernel and
-              the plain version are timed by CUDA events on the same inputs
-              and held to the same per-sample 1e-3 gap and 5% mean counts,
-              with both count spreads and how many solves hit the cap
-              (printed, not gated: the cap is the reference's own); K3
-              undeflated is timed on them for the record, beside K4's bound
+              cold one's. K4r vs K4 per sample printed. At B = 256 and 64 (the
+              CLI's batches) K4r and the plain version are timed by CUDA events
+              on the same inputs and held to the same per-sample 1e-3 gap and
+              5% mean counts, with both count spreads, how many solves hit the
+              cap (printed, not gated: the cap is the reference's own) and
+              K4r's time per CG iteration; K4 is timed beside K4r at B = 64.
+              K4r alone on one cold sample, timed, and its floor: the same
+              launch on one 8-cell row per block, 4 samples of the 5-point
+              Laplacian at tol 0 (at least 1,000 iterations in all)
   8. FOM CLI  cli.main in-process at --resolution 32: fom, snapshots --n 256,
-              rom --n-snapshots 256 --r 40, each with the launch counts set to
-              0 before it and read after. K4 carries every batched solve (>= 1
-              launch for snapshots, >= 2 for rom), K1 and K3 take none and no
-              deflation basis is built; JSON lines finite, the fom QoI positive
-              with 5 entries; rom's rel_err_vs_fom < 0.1; solves/s printed.
-              The fom k is also solved by K4, its plain version and the fom
-              command's flat loop with its matvec summed diagonal first: K4's
-              QoI within 1e-4 of the plain version's, and each of the four
-              QoIs within 1e-3 of the float64 direct solve's (the readings and
-              which plain solve is the outlier are printed)
+              rom --n-snapshots 256 --r 40; then snapshots --resolution 40 --n 8,
+              a grid whose strips outgrow the card's shared memory. Each with
+              the launch counts set to 0 before it and read after: K4r carries
+              every batched solve at res32 (>= 1 launch for snapshots, >= 2 for
+              rom) and K4 every one at res40 (>= 1), the other kernels none,
+              and no deflation basis is built; JSON lines finite, the fom QoI
+              positive with 5 entries; rom's rel_err_vs_fom < 0.1; solves/s
+              printed. The fom k is also solved by K4r, its plain version and
+              the fom command's flat loop with its matvec summed diagonal
+              first: K4r's QoI within 1e-4 of the plain version's, and each of
+              the four QoIs within 1e-3 of the float64 direct solve's (the
+              readings and which plain solve is the outlier are printed).
+              Then K4 at the shapes of that res40 sweep (B = 8, cap 4,800),
+              through pcg_stencil_grid, against the plain version on every
+              sample (gap < 1e-3, mean counts within 5%), both timed
   9. K5       the shift-cost probe at res8, B = 64, tile 8, 256 iterations: with
               the shifts on A's planes, without them on |A|'s (a CG of an SPD
               diagonal operator; on A's own planes its values are set by
@@ -117,6 +130,7 @@ plain time of each kernel), the nvidia-smi line, and
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import subprocess
@@ -158,7 +172,8 @@ def phase_device():
     return card
 
 
-KERNEL_SOURCES = ("pcg_stencil", "pcn_fused", "pcg_stencil_tile", "pcg_stencil_grid", "shift_cost")
+KERNEL_SOURCES = ("pcg_stencil", "pcn_fused", "pcg_stencil_tile", "pcg_stencil_grid",
+                  "pcg_stencil_grid_resident", "shift_cost")
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 PEAK_F32 = 67e12  # FLOP/s on the CUDA cores
@@ -816,6 +831,10 @@ K4_CAP = max(480, 120 * K4_RES)  # the reference CLI's _cg_maxiter in float32
 K4_CHECK_B = 32
 K4_DIRECT = 2  # samples held against the float64 direct solve
 K4_BATCHES = (256, 64)  # the snapshots/rom batch and rom's test batch
+K4_STREAM_B = 64  # the batch at which K4 is timed beside K4r
+FLOOR_ITERS, FLOOR_B = 2000, 4  # the cap and batch of K4r's floor run (phase 7)
+K4_STREAM_RES = 40  # a mesh past K4r's reach on an H100 (res >= 39), so K4's route
+K4_STREAM_N = 8  # the batch of phase 8's snapshot sweep there
 
 
 def _time_once_ms(fn) -> tuple[float, object]:
@@ -844,25 +863,55 @@ def _k4_bound(B: int, cells: int, nodes: int, iters: np.ndarray) -> tuple[float,
     return _bound(nbytes, f32)
 
 
+def _rel_gap(a, b) -> np.ndarray:
+    """Per-sample relative L2 gap ||a - b|| / ||b|| over (B, X, Y) grids."""
+    import torch
+
+    return (torch.linalg.norm((a - b).flatten(1), dim=1)
+            / torch.linalg.norm(b.flatten(1), dim=1)).cpu().numpy()
+
+
 def phase_k4():
-    """K4 (csrc/pcg_stencil_grid.cu) against its plain version at res32."""
+    """K4r (csrc/pcg_stencil_grid_resident.cu), the single layout's kernel at
+    res32, through pcg_stencil_grid, and K4 (csrc/pcg_stencil_grid.cu)
+    through its launcher, each against the plain version."""
     import torch
 
     from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+    from bayesianinferencedl_tpu_torch.ops import _build
     from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
 
     t0 = time.perf_counter()
     fin = FiveParamFin.create(resolution=K4_RES, biot=0.1, device="cuda", cg_tol=TOL, cg_maxiter=K4_CAP)
     op = fin.op
     X, Y = op.grid_shape
-    say("K4", f"res{K4_RES} n={op.n} grid {op.grid_shape0} padded to {op.grid_shape}; fin "
+    X0, Y0 = op.grid_shape0
+    say("K4r", f"res{K4_RES} n={op.n} grid {op.grid_shape0} padded to {op.grid_shape}; fin "
         f"{time.perf_counter() - t0:.2f} s; layout {K.layout_for(op.n)} (K3 up to n = "
         f"{K.SUBLANES_MAX_N}); cap {K4_CAP}")
     if K.layout_for(op.n) != "single":
-        fail(f"solve_fom_stencil does not route n = {op.n} to K4")
+        fail(f"solve_fom_stencil does not route n = {op.n} to the single layout")
+    n_sm, smem = K.device_limits(torch.device("cuda"))
+    route = K.grid_route(X0, Y0, n_sm, smem)
+    nb = min(n_sm, X0)
+    rows = [b - a for a, b in K.grid_strips(X0, nb)]
+    lib = _build.load_library("pcg_stencil_grid_resident")
+    c_bytes = lib.pcg_stencil_grid_resident_bytes
+    c_bytes.restype, c_bytes.argtypes = ctypes.c_longlong, [ctypes.c_int] * 3
+    py_bytes, k_bytes = K.resident_bytes(X0, Y0, nb), int(c_bytes(X0, Y0, nb))
+    say("K4r", f"route: grid_route({X0}, {Y0}, {n_sm} SMs, {smem} B a block) = {route}; {nb} blocks "
+        f"of {min(rows)}-{max(rows)} rows, {py_bytes} B of shared memory a block (the kernel's own "
+        f"count: {k_bytes})")
+    for line in _build.build_logs.get("pcg_stencil_grid_resident", {}).get("ptxas", "").splitlines():
+        if "registers" in line or "spill" in line:
+            say("K4r", f"ptxas: {line.strip()}")
+    if route != "resident" or py_bytes != k_bytes:
+        fail(f"res{K4_RES} routed to {route}, bytes {py_bytes} vs the kernel's {k_bytes}")
     rng = np.random.default_rng(0)
     F2d = op.to_grid(op.F_root)
     kw = dict(tol=TOL, maxiter=K4_CAP)
+    k4r = lambda v, x0=None: K.pcg_stencil_grid(v, F2d, x0, shape0=(X0, Y0), **kw)
+    k4 = lambda v, x0=None: K._launch_grid(v, F2d, x0, **kw)
 
     def inputs(B):
         ks_np = np.exp(rng.uniform(np.log(0.1), np.log(10.0), (B, 5)))
@@ -871,103 +920,147 @@ def phase_k4():
 
     ks_np, ks, v2 = inputs(K4_CHECK_B)
     x0, _ = K.pcg_stencil_grid_reference(op.vals_grid(ks * 1.05), F2d, None, **kw)
-    cases = {"cold": (v2, None), "warm": (v2, x0), "cold B=1": (v2[:1].contiguous(), None)}
-    max_abs, iters = 0.0, {}
-    for name, (v, x0c) in cases.items():
-        xk, itk = K.pcg_stencil_grid(v, F2d, x0c, **kw)
+    cases = (("K4r", "cold", k4r, v2, None), ("K4r", "warm", k4r, v2, x0),
+             ("K4r", "cold B=1", k4r, v2[:1].contiguous(), None), ("K4", "cold", k4, v2, None))
+    max_abs, iters, sols = {"K4r": 0.0, "K4": 0.0}, {}, {}
+    for kern, name, solve, v, x0c in cases:
+        n_r, n_s = K.grid_resident_launches, K.grid_launches
+        xk, itk = solve(v, x0c)
         torch.cuda.synchronize()
+        launched = (K.grid_resident_launches - n_r, K.grid_launches - n_s)
+        if launched != ((1, 0) if kern == "K4r" else (0, 1)):
+            fail(f"{kern} {name}: launches K4r/K4 {launched}")
         xp, itp = K.pcg_stencil_grid_reference(v, F2d, x0c, **kw)
         if not torch.isfinite(xk).all():
-            fail(f"K4 {name}: non-finite solution")
-        rel_s = (torch.linalg.norm((xk - xp).flatten(1), dim=1)
-                 / torch.linalg.norm(xp.flatten(1), dim=1)).cpu().numpy()
-        max_abs = max(max_abs, (xk - xp).abs().max().item())
+            fail(f"{kern} {name}: non-finite solution")
+        rel_s = _rel_gap(xk, xp)
+        max_abs[kern] = max(max_abs[kern], (xk - xp).abs().max().item())
         it, itp = itk.cpu().numpy(), itp.cpu().numpy()
-        iters[name] = it
+        iters[kern, name], sols[kern, name] = it, xk
         mean_shift = abs(it.mean() / itp.mean() - 1)
-        say("K4", f"{name}: per-sample rel diff vs plain max {rel_s.max():.3e} median "
+        say(kern, f"{name}: per-sample rel diff vs plain max {rel_s.max():.3e} median "
             f"{np.median(rel_s):.3e}; iters kernel min/mean/max {it.min()}/{it.mean():.1f}/{it.max()}, "
             f"plain {itp.min()}/{itp.mean():.1f}/{itp.max()}; per-sample count difference max "
             f"{np.abs(it - itp).max()}")
         if name.startswith("cold") and (it.max() >= K4_CAP or itp.max() >= K4_CAP):
-            fail(f"K4 {name}: {int((it >= K4_CAP).sum())} kernel and {int((itp >= K4_CAP).sum())} "
+            fail(f"{kern} {name}: {int((it >= K4_CAP).sum())} kernel and {int((itp >= K4_CAP).sum())} "
                  f"plain samples hit the {K4_CAP}-iteration cap")
         if mean_shift > 0.05:
-            fail(f"K4 {name}: mean iteration count {it.mean():.2f} vs plain {itp.mean():.2f}")
+            fail(f"{kern} {name}: mean iteration count {it.mean():.2f} vs plain {itp.mean():.2f}")
         # f32 CG at res32 stops 0.5-1.5e-4 from the direct solve (its
         # attainable accuracy, which the stencil's rounding sets) and its
         # residual hovers near tol for hundreds of iterations, so the two
         # versions can stop hundreds of iterations apart. With the same
-        # summation order and roundings (K4 contracts no FMA) they follow one
-        # trajectory: per sample their gap is held against the plain version's
-        # own error, and the kernel's error within 1.5x the plain version's,
-        # the rule of phase 5. On every sample the gap must stay below 1e-3,
-        # ten times that error: beyond it is a fault, not rounding
+        # summation order and roundings (the kernels contract no FMA) they
+        # follow one trajectory: per sample their gap is held against the
+        # plain version's own error, and the kernel's error within 1.5x the
+        # plain version's, the rule of phase 5. On every sample the gap must
+        # stay below 1e-3, ten times that error: beyond it is a fault, not
+        # rounding
         sub = slice(0, min(K4_DIRECT, len(it)))
         flat = lambda x: op.from_grid(x[sub]).cpu().numpy()
         err_k, res_k, floor = _direct_rel_err(fin, ks_np[sub], flat(xk))
         err_p, _, _ = _direct_rel_err(fin, ks_np[sub], flat(xp))
         gate = max(REL_GATE, 1.5 * err_p.max())
-        say("K4", f"{name}: vs float64 direct solve (samples {sub.start}-{sub.stop - 1}): kernel rel err "
+        say(kern, f"{name}: vs float64 direct solve (samples {sub.start}-{sub.stop - 1}): kernel rel err "
             f"{np.round(err_k, 8).tolist()}, plain {np.round(err_p, 8).tolist()}, kernel vs plain "
             f"{np.round(rel_s[sub], 8).tolist()}; f64 rel residual {res_k.max():.3e} (float32-rounded "
             f"exact solution: {floor:.3e}); accuracy gate {gate:.3e} = max({REL_GATE:g}, 1.5 x the plain "
             f"version's error: f32 CG's attainable accuracy at res{K4_RES} is its own)")
         if err_k.max() > gate:
-            fail(f"K4 {name}: relative error {err_k.max():.3e} against the f64 direct solve > {gate:.3e}")
+            fail(f"{kern} {name}: relative error {err_k.max():.3e} against the f64 direct solve > {gate:.3e}")
         if (rel_s[sub] > err_p).any():
-            fail(f"K4 {name}: kernel vs plain {np.round(rel_s[sub], 8).tolist()} exceeds the plain "
+            fail(f"{kern} {name}: kernel vs plain {np.round(rel_s[sub], 8).tolist()} exceeds the plain "
                  f"version's own error against the direct solve, {np.round(err_p, 8).tolist()}")
         if rel_s.max() > 1e-3:
-            fail(f"K4 {name}: kernel vs plain {rel_s.max():.3e} > 1e-3 on some sample")
-    same = bool(iters["cold B=1"][0] == iters["cold"][0])
-    say("K4", f"B=1 count equal to the B={K4_CHECK_B} run's first sample: {same}")
+            fail(f"{kern} {name}: kernel vs plain {rel_s.max():.3e} > 1e-3 on some sample")
+    same = bool(iters["K4r", "cold B=1"][0] == iters["K4r", "cold"][0])
+    say("K4r", f"B=1 count equal to the B={K4_CHECK_B} run's first sample: {same}")
+    gap = _rel_gap(sols["K4r", "cold"], sols["K4", "cold"])
+    dit = np.abs(iters["K4r", "cold"] - iters["K4", "cold"])
+    say("K4r", f"cold B={K4_CHECK_B}: K4r vs K4 per-sample rel gap max {gap.max():.3e}, "
+        f"{int((gap == 0).sum())} of {len(gap)} samples bit-identical; count difference max {dit.max()}")
     # a warm start lowers the batch's mean count; single samples can take
     # more, since near tol the count moves by hundreds of iterations
-    w, c = iters["warm"], iters["cold"]
-    say("K4", f"warm vs cold: mean count {w.mean():.1f} vs {c.mean():.1f}; {int((w >= c).sum())} of "
+    w, c = iters["K4r", "warm"], iters["K4r", "cold"]
+    say("K4r", f"warm vs cold: mean count {w.mean():.1f} vs {c.mean():.1f}; {int((w >= c).sum())} of "
         f"{len(c)} samples took no fewer iterations warm")
     if not w.mean() < c.mean():
-        fail(f"K4 warm: mean count {w.mean():.1f} not below the cold {c.mean():.1f}")
+        fail(f"K4r warm: mean count {w.mean():.1f} not below the cold {c.mean():.1f}")
 
-    # the CLI's batches: timed, and the kernel held against the plain version
-    # on every sample with the gates that need no direct solve
+    # the CLI's batches: timed, and K4r held against the plain version on
+    # every sample with the gates that need no direct solve; K4 timed beside
+    # it at B = 64
     times = {}
     for B in K4_BATCHES:
         _, ks, v2 = inputs(B)
-        k4_ms, (xk, it_b) = _time_once_ms(lambda: K.pcg_stencil_grid(v2, F2d, None, **kw))
+        r_ms, (xk, it_b) = _time_once_ms(lambda: k4r(v2))
         p_ms, (xp, itp_b) = _time_once_ms(lambda: K.pcg_stencil_grid_reference(v2, F2d, None, **kw))
-        rel_s = (torch.linalg.norm((xk - xp).flatten(1), dim=1)
-                 / torch.linalg.norm(xp.flatten(1), dim=1)).cpu().numpy()
-        max_abs = max(max_abs, (xk - xp).abs().max().item())
+        rel_s = _rel_gap(xk, xp)
+        max_abs["K4r"] = max(max_abs["K4r"], (xk - xp).abs().max().item())
         finite = bool(torch.isfinite(xk).all())
-        del xk, xp
-        vals4 = K.upper_planes(op.vals(ks))
-        k3_ms, _ = _time_once_ms(lambda: K.pcg_stencil_tile(vals4, op.F_root, None,
-                                                             offsets=op.offsets[4:], **kw))
-        del vals4
         it, itp = it_b.cpu().numpy(), itp_b.cpu().numpy()
         bound = _k4_bound(B, X * Y, op.n_grid, it)
-        times[B] = dict(ms=k4_ms, plain_ms=p_ms, k3_ms=k3_ms, bound=bound, iters_mean=float(it.mean()))
-        say("K4", f"cold B={B}: K4 {k4_ms:.3f} ms ({B / k4_ms * 1e3:.2f} solves/s), plain torch "
-            f"{p_ms:.3f} ms, K3 undeflated on the same inputs {k3_ms:.3f} ms (for the record); "
-            f"bound {bound[0]:.4f} ms ({bound[1]}), K4 at {100 * bound[0] / k4_ms:.2f}% of it")
-        say("K4", f"cold B={B}: per-sample rel diff vs plain max {rel_s.max():.3e} median "
+        us_it = r_ms * 1e3 / float(np.sum(it + 1))
+        times[B] = dict(ms=r_ms, plain_ms=p_ms, bound=bound, iters_mean=float(it.mean()), us_iter=us_it)
+        say("K4r", f"cold B={B}: K4r {r_ms:.3f} ms ({B / r_ms * 1e3:.2f} solves/s, {us_it:.4f} us per "
+            f"CG iteration = ms / sum(iters + 1)), plain torch {p_ms:.3f} ms; bound {bound[0]:.4f} ms "
+            f"({bound[1]}), K4r at {100 * bound[0] / r_ms:.2f}% of it")
+        say("K4r", f"cold B={B}: per-sample rel diff vs plain max {rel_s.max():.3e} median "
             f"{np.median(rel_s):.3e}; counts min/mean/max kernel {it.min()}/{it.mean():.1f}/{it.max()}, "
             f"plain {itp.min()}/{itp.mean():.1f}/{itp.max()}; per-sample count difference max "
             f"{np.abs(it - itp).max()}; at the {K4_CAP} cap: kernel {int((it >= K4_CAP).sum())}, plain "
             f"{int((itp >= K4_CAP).sum())} (printed, not gated: the cap is the reference CLI's own)")
+        if B == K4_STREAM_B:
+            s_ms, (x4, it4) = _time_once_ms(lambda: k4(v2))
+            max_abs["K4"] = max(max_abs["K4"], (x4 - xp).abs().max().item())
+            g4 = _rel_gap(xk, x4)
+            it4 = it4.cpu().numpy()
+            times["K4"] = dict(ms=s_ms, plain_ms=p_ms, bound=bound)
+            say("K4", f"cold B={B}, same inputs: K4 {s_ms:.3f} ms ({B / s_ms * 1e3:.2f} solves/s), "
+                f"K4r {r_ms:.3f} ms: K4r {s_ms / r_ms:.2f}x faster; K4 vs plain max {_rel_gap(x4, xp).max():.3e}; "
+                f"K4r vs K4 per-sample gap max {g4.max():.3e} ({int((g4 == 0).sum())} of {B} "
+                f"bit-identical), count difference max {np.abs(it - it4).max()}")
+            del x4
+        del xk, xp
         if not finite:
-            fail(f"K4 cold B={B}: non-finite solution")
+            fail(f"K4r cold B={B}: non-finite solution")
         if abs(it.mean() / itp.mean() - 1) > 0.05:
-            fail(f"K4 cold B={B}: mean iteration count {it.mean():.2f} vs plain {itp.mean():.2f}")
+            fail(f"K4r cold B={B}: mean iteration count {it.mean():.2f} vs plain {itp.mean():.2f}")
         if rel_s.max() > 1e-3:
-            fail(f"K4 cold B={B}: kernel vs plain {rel_s.max():.3e} > 1e-3 on some sample")
+            fail(f"K4r cold B={B}: kernel vs plain {rel_s.max():.3e} > 1e-3 on some sample")
+
+    # one cold sample alone, and the floor of an iteration: the same launch on
+    # a one-row, 8-cell strip per block, FLOOR_B samples of the 5-point
+    # Laplacian (SPD; the fin's own planes are the identity in the grid's
+    # corners, outside the fin) with a load of ones at tol 0, each running
+    # to the cap unless its residual reaches exactly zero: the two
+    # reductions and barriers with next to no sweep
+    one_ms, (_, it1) = _time_once_ms(lambda: k4r(v2[:1].contiguous()))
+    lap = torch.zeros((FLOOR_B, 7, nb, 8), dtype=torch.float32, device="cuda")
+    lap[:, K.DIAG_SLOT] = 4.0
+    for s_ in (1, 2, 4, 5):  # (-1, 0), (0, -1), (0, 1), (1, 0)
+        lap[:, s_] = -1.0
+    ones = torch.ones((nb, 8), dtype=torch.float32, device="cuda")
+    fl_ms, (xf, itf) = _time_once_ms(lambda: K.pcg_stencil_grid(
+        lap, ones, None, tol=0.0, maxiter=FLOOR_ITERS, shape0=(nb, 8)))
+    n_fl = int(itf.sum()) + FLOOR_B
+    floor_us = fl_ms * 1e3 / n_fl
+    us = times[K4_BATCHES[0]]["us_iter"]
+    times[1] = dict(ms=one_ms, iters=int(it1[0]))
+    say("K4r", f"cold B=1: {one_ms:.3f} ms for {int(it1[0])} iterations "
+        f"({one_ms * 1e3 / (int(it1[0]) + 1):.4f} us each); the floor, {nb} strips of one 8-cell row, "
+        f"{FLOOR_B} samples at tol 0, {n_fl} iterations in all: {floor_us:.4f} us per iteration, "
+        f"{100 * floor_us / us:.1f}% of the {us:.4f} us at B={K4_BATCHES[0]}")
+    if not torch.isfinite(xf).all() or n_fl < 1000:
+        fail(f"K4r floor run: {n_fl} iterations, finite {bool(torch.isfinite(xf).all())}")
     return dict(fin=fin, max_abs_err=max_abs, times=times)
 
 
 def phase_fom_cli(k4):
-    """The slice: the reference CLI's FOM commands at res32, in-process."""
+    """The slice: the reference CLI's FOM commands at res32, in-process, on
+    K4r; and a snapshot sweep at res40, where the single layout's strips
+    outgrow the card's shared memory, on K4."""
     import torch
 
     from bayesianinferencedl_tpu_torch import cli
@@ -983,14 +1076,17 @@ def phase_fom_cli(k4):
 
     res = str(K4_RES)
     k_fom = ["0.5", "2.0", "1.0", "3.0", "0.8"]
-    commands = (("fom", ["fom", "--resolution", res, "--k", *k_fom], 0),
-                ("snapshots", ["snapshots", "--resolution", res, "--n", "256"], 1),
-                ("rom", ["rom", "--resolution", res, "--n-snapshots", "256", "--r", "40"], 2))
-    out, k4_launches = {}, 0
+    # (name, argv, the kernel that must carry the batched solves, its least launches)
+    commands = (("fom", ["fom", "--resolution", res, "--k", *k_fom], "K4r", 0),
+                ("snapshots", ["snapshots", "--resolution", res, "--n", "256"], "K4r", 1),
+                ("rom", ["rom", "--resolution", res, "--n-snapshots", "256", "--r", "40"], "K4r", 2),
+                (f"snapshots res{K4_STREAM_RES}", ["snapshots", "--resolution", str(K4_STREAM_RES),
+                                                   "--n", str(K4_STREAM_N)], "K4", 1))
+    out, counts = {}, {"K4r": 0, "K4": 0}
     DeflationBasis.create = counted_create
     try:
-        for name, argv, min_k4 in commands:
-            K.launches = K.tile_launches = K.grid_launches = 0
+        for name, argv, kern, least in commands:
+            K.launches = K.tile_launches = K.grid_launches = K.grid_resident_launches = 0
             builds.clear()
             buf = io.StringIO()
             t0 = time.perf_counter()
@@ -998,19 +1094,23 @@ def phase_fom_cli(k4):
                 cli.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            n4, n1, n3, nb = K.grid_launches, K.launches, K.tile_launches, len(builds)
+            n = {"K4r": K.grid_resident_launches, "K4": K.grid_launches, "K1": K.launches,
+                 "K3": K.tile_launches}
+            nb = len(builds)
             line = buf.getvalue().strip().splitlines()[-1]
             out[name] = rec = json.loads(line)
             say("CLI", f"{' '.join(argv)}: {wall:.2f} s wall; {line}")
-            say("CLI", f"{name}: launches K4 {n4}, K1 {n1}, K3 {n3}; deflation bases built {nb}")
-            if n4 < min_k4:
-                fail(f"{name}: K4 was launched {n4} times (expected >= {min_k4})")
-            if n1 or n3 or nb:
-                fail(f"{name}: K1 {n1} / K3 {n3} launches and {nb} deflation bases at res{K4_RES}, "
-                     f"where K4 carries every batched solve undeflated")
+            say("CLI", f"{name}: launches " + ", ".join(f"{k} {v}" for k, v in n.items())
+                + f"; deflation bases built {nb}")
+            other = [k for k, v in n.items() if k != kern and v]
+            if n[kern] < least:
+                fail(f"{name}: {kern} was launched {n[kern]} times (expected >= {least})")
+            if other or nb:
+                fail(f"{name}: launches of {other} and {nb} deflation bases, where {kern} carries "
+                     f"every batched solve undeflated")
             if not np.isfinite(np.array(list(_numbers(rec)), dtype=float)).all():
                 fail(f"{name}: non-finite output {line}")
-            k4_launches += n4
+            counts[kern] += n[kern]
     finally:
         DeflationBasis.create = create
 
@@ -1019,15 +1119,16 @@ def phase_fom_cli(k4):
         fail(f"fom: QoI {qoi.tolist()} is not 5 positive entries")
     _fom_qoi_check(k4["fin"], np.array([float(v) for v in k_fom]), qoi)
     rel = out["rom"]["rel_err_vs_fom"]
-    say("CLI", f"snapshots: {out['snapshots']['fom_solves_per_sec']:.2f} FOM solves/s at res{K4_RES}; "
-        f"rom r=40 rel_err_vs_fom {rel:.4e}")
+    say("CLI", f"snapshots: {out['snapshots']['fom_solves_per_sec']:.2f} FOM solves/s at res{K4_RES} "
+        f"(K4r), {out[commands[3][0]]['fom_solves_per_sec']:.2f} at res{K4_STREAM_RES} (K4); rom r=40 "
+        f"rel_err_vs_fom {rel:.4e}")
     if not rel < 0.1:
         fail(f"rom: rel_err_vs_fom {rel} not below 0.1")
-    return k4_launches
+    return counts
 
 
-# K4 vs its plain version: one trajectory, with the stencil summed in one order
-# and every product and sum rounded on its own (K4 contracts no FMA)
+# K4r vs its plain version: one trajectory, with the stencil summed in one order
+# and every product and sum rounded on its own (K4r contracts no FMA)
 K4_QOI_GAP = 1e-4
 # any f32 solve of the fom k vs the float64 direct solve at res32, tol 1e-7:
 # f32 Jacobi-PCG stops where the stencil's rounding lets it, 6.4e-5 to 8.4e-4
@@ -1037,7 +1138,7 @@ K4_QOI_ERR = 1e-3
 
 def _fom_qoi_check(fin, k_np: np.ndarray, qoi: np.ndarray) -> None:
     """The fom command's QoI at k against the float64 direct solve's, beside
-    three more float32 solves of the same k at the same tol and cap: K4, its
+    three more float32 solves of the same k at the same tol and cap: K4r, its
     plain version, and the fom command's flat plain loop with its matvec
     summed diagonal first, as both grid versions sum it. Where the flat loop
     lands with that order tells which of the two plain solves is the outlier:
@@ -1051,7 +1152,7 @@ def _fom_qoi_check(fin, k_np: np.ndarray, qoi: np.ndarray) -> None:
     k = torch.tensor(k_np[None], dtype=torch.float32, device="cuda")
     kw = dict(tol=TOL, maxiter=K4_CAP)
     v2, F2d = op.vals_grid(k), op.to_grid(op.F_root)
-    x4, it4 = K.pcg_stencil_grid(v2, F2d, None, **kw)
+    x4, it4 = K.pcg_stencil_grid(v2, F2d, None, shape0=op.grid_shape0, **kw)
     xg, itg = K.pcg_stencil_grid_reference(v2, F2d, None, **kw)
     vals, m = op.vals(k), op.max_offset
 
@@ -1065,28 +1166,68 @@ def _fom_qoi_check(fin, k_np: np.ndarray, qoi: np.ndarray) -> None:
 
     xf, itf, _ = pcg(matvec_diag_first, op.F_root[None], op.diag(vals), **kw)
     q = {"fom": qoi,
-         "K4": fin.qoi(op.from_grid(x4))[0].cpu().numpy(),
+         "K4r": fin.qoi(op.from_grid(x4))[0].cpu().numpy(),
          "plain grid": fin.qoi(op.from_grid(xg))[0].cpu().numpy(),
          "flat, diagonal first": fin.qoi(xf)[0].cpu().numpy()}
-    its = {"K4": int(it4[0]), "plain grid": int(itg[0]), "flat, diagonal first": int(itf[0])}
+    its = {"K4r": int(it4[0]), "plain grid": int(itg[0]), "flat, diagonal first": int(itf[0])}
     qd = _direct_qoi(fin, k_np)
     err = {name: np.abs(v - qd).max() / np.abs(qd).max() for name, v in q.items()}
-    gap = np.abs(q["K4"] - q["plain grid"]).max() / np.abs(q["plain grid"]).max()
+    gap = np.abs(q["K4r"] - q["plain grid"]).max() / np.abs(q["plain grid"]).max()
     say("CLI", f"fom QoI {np.round(qoi, 6).tolist()}; max rel error against the float64 direct solve's "
         f"QoI: " + ", ".join(f"{name} {e:.3e}" + (f" ({its[name]} iterations)" if name in its else "")
                              for name, e in err.items()))
     outlier = "fom (flat, offsets order)" if (abs(err["fom"] - err["flat, diagonal first"])
                                              > abs(err["plain grid"] - err["flat, diagonal first"])) \
         else "plain grid"
-    say("CLI", f"the plain solve farther from the flat loop summed diagonal first: {outlier}; K4 vs plain "
+    say("CLI", f"the plain solve farther from the flat loop summed diagonal first: {outlier}; K4r vs plain "
         f"grid QoI gap {gap:.3e} (gate {K4_QOI_GAP:g}: one trajectory, one summation order, the same "
         f"roundings); every solve vs direct gated at {K4_QOI_ERR:g} (f32 Jacobi-PCG's attainable "
         f"accuracy at res{K4_RES}, tol {TOL:g}, which the stencil's summation order moves by up to 13x)")
     if gap > K4_QOI_GAP:
-        fail(f"fom: K4's QoI differs from its plain version's by {gap:.3e} > {K4_QOI_GAP:g}")
+        fail(f"fom: K4r's QoI differs from its plain version's by {gap:.3e} > {K4_QOI_GAP:g}")
     for name, e in err.items():
         if e > K4_QOI_ERR:
             fail(f"fom: {name} QoI error {e:.3e} against the direct solve > {K4_QOI_ERR:g}")
+
+
+def phase_k4_stream(k4):
+    """K4 at the shapes of its own main path (phase 8's res40 sweep): the
+    wrapper routes a res40 grid to K4, held against the plain version on
+    every sample and timed beside it."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+
+    cap = max(480, 120 * K4_STREAM_RES)  # the reference CLI's _cg_maxiter in float32
+    op = FiveParamFin.create(resolution=K4_STREAM_RES, biot=0.1, device="cuda").op
+    X, Y = op.grid_shape
+    ks = np.exp(np.random.default_rng(1).uniform(np.log(0.1), np.log(10.0), (K4_STREAM_N, 5)))
+    v2 = op.vals_grid(torch.tensor(ks, dtype=torch.float32, device="cuda"))
+    F2d = op.to_grid(op.F_root)
+    kw = dict(tol=TOL, maxiter=cap)
+    n_r, n_s = K.grid_resident_launches, K.grid_launches
+    ms, (xk, itk) = _time_once_ms(lambda: K.pcg_stencil_grid(v2, F2d, None, shape0=op.grid_shape0, **kw))
+    if (K.grid_resident_launches - n_r, K.grid_launches - n_s) != (0, 1):
+        fail(f"res{K4_STREAM_RES}: pcg_stencil_grid did not take K4")
+    p_ms, (xp, itp) = _time_once_ms(lambda: K.pcg_stencil_grid_reference(v2, F2d, None, **kw))
+    rel_s = _rel_gap(xk, xp)
+    it, itp = itk.cpu().numpy(), itp.cpu().numpy()
+    bound = _k4_bound(K4_STREAM_N, X * Y, op.n_grid, it)
+    k4["max_abs_err"]["K4"] = max(k4["max_abs_err"]["K4"], (xk - xp).abs().max().item())
+    k4["times"]["K4 main"] = dict(ms=ms, plain_ms=p_ms, bound=bound)
+    say("K4", f"res{K4_STREAM_RES} (grid {op.grid_shape0} padded to {op.grid_shape}), cold B={K4_STREAM_N}: "
+        f"K4 {ms:.3f} ms, plain torch {p_ms:.3f} ms; bound {bound[0]:.4f} ms ({bound[1]}), K4 at "
+        f"{100 * bound[0] / ms:.2f}% of it; per-sample rel diff vs plain max {rel_s.max():.3e}; counts "
+        f"min/mean/max kernel {it.min()}/{it.mean():.1f}/{it.max()}, plain "
+        f"{itp.min()}/{itp.mean():.1f}/{itp.max()}; at the {cap} cap: kernel {int((it >= cap).sum())}, "
+        f"plain {int((itp >= cap).sum())}")
+    if not torch.isfinite(xk).all():
+        fail(f"K4 res{K4_STREAM_RES}: non-finite solution")
+    if abs(it.mean() / itp.mean() - 1) > 0.05:
+        fail(f"K4 res{K4_STREAM_RES}: mean iteration count {it.mean():.2f} vs plain {itp.mean():.2f}")
+    if rel_s.max() > 1e-3:
+        fail(f"K4 res{K4_STREAM_RES}: kernel vs plain {rel_s.max():.3e} > 1e-3 on some sample")
 
 
 def _numbers(rec):
@@ -1201,10 +1342,11 @@ def main() -> None:
     k3_launches = phase_da()
     k4 = phase_k4()
     k4_launches = phase_fom_cli(k4)
+    phase_k4_stream(k4)
     k5 = phase_k5(k3)
     k_ms, p_ms = times[B_CHECK]
     t3 = k3["times"][1024]
-    t4 = k4["times"][K4_BATCHES[0]]
+    t4r, t4 = k4["times"][K4_BATCHES[0]], k4["times"]["K4 main"]
     print(json.dumps({"kernels": [
         _kernel_entry("pcg_stencil", "pcg_stencil.cu", "bayesianinferencedl_tpu/ops/pcg_stencil.py:236",
                       launches, max_abs, k_ms, p_ms, k1_bound),
@@ -1214,8 +1356,11 @@ def main() -> None:
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385", k3_launches,
                       k3["max_abs_err"], t3["ms"], t3["plain_ms"], t3["bound"]),
         _kernel_entry("pcg_stencil_grid", "pcg_stencil_grid.cu",
-                      "bayesianinferencedl_tpu/ops/pcg_stencil.py:58", k4_launches,
-                      k4["max_abs_err"], t4["ms"], t4["plain_ms"], t4["bound"]),
+                      "bayesianinferencedl_tpu/ops/pcg_stencil.py:58", k4_launches["K4"],
+                      k4["max_abs_err"]["K4"], t4["ms"], t4["plain_ms"], t4["bound"]),
+        _kernel_entry("pcg_stencil_grid_resident", "pcg_stencil_grid_resident.cu",
+                      "bayesianinferencedl_tpu/ops/pcg_stencil.py:58", k4_launches["K4r"],
+                      k4["max_abs_err"]["K4r"], t4r["ms"], t4r["plain_ms"], t4r["bound"]),
         _kernel_entry("shift_cost", "shift_cost.cu", "scripts/diag_roll_cost.py:27", k5["launches"],
                       k5["max_abs_err"], k5["ms"], k5["plain_ms"], k5["bound"]),
     ]}))
