@@ -8,12 +8,12 @@
 
 ``fom`` is one differentiable plain-torch solve (``FiveParamFin.solve``);
 ``snapshots`` and ``rom`` solve their batches through ``make_fom_solver``:
-K1, K3 or, from res22 up, K4 in float32, the plain PCG in float64. Each
+K1, K3r or, from res22 up, K4r / K4 in float32, the plain PCG in float64. Each
 prints one JSON line.
 
     python -m bayesianinferencedl_tpu_torch.cli invert --device cuda
 
-builds the pipeline (every FOM solve through K1, K3 or K4, by the mesh size)
+builds the pipeline (every FOM solve through K1, K3r or K4r / K4, by the mesh size)
 and runs pCN on the rom_nn likelihood, then prints one JSON line with the
 keys of the reference CLI's ``invert``.
 
@@ -22,7 +22,11 @@ keys of the reference CLI's ``invert``.
 
 runs delayed acceptance on the exact FOM likelihood (``--subchain`` rom_nn
 pCN steps per batched FOM correction; steps count outer steps) and adds the
-FOM iteration audit and the outer and inner accept rates to the line.
+FOM iteration audit (``fom_iter_audit``, as the reference nests it) and the
+outer and inner accept rates to the line. ``invert --data obs.npz`` inverts
+the observations ``fom --save-obs`` wrote (``theta_true`` is then null);
+``--dtype float64`` builds the pipeline in float64, with FOM solves at tol
+1e-10 under a cap of 4,000 (the plain PCG).
 Flags the port does not support yet (other samplers, pcn on the fom
 likelihood, box priors, the bf16 precision tiers, the MALA inner kernel,
 the greedy ROM basis) raise NotImplementedError naming their ROADMAP.md
@@ -158,7 +162,7 @@ def cmd_invert(args) -> None:
     log = MetricsLogger(args.metrics)
     cfg = PipelineConfig(
         mesh=MeshConfig(resolution=args.resolution),
-        fem=FEMConfig(biot=args.biot, cg_tol=1e-7,
+        fem=FEMConfig(biot=args.biot, cg_tol=1e-10 if args.dtype == "float64" else 1e-7,
                       cg_maxiter=_cg_maxiter(args) if args.cg_maxiter is None else args.cg_maxiter),
         rom=ROMConfig(
             n_snapshots=args.n_snapshots, basis_size=args.r, seed=args.seed,
@@ -173,8 +177,12 @@ def cmd_invert(args) -> None:
         ),
         prior=PriorConfig(mean=args.prior_mean, sigma=args.prior_sigma, dim=5, kind=args.prior),
     )
-    pipe = build_pipeline(cfg, device=args.device, metrics=log)
-    inv = run_inversion(pipe, metrics=log)
+    pipe = build_pipeline(cfg, device=args.device, dtype=_dtype(args), metrics=log)
+    obs = None
+    if args.data:
+        obs = torch.as_tensor(np.load(args.data)["data"])
+        log.log("external_data", path=args.data, n_obs=int(obs.shape[0]))
+    inv = run_inversion(pipe, data=obs, metrics=log)
     post_mean = pipe.prior.to_theta(inv.result.samples).mean(dim=(0, 1))
     out = {
         "likelihood": args.likelihood,
@@ -187,7 +195,8 @@ def cmd_invert(args) -> None:
         "accept_rate": float(torch.mean(inv.result.accept_rate)),
         "rhat_split_max": float(torch.max(inv.rhat)),
         "posterior_mean_log_k": post_mean.cpu().tolist(),
-        "theta_true": pipe.prior.to_theta(inv.theta_true).cpu().tolist(),
+        # external data: the truth is unknown
+        "theta_true": None if obs is not None else pipe.prior.to_theta(inv.theta_true).cpu().tolist(),
     }
     if inv.ppc is not None:
         out["ppc_p_value"] = inv.ppc["p_value"]
@@ -195,9 +204,8 @@ def cmd_invert(args) -> None:
         out["outer_accept"] = out["accept_rate"]
         out["inner_accept"] = float(torch.mean(inv.result.inner_accept_rate))
     if inv.fom_iter_cap is not None:
-        out["fom_iter_cap"] = inv.fom_iter_cap
-        out["fom_iter_max"] = inv.fom_iter_max
-        out["fom_hit_cap_frac"] = inv.fom_hit_cap_frac
+        out["fom_iter_audit"] = {"cap": inv.fom_iter_cap, "max_iters": inv.fom_iter_max,
+                                 "hit_cap_frac": inv.fom_hit_cap_frac}
     print(json.dumps(out))
 
 
@@ -230,8 +238,11 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda", help="torch device; cpu runs the plain kernel versions")
     p.add_argument("--resolution", type=int, default=4)
     p.add_argument("--biot", type=float, default=0.1)
+    p.add_argument("--dtype", choices=["float32", "float64"], default="float32",
+                   help="the pipeline's dtype; float64 solves the FOM at tol 1e-10")
     p.add_argument("--cg-maxiter", type=int, default=None,
-                   help="iteration cap per FOM solve (default: the reference's max(480, 120 * resolution))")
+                   help="iteration cap per FOM solve (default: the reference's max(480, 120 * "
+                        "resolution) in float32, 4,000 in float64)")
     p.add_argument("--metrics", type=str, default=None, help="JSONL metrics path")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--prior", choices=["gaussian", "uniform", "log_uniform"], default="gaussian")
@@ -258,7 +269,10 @@ def main(argv=None) -> None:
     p.add_argument("--da-coarse", choices=["rom", "rom_nn"], default="rom_nn")
     p.add_argument("--da-inner", choices=["pcn", "mala"], default="pcn",
                    help="da_pcn subchain kernel (mala is not ported yet)")
-    p.set_defaults(fn=cmd_invert, dtype="float32")  # the pipeline runs in float32
+    p.add_argument("--data", type=str, default=None,
+                   help="observation npz (key 'data', as `fom --save-obs` writes) to invert "
+                        "instead of synthetic data")
+    p.set_defaults(fn=cmd_invert)
 
     args = ap.parse_args(argv)
     args.fn(args)

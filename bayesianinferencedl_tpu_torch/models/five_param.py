@@ -8,7 +8,7 @@ Two solves, as in the JAX package:
   differentiable plain-torch PCG of ``fem/solve.py``, with adjoint-solve
   gradients;
 - ``solve_batch``/``forward_batch``/``forward`` are batched sweeps through
-  the stencil kernels (``ops.pcg_stencil.solve_fom_stencil``): K1 or K3 with
+  the stencil kernels (``ops.pcg_stencil.solve_fom_stencil``): K1 or K3r with
   the two-level deflation preconditioner, or K4 on the largest meshes,
   where no deflation basis is built.
 """
@@ -23,7 +23,7 @@ import torch
 from bayesianinferencedl_tpu_torch.geometry.mesh import FinMesh, build_fin_mesh
 from bayesianinferencedl_tpu_torch.fem.dia import FinFEMDiaHost, StencilOperator, assemble_fin_dia
 from bayesianinferencedl_tpu_torch.ops.deflation import DeflationBasis
-from bayesianinferencedl_tpu_torch.fem.solve import solve_fom
+from bayesianinferencedl_tpu_torch.fem.solve import pcg_fom, solve_fom
 from bayesianinferencedl_tpu_torch.ops.pcg_stencil import layout_for, solve_fom_stencil
 from bayesianinferencedl_tpu_torch.utils.device import resolve_device
 
@@ -72,7 +72,14 @@ class FiveParamFin:
         return None if layout_for(self.op.n) == "single" else self.deflation_basis()
 
     def solve_batch(self, ks: torch.Tensor) -> torch.Tensor:
-        """(B, 5) conductivities -> (B, n) full-order solution fields."""
+        """(B, 5) conductivities -> (B, n) full-order solution fields: the
+        stencil kernels in float32, the plain PCG of ``fem/solve.py`` in
+        float64 (the split of ``api.make_fom_solver``)."""
+        if self.op.dtype != torch.float32:
+            ks = torch.as_tensor(ks, dtype=self.op.dtype, device=self.op.device)
+            u, _, _ = pcg_fom(self.op, ks, self.op.F_root.expand(ks.shape[0], -1), tol=self.cg_tol,
+                              maxiter=self.cg_maxiter)
+            return u
         u, _ = solve_fom_stencil(
             self.op, ks, tol=self.cg_tol, maxiter=self.cg_maxiter,
             deflation=self.deflation_for_kernels(),

@@ -1,4 +1,4 @@
-"""Fused batched Jacobi-PCG on the 7-diagonal stencil (kernels K1, K3, K4r, K4).
+"""Fused batched Jacobi-PCG on the 7-diagonal stencil (kernels K1, K3r, K3, K4r, K4).
 
 A FOM solve is CG on the symmetric stencil operator of ``fem/dia.py``. Three
 hand-written CUDA kernels compute it, one for each layout of the JAX
@@ -8,9 +8,14 @@ package's ``solve_fom_stencil_pallas``, chosen by the mesh size alone
 - "lanes", K1, ``pcg_stencil`` (``csrc/pcg_stencil.cu``): one thread block
   per sample, with the optional two-level deflation preconditioner of
   ``ops/deflation.py``, up to n = 18,618 (res4);
-- "sublanes", K3, ``pcg_stencil_tile`` (``csrc/pcg_stencil_tile.cu``): a
-  tile of 8 samples per block that share each pass over the deflation
-  basis, up to n = 182,044 (res8 to res21);
+- "sublanes", ``pcg_stencil_tile``, up to n = 182,044 (res8 to res21): a
+  tile of 8 samples shares each pass over the deflation basis. On the card
+  K3r (``csrc/pcg_stencil_tile_mma.cu``) computes it: each tile runs on a
+  thread-block cluster of ``tile_cluster`` blocks, each block a range of
+  16-node row tiles (``tile_ranges``), the two deflation products on the
+  tensor cores. K3 (``csrc/pcg_stencil_tile.cu``, one block per tile) stays
+  built beside it, off the main path, and ``chip_smoke.py`` holds both
+  against the plain version;
 - "single", ``pcg_stencil_grid``: one sample's undeflated Jacobi-PCG on its
   2-D grid, above that (res >= 22). Like the JAX package's single-sample
   layout, it applies no deflation even when one is passed, and checks
@@ -26,7 +31,7 @@ plain batched torch version of the same math (``pcg_stencil_reference``,
 ``pcg_stencil_grid_reference``), which the tests hold against the JAX Pallas
 kernels and ``chip_smoke.py`` holds the CUDA kernels against.
 
-Semantics shared by K1 and K3 (those of the JAX kernels' ``_jacobi_cg``,
+Semantics shared by K1, K3 and K3r (those of the JAX kernels' ``_jacobi_cg``,
 except that convergence is per sample, not per tile of samples):
 
 - the operator is given by its 4 upper diagonal planes [0, +o1, +o2, +o3]
@@ -43,6 +48,7 @@ except that convergence is per sample, not per tile of samples):
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -52,6 +58,7 @@ DIAG_SLOT = 3  # index of offset 0 in the ascending 7-offset DIA layout
 
 launches = 0  # K1 launches in this process (the CUDA path only)
 tile_launches = 0  # K3 launches in this process (the CUDA path only)
+tile_mma_launches = 0  # K3r launches in this process (the CUDA path only)
 grid_launches = 0  # K4 launches in this process (the CUDA path only)
 grid_resident_launches = 0  # K4r launches in this process (the CUDA path only)
 
@@ -71,7 +78,9 @@ LANES_MAX_N = (100 * 1024 * 1024) // (11 * 128 * 4)  # 18,618
 # the port K4: res21 (n = 170,240) is below, res22 (186,752) and res32
 # (394,624) are above.
 SUBLANES_MAX_N = (100 * 1024 * 1024) // (18 * 8 * 4)  # 182,044
-TILE_MAX_M = 128  # the largest coarse space K3 is built for
+TILE_MAX_M = 128  # the largest coarse space K3 and K3r are built for
+TILE_ROW = 16  # K3r's MMA row tile: its node ranges are whole row tiles
+TILE_CLUSTERS = (1, 2, 4, 8)  # the cluster sizes K3r is launched with (8: the portable maximum)
 
 
 def upper_planes(vals: torch.Tensor) -> torch.Tensor:
@@ -229,19 +238,70 @@ def pcg_stencil_tile(
     Binv: torch.Tensor | None = None,
     check_every: int = 16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3's wrapper: the CUDA kernel (8 samples per block) on CUDA tensors,
-    the plain version on CPU tensors. Arguments as for
-    ``pcg_stencil_reference``; n must be a multiple of 8 and m at most 128."""
+    """The sublanes layout's wrapper: on CUDA tensors K3r, a tile of 8 samples
+    per cluster of ``tile_cluster`` blocks; on CPU tensors the plain
+    version. Arguments as for ``pcg_stencil_reference``; n must be a
+    multiple of 16 (``assemble_fin_dia`` pads it to 128) and m a multiple of
+    16, at most 128. A cluster the card cannot hold raises."""
     kw = _checked("K3", vals4, F, x0, offsets=offsets, maxiter=maxiter, Wt=Wt, Binv=Binv,
                   check_every=check_every, words_always=True, max_m=TILE_MAX_M)
     if vals4.device.type == "cpu":
         return pcg_stencil_reference(vals4, F, x0, tol=tol, **kw)
-    return _launch("pcg_stencil_tile", vals4, F, x0, tol=tol, **kw)
+    return _launch_tile_mma(vals4, F, x0, tol=tol, **kw)
+
+
+def tile_cluster(B: int, capacity: dict[int, int]) -> int:
+    """K3r's cluster size for a batch of B. ``capacity[c]`` is how many
+    clusters of c blocks the card holds at once (``tile_capacity``). A tile
+    of 8 samples on c blocks takes about 1/c of one block's time, and the
+    ceil(B / 8) tiles run in ceil(tiles / capacity[c]) waves, so c minimises
+    waves / c; a tie goes to the smaller c (fewer blocks to agree). On an
+    H100, which holds 132, 66, 30 and 15 clusters of 1, 2, 4 and 8 deflated
+    K3r blocks: B = 1,024 -> 1, 256 -> 8, 128 -> 4, 1 -> 8."""
+    tiles = -(-B // 8)
+    fits = [c for c in TILE_CLUSTERS if capacity.get(c, 0) > 0]
+    if not fits:
+        raise RuntimeError(f"the card holds no K3r cluster of any size in {TILE_CLUSTERS}")
+    return min(fits, key=lambda c: (-(-tiles // capacity[c]) / c, c))
+
+
+@functools.lru_cache(maxsize=None)
+def tile_capacity(m: int, device: int) -> dict[int, int]:
+    """How many clusters of each size in ``TILE_CLUSTERS`` card ``device``
+    holds at once with K3r's blocks for a coarse space of m (0: undeflated),
+    by ``cudaOccupancyMaxActiveClusters``. A failed query raises."""
+    from bayesianinferencedl_tpu_torch.ops._build import load_library
+
+    fn = load_library("pcg_stencil_tile_mma").pcg_stencil_tile_mma_max_clusters
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    out = {}
+    with torch.cuda.device(device):
+        for c in TILE_CLUSTERS:
+            held = ctypes.c_int()
+            err = fn(m, c, ctypes.byref(held))
+            if err != 0:
+                raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with cudaError_t {err} for "
+                                   f"K3r clusters of {c} (m = {m})")
+            out[c] = held.value
+    return out
+
+
+def tile_ranges(n: int, c: int) -> list[tuple[int, int]]:
+    """The node ranges of K3r's c blocks (the kernel's own split): block j
+    owns [16 floor(j n16 / c), 16 floor((j + 1) n16 / c)) with n16 = n / 16,
+    whole 16-node row tiles that cover [0, n) once."""
+    if n % TILE_ROW:
+        raise ValueError(f"K3r splits nodes into {TILE_ROW}-node row tiles: n must be a multiple "
+                         f"of {TILE_ROW}, got {n}")
+    if c not in TILE_CLUSTERS:
+        raise ValueError(f"K3r's cluster size is one of {TILE_CLUSTERS}, got {c}")
+    n16 = n // TILE_ROW
+    return [(TILE_ROW * (j * n16 // c), TILE_ROW * ((j + 1) * n16 // c)) for j in range(c)]
 
 
 def layout_for(n: int) -> str:
     """The JAX package's layout for an n-node batch of 256 (its
-    ``pick_layout``): "lanes" (K1) up to ``LANES_MAX_N``, "sublanes" (K3) up
+    ``pick_layout``): "lanes" (K1) up to ``LANES_MAX_N``, "sublanes" (K3r) up
     to ``SUBLANES_MAX_N``, "single" (K4) above."""
     if n <= LANES_MAX_N:
         return "lanes"
@@ -442,9 +502,55 @@ def _launch_grid(vals2d, F2d, x02d, *, tol, maxiter):
     return x, iters
 
 
+def _launch_tile_mma(vals4, F, x0, *, offsets, tol, maxiter, Wt, Binv, check_every, cluster=None):
+    """Launch ``csrc/pcg_stencil_tile_mma.cu`` (K3r) as clusters of
+    ``tile_cluster`` blocks (or of ``cluster``, for a sweep over the sizes)
+    and count the launch. A launch the card refuses, or a cluster it cannot
+    hold, raises."""
+    global tile_mma_launches
+    from bayesianinferencedl_tpu_torch.ops._build import load_library
+
+    B, _, n = vals4.shape
+    m = 0 if Wt is None else Wt.shape[0]
+    if n % TILE_ROW:
+        raise ValueError(f"K3r splits nodes into {TILE_ROW}-node row tiles: n must be a multiple "
+                         f"of {TILE_ROW}, got {n}")
+    if m % TILE_ROW:
+        raise ValueError(f"K3r takes the coarse space in 16-mode tiles: m must be a multiple of "
+                         f"{TILE_ROW}, got {m}")
+    for t, what in ((vals4, "vals4"), (x0, "x0"), (Wt, "Wt")):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{what} must be 16-byte aligned")
+    fn = load_library("pcg_stencil_tile_mma").pcg_stencil_tile_mma_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 8
+        + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    )
+    dev = vals4.device
+    c = tile_cluster(B, tile_capacity(m, dev.index)) if cluster is None else cluster
+    with torch.cuda.device(dev):
+        x = torch.empty((B, n), dtype=torch.float32, device=dev)
+        iters = torch.empty((B,), dtype=torch.int32, device=dev)
+        scratch = torch.empty((B, 5, n), dtype=torch.float32, device=dev)  # r, z, Ap, p, p
+        ptr = lambda t: None if t is None else t.data_ptr()
+        err = fn(
+            ptr(vals4), ptr(F), ptr(x0), ptr(Wt), ptr(Binv), ptr(x), ptr(iters), ptr(scratch),
+            B, n, m, *offsets, float(tol * tol), int(maxiter), int(check_every), c,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pcg_stencil_tile_mma_launch failed with cudaError_t {err} "
+                           f"(B = {B}, cluster of {c} blocks)")
+    tile_mma_launches += 1
+    return x, iters
+
+
 def _launch(name, vals4, F, x0, *, offsets, tol, maxiter, Wt, Binv, check_every):
     """Launch ``csrc/<name>.cu`` (K1 and K3 share one C signature) and count
-    the launch."""
+    the launch. K3 is off the main path (``pcg_stencil_tile`` takes K3r);
+    ``chip_smoke.py`` calls it here to hold it beside K3r."""
     global launches, tile_launches
     from bayesianinferencedl_tpu_torch.ops._build import load_library
 
@@ -491,13 +597,13 @@ def solve_fom_stencil(
     coarse_inv: torch.Tensor | None = None,
     check_every: int = 16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched FOM solve A(k_b) u_b = F through K1, K3 or the single
+    """Batched FOM solve A(k_b) u_b = F through K1, K3r or the single
     layout's K4r / K4, by the mesh size (``layout_for``, then
     ``grid_route``).
 
     op: fem.dia.StencilOperator; ks: (B, 5). Returns (u (B, n), iters (B,)).
     x0: optional (B, n) warm starts.
-    deflation: optional ops.deflation.DeflationBasis for K1 and K3; its
+    deflation: optional ops.deflation.DeflationBasis for K1 and K3r; its
     per-sample coarse inverses are a batched Cholesky before the launch
     unless ``coarse_inv`` (B, m, m) is given. A sample whose coarse inverse
     is not finite (a failed factorisation) gets a NaN solution: the guards on

@@ -9,8 +9,9 @@ Phases, one or more lines each; any failure exits non-zero with no result:
   0. device   require CUDA; print the card's name and power limit
   1. build    compile kernels K1 (csrc/pcg_stencil.cu), K2 (csrc/pcn_fused.cu),
               K3 (csrc/pcg_stencil_tile.cu), K4 (csrc/pcg_stencil_grid.cu), K4r
-              (csrc/pcg_stencil_grid_resident.cu) and K5 (csrc/shift_cost.cu)
-              with nvcc, one process each, started together
+              (csrc/pcg_stencil_grid_resident.cu), K5 (csrc/shift_cost.cu) and
+              K3r (csrc/pcg_stencil_tile_mma.cu) with nvcc, one process each,
+              started together
   2. K1       the kernel against its plain torch version on the card at res4,
               B = 256 log-uniform conductivities, m = 128, tol 1e-7,
               maxiter 1500: deflated, undeflated and warm-started. Per-sample
@@ -19,7 +20,7 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               iteration counts that show the preconditioner is the plain
               version's (see phase_kernel). Kernel and plain times by CUDA
               events, also at the build's batch sizes 1024 and 128, with
-              K3's time on the same inputs for the record
+              K3r's time on the same inputs for the record
   3. slice    build_pipeline (res4, 256 snapshots, r = 40, 1024 + 128
               training/holdout samples, (64, 64) tanh MLP, 300 epochs) and
               run_inversion (pcn, rom_nn, 1024 chains, 4000 steps, 1000 burn,
@@ -46,31 +47,47 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               ESS of both runs) of run_inversion's pcn, sds within 10%,
               accept rates within 0.02; split-R-hat printed beside pcn's;
               (c) the plain version over the same 4,000 steps, timed.
-  5. K3       the tiled PCG kernel against its plain torch version at res8
-              (n = 24,960), B = 256, m = 128, tol 1e-7, maxiter 1500: deflated
+  5. K3r, K3  the sublanes layout's kernels against their plain torch version
+              at res8 (n = 24,960), B = 256, m = 128, tol 1e-7, maxiter 1500.
+              First the route: the cluster size tile_cluster gives for the
+              batches this phase and the slice send, the shared memory a K3r
+              block asks for, how many clusters of each size the card holds
+              at once (the capacity tile_cluster reads), and K3r's registers
+              and spills from ptxas. K3r (through pcg_stencil_tile) and K3
+              (through its launcher), each on the same three cases: deflated
               cold (x0 = None, the da_pcn case), undeflated cold, deflated
               warm. No sample at the cap; deflated counts within 16 of the
               plain version's per sample, undeflated means within 5%;
-              deflated runs under half their undeflated iterations; against
-              a float64 direct solve (8 samples) within 1e-4, or within 1.5x
+              deflated runs under half their undeflated iterations; against a
+              float64 direct solve (8 samples) within 1e-4, or within 1.5x
               the plain version's own error where f32 CG cannot reach 1e-4
-              (printed with the reason); kernel vs plain per sample within the
-              plain version's own error against the direct solve. The
-              masked last tile (deflated cold at B = 1 and 250, deflated
-              warm at 250) against the plain version with the same
-              per-sample gates. Times at
-              B = 256 and 1,024 for K3, K1 on the same inputs (for the
-              record) and the plain version, with K3's bound
+              (printed with the reason); kernel vs plain per sample within
+              the plain version's own error against the direct solve. Smaller
+              batches on K3r (deflated cold at B = 1, 250 and 128, deflated
+              warm at 250: the masked last tile and the holdout's batch)
+              against the plain version with the same per-sample gates. Times
+              at B = 256 and 1,024 for K3r, K3, K1 on the same inputs (for
+              the record) and the plain version, with each kernel's count
+              mean, least-work bound, share of it and streaming floor; K3r's
+              output there under the per-case gates, and at 1,024 (the
+              only batch on clusters of 1) against the direct solve too. A
+              sweep of K3r over the cluster sizes at B = 1,024, 256, 128 and
+              32 beside tile_cluster's pick (printed). Then res16 (n =
+              99,072), K3r's other route: deflated cold at B = 32 against the
+              plain version under the same gates and against the direct solve
+              on 2 samples; K3r, K3 and the plain version timed at B = 256,
+              K3r's output there under the per-case gates
   6. DA       build_pipeline at res8 with phase 3's widths, then
               run_inversion(da_pcn, fom): 1,024 chains, subchains of 64
               rom_nn pCN steps, noise 1e-2, 100 outer steps (30 burn-in; the
-              reference bench runs 500 / 150). K3 must carry every FOM solve
-              (>= 3 launches in the build, >= 101 in the run) and K1 none;
+              reference bench runs 500 / 150). K3r must carry every FOM solve
+              (>= 3 launches in the build, >= 101 in the run), K3 and K1 none;
               outputs finite, samples (70, 1024, 5), outer accept > 0.6, inner
               accept in (0.05, 0.9), no audited state at the iteration cap.
               Prints stage seconds, ESS/s, outer steps/s, split-R-hat against
               the reference's 1.05 gate, the posterior mean against the truth
-              and the share of a batched fine solve in the outer step.
+              and the share of a batched fine solve in the outer step, with
+              its coarse inverses and K3r timed apart on the same states.
 
   7. K4r, K4  the single layout's two kernels against the plain torch version
               at res32 (769 x 513 grid, padded to 776 x 640), tol 1e-7, the
@@ -173,7 +190,7 @@ def phase_device():
 
 
 KERNEL_SOURCES = ("pcg_stencil", "pcn_fused", "pcg_stencil_tile", "pcg_stencil_grid",
-                  "pcg_stencil_grid_resident", "shift_cost")
+                  "pcg_stencil_grid_resident", "shift_cost", "pcg_stencil_tile_mma")
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 PEAK_F32 = 67e12  # FLOP/s on the CUDA cores
@@ -364,11 +381,13 @@ def phase_kernel():
         k_ms = _time_ms(lambda: K1.pcg_stencil(vals4, op.F_root, None, **args), 5)
         p_ms = _time_ms(lambda: K1.pcg_stencil_reference(vals4, op.F_root, None, **args), 3)
         times[B] = (k_ms, p_ms)
-        # K3 on K1's inputs, for the record: the K1/K3 split (LANES_MAX_N) is
-        # the JAX package's layout rule, and these times say where it sits
+        # the sublanes layout's kernel (K3r) on K1's inputs, for the record:
+        # the K1/K3r split (LANES_MAX_N) is the JAX package's layout rule, and
+        # these times say where it sits
         k3_ms = _time_ms(lambda: K1.pcg_stencil_tile(vals4, op.F_root, None, **args), 5)
         say("K1", f"deflated B={B}: kernel {k_ms:.3f} ms, plain torch {p_ms:.3f} ms per batched "
-            f"solve; K3 on the same inputs {k3_ms:.3f} ms (for the record)")
+            f"solve; K3r on the same inputs {k3_ms:.3f} ms (cluster of {_cluster(B)}; for the "
+            f"record)")
     bound = _k1_bound(B_CHECK, op.n, defl.m, iters["deflated"])
     say("K1", f"deflated B={B_CHECK}: bound {bound[0]:.4f} ms ({bound[1]}), kernel at "
         f"{100 * bound[0] / times[B_CHECK][0]:.2f}% of it")
@@ -590,24 +609,95 @@ K3_DIRECT = 8  # samples held against the float64 direct solve
 K3_BATCHES = (B_CHECK, 1024)
 
 
-def phase_k3():
-    """K3 (csrc/pcg_stencil_tile.cu) against its plain version at res8."""
+def _cluster(B: int, m: int = 128) -> int:
+    """The cluster size K3r launches a batch of B with on this card, for a
+    coarse space of m (the wrapper's own choice)."""
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+
+    return K.tile_cluster(B, K.tile_capacity(m, 0))
+
+
+def _k3_floor(bytes_per: int, n: int, iters: np.ndarray) -> float:
+    """A sublanes kernel's streaming floor (ms): the bytes its design moves
+    per node, sample and iteration, times n and the batch's sum(iters + 1),
+    over HBM's rate. K3 moves ~76 B, K3r 64 B (their sources' notes)."""
+    return bytes_per * n * float(np.sum(iters + 1)) / PEAK_HBM * 1e3
+
+
+K3_BYTES, K3R_BYTES = 76, 64
+
+
+def _k3_gates(tag, name, xk, itk, xp, itp, deflated):
+    """Phase 5's per-case gates (PERF.md Findings): no sample at the cap; the
+    counts show the preconditioner is the plain version's, per sample to one
+    check block when deflated, the batch mean to 5% undeflated, where f32
+    CG's residual is not monotone near tol. Returns (per-sample rel diffs,
+    max abs diff, kernel counts)."""
+    import torch
+
+    if not torch.isfinite(xk).all():
+        fail(f"{tag} {name}: non-finite solution")
+    rel_s = (torch.linalg.norm(xk - xp, dim=1) / torch.linalg.norm(xp, dim=1)).cpu().numpy()
+    abs_err = (xk - xp).abs().max().item()
+    it, itp = itk.cpu().numpy(), itp.cpu().numpy()
+    it_diff = np.abs(it - itp)
+    mean_shift = abs(it.mean() / itp.mean() - 1)
+    say(tag, f"{name}: per-sample rel diff vs plain max {rel_s.max():.3e} median "
+        f"{np.median(rel_s):.3e} (max abs {abs_err:.3e}); iters kernel min/median/max "
+        f"{it.min()}/{int(np.median(it))}/{it.max()}, plain {itp.min()}/{int(np.median(itp))}/"
+        f"{itp.max()}; per-sample count difference max {it_diff.max()}, "
+        f"{int((it_diff > CHECK_EVERY).sum())} samples > {CHECK_EVERY}; mean count "
+        f"{it.mean():.2f} vs {itp.mean():.2f}")
+    if it.max() >= MAXITER or itp.max() >= MAXITER:
+        fail(f"{tag} {name}: {int((it >= MAXITER).sum())} kernel and {int((itp >= MAXITER).sum())} "
+             f"plain samples hit the {MAXITER}-iteration cap")
+    if deflated and it_diff.max() > CHECK_EVERY:
+        fail(f"{tag} {name}: iteration counts differ from the plain version's by "
+             f"{it_diff.max()} > {CHECK_EVERY} for some sample")
+    if mean_shift > 0.05:
+        fail(f"{tag} {name}: mean iteration count {it.mean():.2f} vs plain {itp.mean():.2f}")
+    return rel_s, abs_err, it
+
+
+def _k3_direct(tag, name, fin, ks_np, xk, xp, rel_s, n_direct, res):
+    """The deflated cold case against the float64 direct solve: the kernel
+    within max(REL_GATE, 1.5x the plain version's error), and kernel vs plain
+    within the plain version's own error. Returns that error."""
+    sub = slice(0, n_direct)
+    err_k, res_k, floor = _direct_rel_err(fin, ks_np[sub], xk[sub].cpu().numpy())
+    err_p, _, _ = _direct_rel_err(fin, ks_np[sub], xp[sub].cpu().numpy())
+    say(tag, f"{name}: vs float64 direct solve ({n_direct} samples): kernel max rel err "
+        f"{err_k.max():.3e}, plain {err_p.max():.3e}; f64 rel residual {res_k.max():.3e} "
+        f"(float32-rounded exact solution: {floor:.3e}); kernel vs plain on these samples "
+        f"{np.round(rel_s[sub], 8).tolist()}, plain vs direct {np.round(err_p, 8).tolist()}")
+    gate = REL_GATE
+    if 1.5 * err_p.max() > REL_GATE:
+        gate = 1.5 * err_p.max()
+        say(tag, f"accuracy gate {gate:.3e} = 1.5 x the plain version's own error: f32 CG "
+            f"at res{res} does not reach {REL_GATE:g} against the direct solve")
+    if err_k.max() > gate:
+        fail(f"{tag} {name}: relative error {err_k.max():.3e} against the f64 direct solve > {gate:.3e}")
+    if rel_s.max() > err_p.max():
+        fail(f"{tag} {name}: kernel vs plain {rel_s.max():.3e} exceeds the plain version's own "
+             f"error against the direct solve, {err_p.max():.3e}")
+    return err_p.max()
+
+
+def _k3_setup(res):
     import torch
 
     from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
     from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
 
     t0 = time.perf_counter()
-    fin = FiveParamFin.create(resolution=K3_RES, biot=0.1, device="cuda", cg_tol=TOL,
-                              cg_maxiter=MAXITER)
+    fin = FiveParamFin.create(resolution=res, biot=0.1, device="cuda", cg_tol=TOL, cg_maxiter=MAXITER)
     defl = fin.deflation_basis()
     op = fin.op
-    offs = op.offsets[4:]
-    say("K3", f"res{K3_RES} n={op.n} offsets={offs} m={defl.m}; fin + deflation basis "
+    say("K3r", f"res{res} n={op.n} offsets={op.offsets[4:]} m={defl.m}; fin + deflation basis "
         f"{time.perf_counter() - t0:.2f} s; solve_fom_stencil takes layout "
         f"{K.layout_for(op.n)} (K1 up to n = {K.LANES_MAX_N})")
     if K.layout_for(op.n) != "sublanes":
-        fail(f"solve_fom_stencil does not route n = {op.n} to K3")
+        fail(f"solve_fom_stencil does not route n = {op.n} to the sublanes layout")
     rng = np.random.default_rng(0)
 
     def inputs(B):
@@ -615,8 +705,118 @@ def phase_k3():
         ks = torch.tensor(ks_np, dtype=torch.float32, device="cuda")
         return ks_np, ks, K.upper_planes(op.vals(ks)), defl.coarse_inverses(ks, op.biot).contiguous()
 
+    return fin, defl, op, inputs
+
+
+def _k3_times(tag, fin, op, defl, inputs, batches, kw, with_k1, n_direct, res):
+    """K3r, K3 (and K1 where asked) and the plain version on the same
+    deflated cold inputs, each with its count mean, least-work bound, share
+    and streaming floor. K3r's output at each batch is held against the
+    plain version's under the per-case gates, and on ``n_direct`` samples
+    against the float64 direct solve (B = 1,024 is the only batch that runs
+    on clusters of 1). Returns (times, K3r's max abs diff from the plain)."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+
+    k3 = lambda v, Bi: K._launch("pcg_stencil_tile", v, op.F_root, None, tol=TOL, Wt=defl.Wt_bf16,
+                                 Binv=Bi, offsets=kw["offsets"], maxiter=MAXITER, check_every=CHECK_EVERY)
+    times, max_abs = {}, 0.0
+    for B in batches:
+        ks_np, _, vals4, Binv = inputs(B)
+        args = dict(Wt=defl.Wt_bf16, Binv=Binv, **kw)
+        x_r, it_r = K.pcg_stencil_tile(vals4, op.F_root, None, **args)
+        torch.cuda.synchronize()
+        c = _cluster(B)
+        name = f"deflated cold B={B} (cluster of {c})"
+        xp, itp = K.pcg_stencil_reference(vals4, op.F_root, None, **args)
+        rel_s, abs_err, _ = _k3_gates(tag, name, x_r, it_r, xp, itp, True)
+        max_abs = max(max_abs, abs_err)
+        if n_direct:
+            _k3_direct(tag, name, fin, ks_np, x_r, xp, rel_s, n_direct, res)
+        del x_r, xp
+        _, it_3 = k3(vals4, Binv)
+        r_ms = _time_ms(lambda: K.pcg_stencil_tile(vals4, op.F_root, None, **args), 5)
+        k3_ms = _time_ms(lambda: k3(vals4, Binv), 5)
+        k1_ms = _time_ms(lambda: K.pcg_stencil(vals4, op.F_root, None, **args), 3) if with_k1 else None
+        p_ms = _time_ms(lambda: K.pcg_stencil_reference(vals4, op.F_root, None, **args), 3)
+        rec = dict(ms=r_ms, k3_ms=k3_ms, k1_ms=k1_ms, plain_ms=p_ms, cluster=c)
+        for key, it, nbytes in (("", it_r, K3R_BYTES), ("k3_", it_3, K3_BYTES)):
+            it = it.cpu().numpy()
+            rec[key + "bound"] = _k1_bound(B, op.n, defl.m, it)
+            rec[key + "floor"] = _k3_floor(nbytes, op.n, it)
+            rec[key + "iters_mean"] = float(it.mean())
+        times[B] = rec
+        k1 = f", K1 {k1_ms:.3f} ms (for the record)" if with_k1 else ""
+        say(tag, f"deflated cold B={B}: K3r {r_ms:.3f} ms (cluster of {c}), K3 {k3_ms:.3f} ms{k1}, "
+            f"plain torch {p_ms:.3f} ms per batched solve")
+        for name, key, ms, nbytes in (("K3r", "", r_ms, K3R_BYTES), ("K3", "k3_", k3_ms, K3_BYTES)):
+            bound, floor = rec[key + "bound"], rec[key + "floor"]
+            say(tag, f"  {name}: mean count {rec[key + 'iters_mean']:.2f}; least-work bound "
+                f"{bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / ms:.2f}% of it; streaming floor "
+                f"({nbytes} B per node, sample and iteration) {floor:.3f} ms, "
+                f"{100 * floor / ms:.1f}% of it")
+    return times, max_abs
+
+
+K3_SWEEP = (1024, 256, 128, 32)  # the batches of phase 5's cluster sweep
+
+
+def _k3_sweep(op, defl, inputs, kw):
+    """K3r at every cluster size for the batches in K3_SWEEP (deflated
+    cold, CUDA events, the mean of 3 after a warm-up), beside the size
+    tile_cluster picks. Printed, not gated: it shows whether the rule on
+    the card's cluster capacity picks the fastest size."""
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+
+    sweep = {}
+    for B in K3_SWEEP:
+        _, _, vals4, Binv = inputs(B)
+        ms = {c: _time_ms(lambda: K._launch_tile_mma(vals4, op.F_root, None, Wt=defl.Wt_bf16, Binv=Binv,
+                                                     check_every=CHECK_EVERY, cluster=c, **kw), 3)
+              for c in K.TILE_CLUSTERS}
+        pick, best = _cluster(B), min(ms, key=ms.get)
+        sweep[B] = ms
+        say("K3r", f"cluster sweep B={B}: " + ", ".join(f"c={c} {t:.3f} ms" for c, t in ms.items())
+            + f"; tile_cluster picks {pick}, the fastest is {best}"
+            + ("" if pick == best else f" (the pick {100 * (ms[pick] / ms[best] - 1):.1f}% slower)"))
+    return sweep
+
+
+def phase_k3():
+    """K3r (csrc/pcg_stencil_tile_mma.cu, the sublanes layout's kernel on the
+    main path) and K3 (csrc/pcg_stencil_tile.cu, beside it) against their
+    plain version at res8, then K3r at res16."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.ops import _build
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+
+    fin, defl, op, inputs = _k3_setup(K3_RES)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = _build.load_library("pcg_stencil_tile_mma")
+    lib.pcg_stencil_tile_mma_smem_bytes.restype = ctypes.c_int
+    lib.pcg_stencil_tile_mma_smem_bytes.argtypes = [ctypes.c_int]
+    held, held0 = K.tile_capacity(defl.m, 0), K.tile_capacity(0, 0)
+    say("K3r", f"route: {n_sm} SMs; tile_cluster(B, capacity) = "
+        + ", ".join(f"{B}: {_cluster(B)}" for B in (1024, 256, 250, 128, 32, 1))
+        + f" deflated, {_cluster(B_CHECK, 0)} undeflated at B={B_CHECK}"
+        + "; nodes a block owns: " + ", ".join(
+            f"c={c}: {min(b - a for a, b in K.tile_ranges(op.n, c))}-"
+            f"{max(b - a for a, b in K.tile_ranges(op.n, c))}" for c in K.TILE_CLUSTERS)
+        + f"; {lib.pcg_stencil_tile_mma_smem_bytes(defl.m)} B of shared memory a block; clusters "
+        f"the card holds at once (cudaOccupancyMaxActiveClusters): "
+        + ", ".join(f"c={c}: {v}" for c, v in held.items())
+        + f" ({lib.pcg_stencil_tile_mma_smem_bytes(0)} B and "
+        + ", ".join(f"{v}" for v in held0.values()) + " undeflated)")
+    if min(held.values()) < 1 or min(held0.values()) < 1:
+        fail("K3r: the card holds no cluster of some size")
+    for line in _build.build_logs.get("pcg_stencil_tile_mma", {}).get("ptxas", "").splitlines():
+        if "registers" in line or "spill" in line:
+            say("K3r", f"ptxas: {line.strip()}")
+
     ks_np, ks, vals4, Binv = inputs(B_CHECK)
-    kw = dict(offsets=offs, tol=TOL, maxiter=MAXITER)
+    kw = dict(offsets=op.offsets[4:], tol=TOL, maxiter=MAXITER)
     ks_near = ks * 1.05  # warm starts: deflated solutions at conductivities 5% away
     x0, _ = K.pcg_stencil_reference(
         K.upper_planes(op.vals(ks_near)), op.F_root, None, Wt=defl.Wt_bf16,
@@ -627,113 +827,107 @@ def phase_k3():
         "undeflated cold": dict(x0=None, Wt=None, Binv=None),
         "deflated warm": dict(x0=x0.contiguous(), Wt=defl.Wt_bf16, Binv=Binv),
     }
-    max_abs = 0.0
-    iters, full = {}, {}
+    kernels = {
+        "K3r": lambda v, x0, Wt, Binv: K.pcg_stencil_tile(v, op.F_root, x0, Wt=Wt, Binv=Binv, **kw),
+        "K3": lambda v, x0, Wt, Binv: K._launch("pcg_stencil_tile", v, op.F_root, x0, Wt=Wt, Binv=Binv,
+                                                check_every=CHECK_EVERY, **kw),
+    }
+    max_abs = {"K3r": 0.0, "K3": 0.0}
+    full = {}
+    rel_gate = None
     for name, c in cases.items():
-        xk, itk = K.pcg_stencil_tile(vals4, op.F_root, c["x0"], Wt=c["Wt"], Binv=c["Binv"], **kw)
-        torch.cuda.synchronize()
         xp, itp = K.pcg_stencil_reference(vals4, op.F_root, c["x0"], Wt=c["Wt"], Binv=c["Binv"], **kw)
-        if not torch.isfinite(xk).all():
-            fail(f"K3 {name}: non-finite solution")
-        rel_s = (torch.linalg.norm(xk - xp, dim=1) / torch.linalg.norm(xp, dim=1)).cpu().numpy()
-        abs_err = (xk - xp).abs().max().item()
-        max_abs = max(max_abs, abs_err)
-        it, itp = itk.cpu().numpy(), itp.cpu().numpy()
-        iters[name] = it
-        it_diff = np.abs(it - itp)
-        mean_shift = abs(it.mean() / itp.mean() - 1)
-        say("K3", f"{name}: per-sample rel diff vs plain max {rel_s.max():.3e} median "
-            f"{np.median(rel_s):.3e} (max abs {abs_err:.3e}); iters kernel min/median/max "
-            f"{it.min()}/{int(np.median(it))}/{it.max()}, plain {itp.min()}/{int(np.median(itp))}/"
-            f"{itp.max()}; per-sample count difference max {it_diff.max()}, "
-            f"{int((it_diff > CHECK_EVERY).sum())} samples > {CHECK_EVERY}; mean count "
-            f"{it.mean():.2f} vs {itp.mean():.2f}")
-        if it.max() >= MAXITER or itp.max() >= MAXITER:
-            fail(f"K3 {name}: {int((it >= MAXITER).sum())} kernel and {int((itp >= MAXITER).sum())} "
-                 f"plain samples hit the {MAXITER}-iteration cap")
-        # the counts show that the preconditioner is the plain version's
-        # (PR 1 Findings): per sample to one check block when deflated, the
-        # batch mean to 5% undeflated, where f32 CG's residual is not
-        # monotone near tol
-        if c["Wt"] is not None and it_diff.max() > CHECK_EVERY:
-            fail(f"K3 {name}: iteration counts differ from the plain version's by "
-                 f"{it_diff.max()} > {CHECK_EVERY} for some sample")
-        if mean_shift > 0.05:
-            fail(f"K3 {name}: mean iteration count {it.mean():.2f} vs plain {itp.mean():.2f}")
-        if name == "deflated cold":
-            sub = slice(0, K3_DIRECT)
-            err_k, res_k, floor = _direct_rel_err(fin, ks_np[sub], xk[sub].cpu().numpy())
-            err_p, _, _ = _direct_rel_err(fin, ks_np[sub], xp[sub].cpu().numpy())
-            say("K3", f"{name}: vs float64 direct solve ({K3_DIRECT} samples): kernel max rel err "
-                f"{err_k.max():.3e}, plain {err_p.max():.3e}; f64 rel residual {res_k.max():.3e} "
-                f"(float32-rounded exact solution: {floor:.3e}); kernel vs plain on these samples "
-                f"{np.round(rel_s[sub], 8).tolist()}, plain vs direct {np.round(err_p, 8).tolist()}")
-            gate = REL_GATE
-            if 1.5 * err_p.max() > REL_GATE:
-                gate = 1.5 * err_p.max()
-                say("K3", f"accuracy gate {gate:.3e} = 1.5 x the plain version's own error: f32 CG "
-                    f"at res{K3_RES} does not reach {REL_GATE:g} against the direct solve")
-            if err_k.max() > gate:
-                fail(f"K3 {name}: relative error {err_k.max():.3e} against the f64 direct solve > {gate:.3e}")
-            if rel_s.max() > err_p.max():
-                fail(f"K3 {name}: kernel vs plain {rel_s.max():.3e} exceeds the plain version's own "
-                     f"error against the direct solve, {err_p.max():.3e}")
-            rel_gate = err_p.max()
-        full[name] = xk
-    for name in ("deflated cold", "deflated warm"):
-        slow = int((2 * iters[name] > iters["undeflated cold"]).sum())
-        if slow:
-            fail(f"K3 {name}: {slow} samples took more than half their undeflated iterations")
+        for tag, kern in kernels.items():
+            xk, itk = kern(vals4, c["x0"], c["Wt"], c["Binv"])
+            torch.cuda.synchronize()
+            if tag == "K3r":
+                m_c = 0 if c["Wt"] is None else defl.m
+                say(tag, f"{name} B={B_CHECK}: cluster of {_cluster(B_CHECK, m_c)}")
+            rel_s, abs_err, it = _k3_gates(tag, name, xk, itk, xp, itp, c["Wt"] is not None)
+            max_abs[tag] = max(max_abs[tag], abs_err)
+            full[tag, name] = (xk, it)
+            if name == "deflated cold":
+                err_p = _k3_direct(tag, name, fin, ks_np, xk, xp, rel_s, K3_DIRECT, K3_RES)
+                rel_gate = err_p if tag == "K3r" else rel_gate
+    for tag in kernels:
+        for name in ("deflated cold", "deflated warm"):
+            slow = int((2 * full[tag, name][1] > full[tag, "undeflated cold"][1]).sum())
+            if slow:
+                fail(f"{tag} {name}: {slow} samples took more than half their undeflated iterations")
 
-    # the masked last tile: batches that are not a multiple of the tile's 8
-    # samples, as the synthetic-truth solve (B = 1) sends, held against the
-    # plain version with the gates of the full-tile cases
-    for B, name, c in ((1, "deflated cold", cases["deflated cold"]),
-                       (250, "deflated cold", cases["deflated cold"]),
-                       (250, "deflated warm", cases["deflated warm"])):
+    # smaller batches, held against the plain version with the per-sample
+    # gates of the full-tile cases: the masked last tile (batches that are not
+    # a multiple of the tile's 8 samples, as the synthetic-truth solve B = 1
+    # sends) and the holdout's 128, which the card runs on clusters of 4
+    for B, name in ((1, "deflated cold"), (250, "deflated cold"), (250, "deflated warm"),
+                    (128, "deflated cold")):
+        c = cases[name]
         v = vals4[:B].contiguous()
         x0_b = None if c["x0"] is None else c["x0"][:B].contiguous()
         args = dict(Wt=c["Wt"], Binv=c["Binv"][:B].contiguous(), **kw)
         xk, itk = K.pcg_stencil_tile(v, op.F_root, x0_b, **args)
         torch.cuda.synchronize()
+        cl = _cluster(B)
         xp, itp = K.pcg_stencil_reference(v, op.F_root, x0_b, **args)
         if not torch.isfinite(xk).all():
-            fail(f"K3 {name} B={B}: non-finite solution")
+            fail(f"K3r {name} B={B}: non-finite solution")
         rel_s = (torch.linalg.norm(xk - xp, dim=1) / torch.linalg.norm(xp, dim=1)).cpu().numpy()
-        max_abs = max(max_abs, (xk - xp).abs().max().item())
+        max_abs["K3r"] = max(max_abs["K3r"], (xk - xp).abs().max().item())
         it, itp = itk.cpu().numpy(), itp.cpu().numpy()
         it_diff = np.abs(it - itp)
-        same = torch.equal(xk, full[name][:B])
-        say("K3", f"{name} B={B} (last tile {B % 8 or 8} of 8): per-sample rel diff vs plain max "
-            f"{rel_s.max():.3e}; iters kernel min/max {it.min()}/{it.max()}, plain "
+        same = torch.equal(xk, full["K3r", name][0][:B])
+        say("K3r", f"{name} B={B} (last tile {B % 8 or 8} of 8, cluster of {cl}): per-sample rel diff "
+            f"vs plain max {rel_s.max():.3e}; iters kernel min/max {it.min()}/{it.max()}, plain "
             f"{itp.min()}/{itp.max()}, per-sample count difference max {it_diff.max()}; "
             f"bit-identical to the B={B_CHECK} run's first {B} samples: {same}")
         if it.max() >= MAXITER or itp.max() >= MAXITER:
-            fail(f"K3 {name} B={B}: samples hit the {MAXITER}-iteration cap")
+            fail(f"K3r {name} B={B}: samples hit the {MAXITER}-iteration cap")
         if it_diff.max() > CHECK_EVERY:
-            fail(f"K3 {name} B={B}: iteration counts differ from the plain version's by "
+            fail(f"K3r {name} B={B}: iteration counts differ from the plain version's by "
                  f"{it_diff.max()} > {CHECK_EVERY} for some sample")
         if rel_s.max() > rel_gate:
-            fail(f"K3 {name} B={B}: kernel vs plain {rel_s.max():.3e} exceeds the plain version's "
+            fail(f"K3r {name} B={B}: kernel vs plain {rel_s.max():.3e} exceeds the plain version's "
                  f"own error against the direct solve, {rel_gate:.3e}")
+    say("K3r", "sum order: K3r groups each sum by block, so it depends on the cluster size, not on n "
+        "alone; a sample's bits can differ between batches with other cluster sizes (the "
+        "'bit-identical' lines above)")
 
-    times = {}
-    for B in K3_BATCHES:
-        if B != B_CHECK:
-            _, _, vals4, Binv = inputs(B)
-        args = dict(Wt=defl.Wt_bf16, Binv=Binv, **kw)
-        _, it_b = K.pcg_stencil_tile(vals4, op.F_root, None, **args)
-        k3_ms = _time_ms(lambda: K.pcg_stencil_tile(vals4, op.F_root, None, **args), 5)
-        k1_ms = _time_ms(lambda: K.pcg_stencil(vals4, op.F_root, None, **args), 3)
-        p_ms = _time_ms(lambda: K.pcg_stencil_reference(vals4, op.F_root, None, **args), 3)
-        bound = _k1_bound(B, op.n, defl.m, it_b.cpu().numpy())
-        times[B] = dict(ms=k3_ms, k1_ms=k1_ms, plain_ms=p_ms, bound=bound,
-                        iters_mean=it_b.float().mean().item())
-        say("K3", f"deflated cold B={B}: K3 {k3_ms:.3f} ms, K1 on the same inputs {k1_ms:.3f} ms "
-            f"(for the record), plain torch {p_ms:.3f} ms per batched solve; mean count "
-            f"{it_b.float().mean().item():.2f}; bound {bound[0]:.4f} ms ({bound[1]}), K3 at "
-            f"{100 * bound[0] / k3_ms:.2f}% of it")
-    return dict(max_abs_err=max_abs, times=times)
+    times, abs_t = _k3_times("K3r", fin, op, defl, inputs, K3_BATCHES, kw, True, K3_DIRECT, K3_RES)
+    max_abs["K3r"] = max(max_abs["K3r"], abs_t)
+    sweep = _k3_sweep(op, defl, inputs, kw)
+    res16 = phase_k3_res16()
+    return dict(max_abs_err=max(max_abs["K3r"], res16["max_abs_err"]), k3_max_abs_err=max_abs["K3"],
+                times=times, sweep=sweep, res16=res16)
+
+
+K3_RES16 = 16
+K3_RES16_B = 32
+K3_RES16_DIRECT = 2
+
+
+def phase_k3_res16():
+    """K3r on its other route, res16 (n = 99,072): deflated cold at B = 32
+    against the plain version under the res8 gates and against the float64
+    direct solve on 2 samples; K3r, K3 and the plain version timed at
+    B = 256."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+
+    fin, defl, op, inputs = _k3_setup(K3_RES16)
+    kw = dict(offsets=op.offsets[4:], tol=TOL, maxiter=MAXITER)
+    ks_np, _, vals4, Binv = inputs(K3_RES16_B)
+    args = dict(Wt=defl.Wt_bf16, Binv=Binv, **kw)
+    xk, itk = K.pcg_stencil_tile(vals4, op.F_root, None, **args)
+    torch.cuda.synchronize()
+    say("K3r", f"res{K3_RES16} deflated cold B={K3_RES16_B}: cluster of {_cluster(K3_RES16_B)}")
+    xp, itp = K.pcg_stencil_reference(vals4, op.F_root, None, **args)
+    name = f"res{K3_RES16} deflated cold B={K3_RES16_B}"
+    rel_s, abs_err, _ = _k3_gates("K3r", name, xk, itk, xp, itp, True)
+    _k3_direct("K3r", name, fin, ks_np, xk, xp, rel_s, K3_RES16_DIRECT, K3_RES16)
+    times, abs_t = _k3_times(f"K3r res{K3_RES16}", fin, op, defl, inputs, (B_CHECK,), kw, False, 0,
+                             K3_RES16)
+    return dict(max_abs_err=max(abs_err, abs_t), times=times, n=op.n)
 
 
 DA_OUTER, DA_BURN = 100, 30  # cut from the reference bench's 500 / 150 outer steps
@@ -763,21 +957,21 @@ def phase_da():
     )
     mc = cfg.mcmc
     log = MetricsLogger()
-    K.launches = K.tile_launches = 0
+    K.launches = K.tile_launches = K.tile_mma_launches = 0
     t0 = time.perf_counter()
     pipe = build_pipeline(cfg, device="cuda", metrics=log)
     build_s = time.perf_counter() - t0
-    k3_build, k1_build = K.tile_launches, K.launches
+    k3_build, k1_build = K.tile_mma_launches, K.launches
     inv = run_inversion(pipe, metrics=log)
     torch.cuda.synchronize()
-    k3_all, k1_all = K.tile_launches, K.launches
+    k3_all, k1_all, k3_old = K.tile_mma_launches, K.launches, K.tile_launches
     s = log.summary()
     stages = {k: s[k]["seconds"] for k in ("build_fom", "snapshots", "project_rom", "error_dataset",
                                           "train_surrogate", "holdout_eval")}
     say("DA", f"build_pipeline res{K3_RES} (n = {pipe.fin.op.n}) {build_s:.2f} s; stages (s) "
         + json.dumps(stages))
-    say("DA", f"K3 launches: {k3_build} in the build, {k3_all - k3_build} in run_inversion; "
-        f"K1 launches: {k1_all} ({k1_build} in the build)")
+    say("DA", f"K3r launches: {k3_build} in the build, {k3_all - k3_build} in run_inversion; "
+        f"K3 launches: {k3_old}; K1 launches: {k1_all} ({k1_build} in the build)")
     res = inv.result
     outer = float(res.accept_rate.mean())
     inner = float(res.inner_accept_rate.mean())
@@ -796,12 +990,13 @@ def phase_da():
         f"{np.round(inv.theta_true.cpu().numpy(), 4).tolist()}")
 
     if k3_build < 3:
-        fail(f"K3 was launched {k3_build} times in build_pipeline at res{K3_RES} (expected >= 3)")
+        fail(f"K3r was launched {k3_build} times in build_pipeline at res{K3_RES} (expected >= 3)")
     if k3_all - k3_build < mc.n_steps + 1:
-        fail(f"K3 was launched {k3_all - k3_build} times in the da_pcn run (expected >= "
+        fail(f"K3r was launched {k3_all - k3_build} times in the da_pcn run (expected >= "
              f"{mc.n_steps + 1})")
-    if k1_all:
-        fail(f"K1 was launched {k1_all} times at res{K3_RES}, where K3 carries every FOM solve")
+    if k1_all or k3_old:
+        fail(f"K1 was launched {k1_all} times and K3 {k3_old} at res{K3_RES}, where K3r carries "
+             f"every FOM solve")
     for name, t in (("samples", res.samples), ("phi", res.phi_trace), ("ess", inv.ess),
                     ("ess_tail", inv.ess_tail), ("rhat", inv.rhat), ("data", inv.data)):
         if not torch.isfinite(t).all():
@@ -820,9 +1015,18 @@ def phase_da():
     states = thin_samples(res.samples, mc.n_chains)
     fine_ms = _time_ms(lambda: fwd(states), 3)
     step_ms = inv.wall_seconds * 1e3 / mc.n_steps
-    say("DA", f"batched fine solve of {states.shape[0]} kept states {fine_ms:.3f} ms; outer step "
-        f"{step_ms:.3f} ms, of which the fine solve is {100 * fine_ms / step_ms:.1f}% and the "
-        f"{mc.subchain} rom_nn steps the rest")
+    say("DA", f"batched fine solve of {states.shape[0]} kept states {fine_ms:.3f} ms (K3r, cluster "
+        f"of {_cluster(states.shape[0])}); outer step {step_ms:.3f} ms, of which the fine solve is "
+        f"{100 * fine_ms / step_ms:.1f}% and the {mc.subchain} rom_nn steps the rest")
+    # the fine solve's two parts on the same states: the coarse inverses (a
+    # batched Cholesky factorisation and inverse in torch) and K3r alone
+    fin, ks = pipe.fin, torch.exp(states)
+    defl = fin.deflation_for_kernels()
+    inv_ms = _time_ms(lambda: defl.coarse_inverses(ks, fin.op.biot), 3)
+    vals4, Binv = K.upper_planes(fin.op.vals(ks)), defl.coarse_inverses(ks, fin.op.biot).contiguous()
+    k3r_ms = _time_ms(lambda: K.pcg_stencil_tile(vals4, fin.op.F_root, None, offsets=fin.op.offsets[4:],
+                                                 tol=TOL, maxiter=MAXITER, Wt=defl.Wt_bf16, Binv=Binv), 3)
+    say("DA", f"  the same states: coarse inverses {inv_ms:.3f} ms, K3r alone {k3r_ms:.3f} ms")
     return k3_all
 
 
@@ -887,7 +1091,7 @@ def phase_k4():
     X, Y = op.grid_shape
     X0, Y0 = op.grid_shape0
     say("K4r", f"res{K4_RES} n={op.n} grid {op.grid_shape0} padded to {op.grid_shape}; fin "
-        f"{time.perf_counter() - t0:.2f} s; layout {K.layout_for(op.n)} (K3 up to n = "
+        f"{time.perf_counter() - t0:.2f} s; layout {K.layout_for(op.n)} (K3r up to n = "
         f"{K.SUBLANES_MAX_N}); cap {K4_CAP}")
     if K.layout_for(op.n) != "single":
         fail(f"solve_fom_stencil does not route n = {op.n} to the single layout")
@@ -1086,7 +1290,8 @@ def phase_fom_cli(k4):
     DeflationBasis.create = counted_create
     try:
         for name, argv, kern, least in commands:
-            K.launches = K.tile_launches = K.grid_launches = K.grid_resident_launches = 0
+            K.launches = K.tile_launches = K.tile_mma_launches = 0
+            K.grid_launches = K.grid_resident_launches = 0
             builds.clear()
             buf = io.StringIO()
             t0 = time.perf_counter()
@@ -1095,7 +1300,7 @@ def phase_fom_cli(k4):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             n = {"K4r": K.grid_resident_launches, "K4": K.grid_launches, "K1": K.launches,
-                 "K3": K.tile_launches}
+                 "K3r": K.tile_mma_launches, "K3": K.tile_launches}
             nb = len(builds)
             line = buf.getvalue().strip().splitlines()[-1]
             out[name] = rec = json.loads(line)
@@ -1308,7 +1513,7 @@ def phase_k5(k3):
         fail(f"K5's entry point made {launches} launches and printed {len(rows)} variants")
     us_s, us_n = rows[True]["per_tile_iter_us"], rows[False]["per_tile_iter_us"]
     t3 = k3["times"][B_CHECK]
-    k3_us = t3["ms"] * 1e3 / t3["iters_mean"]
+    k3_us = t3["k3_ms"] * 1e3 / t3["k3_iters_mean"]
     say("K5", f"launches {launches}; per tile-iteration: shifts {us_s:.4f} us, no shifts {us_n:.4f} us, "
         f"shift cost {us_s - us_n:.4f} us ({100 * (us_s - us_n) / us_s:.1f}%); K3 deflated at res8, "
         f"B={B_CHECK} (phase 5): {k3_us:.3f} us per batch iteration, "
@@ -1352,9 +1557,13 @@ def main() -> None:
                       launches, max_abs, k_ms, p_ms, k1_bound),
         _kernel_entry("pcn_fused", "pcn_fused.cu", "bayesianinferencedl_tpu/experimental/pcn_fused.py:67",
                       k2["launches"], k2["max_abs_err"], k2["ms"], k2["plain_ms"], k2["bound"]),
-        _kernel_entry("pcg_stencil_tile", "pcg_stencil_tile.cu",
+        _kernel_entry("pcg_stencil_tile_mma", "pcg_stencil_tile_mma.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385", k3_launches,
                       k3["max_abs_err"], t3["ms"], t3["plain_ms"], t3["bound"]),
+        # K3, off the main path since K3r: timed on the same inputs, for the record
+        _kernel_entry("pcg_stencil_tile", "pcg_stencil_tile.cu",
+                      "bayesianinferencedl_tpu/ops/pcg_stencil.py:385", 0,
+                      k3["k3_max_abs_err"], t3["k3_ms"], t3["plain_ms"], t3["k3_bound"]),
         _kernel_entry("pcg_stencil_grid", "pcg_stencil_grid.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:58", k4_launches["K4"],
                       k4["max_abs_err"]["K4"], t4["ms"], t4["plain_ms"], t4["bound"]),

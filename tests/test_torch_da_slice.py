@@ -90,9 +90,9 @@ def test_cli_invert_da_pcn_prints_da_keys(capsys):
           "--noise", "1e-2", "--sampler", "da_pcn", "--likelihood", "fom", "--subchain", "4",
           "--cg-maxiter", "400"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert {"fom_iter_cap", "fom_iter_max", "fom_hit_cap_frac", "outer_accept",
-            "inner_accept"} <= set(out)
-    assert out["fom_iter_cap"] == 400 and out["outer_accept"] == out["accept_rate"]
+    assert {"fom_iter_audit", "outer_accept", "inner_accept"} <= set(out)
+    assert set(out["fom_iter_audit"]) == {"cap", "max_iters", "hit_cap_frac"}  # the reference's nesting
+    assert out["fom_iter_audit"]["cap"] == 400 and out["outer_accept"] == out["accept_rate"]
     assert 0.0 < out["inner_accept"] < 1.0 and len(out["posterior_mean_log_k"]) == D
     with pytest.raises(NotImplementedError, match="item 18"):
         main(["invert", "--device", "cpu", "--resolution", "1", "--n-snapshots", "32", "--r", "8",
