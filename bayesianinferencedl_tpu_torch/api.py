@@ -1,7 +1,7 @@
 """High-level pipeline API.
 
 ``build_pipeline`` runs the offline stack (mesh -> stencil FOM -> batched
-FOM snapshots through K1, K3r or K4r / K4 -> host-f64 POD and Galerkin projection ->
+FOM snapshots through K1, K3r or K4r / K4c -> host-f64 POD and Galerkin projection ->
 reduced preconditioner P0 -> ROM-error dataset -> tanh MLP trained with
 Adam) on one device. ``run_inversion`` runs single-temperature pCN on the
 ``rom`` or ``rom_nn`` likelihood, or delayed-acceptance pCN (``da_pcn``):
@@ -126,7 +126,7 @@ def make_fom_solver(fin: FiveParamFin, *, tol: float, maxiter: int, with_iters: 
 
     By the operator's dtype, as in the JAX package: float32 goes through
     the stencil kernels (K1 or K3r with the two-level deflation
-    preconditioner; K4, undeflated, on the largest meshes, where no basis
+    preconditioner; K4r / K4c, undeflated, on the largest meshes, where no basis
     is built), float64 through the plain PCG of ``fem/solve.py``."""
     if fin.op.dtype != torch.float32:
         def solve(ks):
@@ -171,7 +171,7 @@ def build_pipeline(
 ) -> Pipeline:
     """The offline build on ``device`` (the card unless the caller asks for
     ``"cpu"``; without a card "cuda" raises). Every FOM solve (snapshots,
-    training dataset, holdout) is one batched call of K1, K3r or K4r / K4, by the
+    training dataset, holdout) is one batched call of K1, K3r or K4r / K4c, by the
     mesh size. Holdout errors are logged as the ``holdout_rel_err`` event."""
     log = metrics or MetricsLogger()
     cfg = config

@@ -8,12 +8,12 @@
 
 ``fom`` is one differentiable plain-torch solve (``FiveParamFin.solve``);
 ``snapshots`` and ``rom`` solve their batches through ``make_fom_solver``:
-K1, K3r or, from res22 up, K4r / K4 in float32, the plain PCG in float64. Each
+K1, K3r or, from res22 up, K4r / K4c in float32, the plain PCG in float64. Each
 prints one JSON line.
 
     python -m bayesianinferencedl_tpu_torch.cli invert --device cuda
 
-builds the pipeline (every FOM solve through K1, K3r or K4r / K4, by the mesh size)
+builds the pipeline (every FOM solve through K1, K3r or K4r / K4c, by the mesh size)
 and runs pCN on the rom_nn likelihood, then prints one JSON line with the
 keys of the reference CLI's ``invert``.
 

@@ -27,7 +27,7 @@ def generate_error_dataset(
     fom_solver: Callable[[torch.Tensor], torch.Tensor],
     rom_forward: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> ErrorDataset:
-    """fom_solver: batched ks -> u (B, n) (K1, K3 or K4 through
+    """fom_solver: batched ks -> u (B, n) (K1, K3r, K4r or K4c through
     ``api.make_fom_solver``). rom_forward: batched ks -> y (B, m), default
     the Cholesky ``rom.forward``; pass the deployed ``rom.fast_forward`` so
     the surrogate learns the error of the path the chains evaluate."""

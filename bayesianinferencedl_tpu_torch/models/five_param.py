@@ -9,7 +9,7 @@ Two solves, as in the JAX package:
   gradients;
 - ``solve_batch``/``forward_batch``/``forward`` are batched sweeps through
   the stencil kernels (``ops.pcg_stencil.solve_fom_stencil``): K1 or K3r with
-  the two-level deflation preconditioner, or K4 on the largest meshes,
+  the two-level deflation preconditioner, or K4r / K4c on the largest meshes,
   where no deflation basis is built.
 """
 

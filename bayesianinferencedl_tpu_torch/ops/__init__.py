@@ -7,7 +7,9 @@
                   8 per block, beside it off the main path),
                   and one sample's 2-D grid: K4r (csrc/pcg_stencil_grid_resident.cu,
                   in the shared memory of every SM) where it fits, else
-                  K4 (csrc/pcg_stencil_grid.cu, streamed, one block per sample)
+                  K4c (csrc/pcg_stencil_grid_cluster.cu, streamed, one sample
+                  per thread-block cluster); K4 (csrc/pcg_stencil_grid.cu, one
+                  block per sample) beside them off the main path
   deflation.py    the coarse space and per-sample coarse inverses K1 uses
   _build.py       nvcc build into build/torch_kernels/ + ctypes loading
 """

@@ -1,4 +1,4 @@
-"""Fused batched Jacobi-PCG on the 7-diagonal stencil (kernels K1, K3r, K3, K4r, K4).
+"""Fused batched Jacobi-PCG on the 7-diagonal stencil (kernels K1, K3r, K3, K4r, K4c, K4).
 
 A FOM solve is CG on the symmetric stencil operator of ``fem/dia.py``. Three
 hand-written CUDA kernels compute it, one for each layout of the JAX
@@ -23,8 +23,12 @@ package's ``solve_fom_stencil_pallas``, chosen by the mesh size alone
   ``grid_route`` from the grid's size and the card's shared memory: K4r
   (``csrc/pcg_stencil_grid_resident.cu``) keeps one sample's whole solve in
   the shared memory of every SM, one row strip per SM, wherever the strips
-  fit (res22-38 on an H100); K4 (``csrc/pcg_stencil_grid.cu``) streams each
-  sample's state from device memory, one block per sample, beyond that.
+  fit (res22-38 on an H100); K4c (``csrc/pcg_stencil_grid_cluster.cu``)
+  streams each sample's state from device memory over the true grid, one
+  sample per thread-block cluster of ``grid_cluster`` blocks, beyond that.
+  K4 (``csrc/pcg_stencil_grid.cu``, one block per sample) stays built beside
+  them, off the main path, and ``chip_smoke.py`` holds all three against the
+  plain version.
 
 On a CUDA tensor a wrapper launches its kernel; on a CPU tensor it runs the
 plain batched torch version of the same math (``pcg_stencil_reference``,
@@ -61,6 +65,7 @@ tile_launches = 0  # K3 launches in this process (the CUDA path only)
 tile_mma_launches = 0  # K3r launches in this process (the CUDA path only)
 grid_launches = 0  # K4 launches in this process (the CUDA path only)
 grid_resident_launches = 0  # K4r launches in this process (the CUDA path only)
+grid_cluster_launches = 0  # K4c launches in this process (the CUDA path only)
 
 # the JAX package's 2-D stencil offsets (dx, dy), in the DIA plane order
 # [-(ny+2), -(ny+1), -1, 0, 1, ny+1, ny+2]
@@ -75,7 +80,7 @@ LANES_MAX_N = (100 * 1024 * 1024) // (11 * 128 * 4)  # 18,618
 # The largest n the JAX package solves with its sublanes kernel: a tile of 8
 # samples needs ~18 * 8 * n * 4 bytes of its 100 MiB VMEM budget (the same
 # pick_layout). Above it the JAX package takes its single-sample kernel and
-# the port K4: res21 (n = 170,240) is below, res22 (186,752) and res32
+# the port its single layout: res21 (n = 170,240) is below, res22 (186,752) and res32
 # (394,624) are above.
 SUBLANES_MAX_N = (100 * 1024 * 1024) // (18 * 8 * 4)  # 182,044
 TILE_MAX_M = 128  # the largest coarse space K3 and K3r are built for
@@ -302,7 +307,7 @@ def tile_ranges(n: int, c: int) -> list[tuple[int, int]]:
 def layout_for(n: int) -> str:
     """The JAX package's layout for an n-node batch of 256 (its
     ``pick_layout``): "lanes" (K1) up to ``LANES_MAX_N``, "sublanes" (K3r) up
-    to ``SUBLANES_MAX_N``, "single" (K4) above."""
+    to ``SUBLANES_MAX_N``, "single" (K4r / K4c) above."""
     if n <= LANES_MAX_N:
         return "lanes"
     return "sublanes" if n <= SUBLANES_MAX_N else "single"
@@ -333,10 +338,59 @@ def grid_route(X0: int, Y0: int, n_sm: int, smem_per_block: int) -> str:
     """The kernel for one sample's grid solve on a card with ``n_sm`` SMs and
     ``smem_per_block`` bytes of shared memory a block can opt in to:
     "resident" (K4r: one block per SM, min(n_sm, X0) blocks, each holding its
-    strip) where a strip fits, else "stream" (K4). A pure function of its
+    strip) where a strip fits, else "stream" (K4c). A pure function of its
     arguments; ``pcg_stencil_grid`` passes the card's own numbers."""
     nb = min(n_sm, X0)
     return "resident" if resident_bytes(X0, Y0, nb) <= smem_per_block else "stream"
+
+
+GRID_CLUSTERS = (1, 2, 4, 8, 16)  # K4c's cluster sizes (16: Hopper's non-portable maximum)
+CLUSTER_CHUNK = 16  # rows of p K4c forms in shared memory at a time
+CLUSTER_HEAD_BYTES = (2 * 32 + 4) * 8 + 16  # K4c's reduction scratch, slots and sample index
+
+
+def cluster_bytes(Y0: int) -> int:
+    """The shared memory one K4c block asks for on a true grid Y0 cells wide
+    (the kernel's ``smem_bytes``): the reduction scratch and a tile of p,
+    CLUSTER_CHUNK + 2 rows of the ceil(Y0 / 4) 4-cell groups and 4 zero cells
+    on each side."""
+    return CLUSTER_HEAD_BYTES + 4 * (CLUSTER_CHUNK + 2) * (4 * -(-Y0 // 4) + 8)
+
+
+def grid_cluster(B: int, capacity: dict[int, int]) -> int:
+    """K4c's cluster size for a batch of B samples, one per cluster.
+    ``capacity[c]`` is how many clusters of c blocks the card holds at once
+    (``grid_capacity``). A sample on c blocks streams at about c times one
+    block's rate, and the B samples run in ceil(B / capacity[c]) waves, so c
+    minimises waves / c; a tie goes to the smaller c (fewer blocks to agree).
+    On an H100 holding 132, 66, 30, 15 and 8 clusters of 1, 2, 4, 8 and 16
+    blocks: B = 1 -> 16, 8 -> 16, 64 -> 2, 256 -> 1, 1,000 -> 16 (with 7 of
+    16: 8 -> 8 and 1,000 -> 1)."""
+    fits = [c for c in GRID_CLUSTERS if capacity.get(c, 0) > 0]
+    if not fits:
+        raise RuntimeError(f"the card holds no K4c cluster of any size in {GRID_CLUSTERS}")
+    return min(fits, key=lambda c: (-(-B // capacity[c]) / c, c))
+
+
+@functools.lru_cache(maxsize=None)
+def grid_capacity(device: int, Y0: int) -> dict[int, int]:
+    """How many clusters of each size in ``GRID_CLUSTERS`` card ``device``
+    holds at once with K4c's blocks for a true grid Y0 cells wide, by
+    ``cudaOccupancyMaxActiveClusters``. A failed query raises."""
+    from bayesianinferencedl_tpu_torch.ops._build import load_library
+
+    fn = load_library("pcg_stencil_grid_cluster").pcg_stencil_grid_cluster_max_clusters
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    out = {}
+    with torch.cuda.device(device):
+        for c in GRID_CLUSTERS:
+            held = ctypes.c_int()
+            err = fn(c, Y0, ctypes.byref(held))
+            if err != 0:
+                raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with cudaError_t {err} for "
+                                   f"K4c clusters of {c} (Y0 = {Y0})")
+            out[c] = held.value
+    return out
 
 
 def pcg_stencil_grid_reference(
@@ -385,7 +439,7 @@ def pcg_stencil_grid(
     maxiter: int,
     shape0: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The single layout's wrapper: on CUDA tensors (float32) K4r or K4, as
+    """The single layout's wrapper: on CUDA tensors (float32) K4r or K4c, as
     ``grid_route`` says for this grid and card; on CPU tensors the plain
     version (float32, or float64 for oracle tests). Arguments as for
     ``pcg_stencil_grid_reference``; Y must be a multiple of 4
@@ -418,7 +472,7 @@ def pcg_stencil_grid(
     if grid_route(X0, Y0, n_sm, smem) == "resident":
         return _launch_grid_resident(vals2d, F2d, x02d, (X0, Y0), min(n_sm, X0), tol=tol,
                                      maxiter=maxiter)
-    return _launch_grid(vals2d, F2d, x02d, tol=tol, maxiter=maxiter)
+    return _launch_grid_cluster(vals2d, F2d, x02d, (X0, Y0), tol=tol, maxiter=maxiter)
 
 
 _limits: dict[int, tuple[int, int]] = {}
@@ -474,8 +528,51 @@ def _launch_grid_resident(vals2d, F2d, x02d, shape0, n_blocks, *, tol, maxiter):
     return x, iters
 
 
+def _launch_grid_cluster(vals2d, F2d, x02d, shape0, *, tol, maxiter, cluster=None):
+    """Launch ``csrc/pcg_stencil_grid_cluster.cu`` (K4c) as clusters of
+    ``grid_cluster`` blocks (or of ``cluster``, for a sweep over the sizes),
+    one sample per cluster, and count the launch. A cluster size outside
+    ``GRID_CLUSTERS`` raises ValueError before any library loads; a launch
+    the card refuses, or a cluster it cannot hold, raises RuntimeError."""
+    global grid_cluster_launches
+    if cluster is not None and cluster not in GRID_CLUSTERS:
+        raise ValueError(f"K4c's cluster size is one of {GRID_CLUSTERS}, got {cluster}")
+    for t, what in ((vals2d, "vals2d"), (F2d, "F2d"), (x02d, "x02d")):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{what} must be 16-byte aligned")
+    from bayesianinferencedl_tpu_torch.ops._build import load_library
+
+    fn = load_library("pcg_stencil_grid_cluster").pcg_stencil_grid_cluster_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    B, _, X, Y = vals2d.shape
+    X0, Y0 = shape0
+    dev = vals2d.device
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    c = grid_cluster(B, grid_capacity(idx, Y0)) if cluster is None else cluster
+    with torch.cuda.device(dev):
+        x = torch.empty((B, X, Y), dtype=torch.float32, device=dev)
+        iters = torch.empty((B,), dtype=torch.int32, device=dev)
+        scratch = torch.empty((B, 4, X, Y), dtype=torch.float32, device=dev)  # r, p0, p1, Ap
+        nxt = torch.zeros((1,), dtype=torch.int32, device=dev)  # the clusters' next sample
+        err = fn(
+            vals2d.data_ptr(), F2d.data_ptr(), None if x02d is None else x02d.data_ptr(),
+            x.data_ptr(), iters.data_ptr(), scratch.data_ptr(), nxt.data_ptr(),
+            B, X, Y, X0, Y0, c, float(tol * tol), int(maxiter),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pcg_stencil_grid_cluster_launch failed with cudaError_t {err} "
+                           f"(B = {B}, cluster of {c} blocks)")
+    grid_cluster_launches += 1
+    return x, iters
+
+
 def _launch_grid(vals2d, F2d, x02d, *, tol, maxiter):
-    """Launch ``csrc/pcg_stencil_grid.cu`` and count the launch."""
+    """Launch ``csrc/pcg_stencil_grid.cu`` (K4) and count the launch. K4 is
+    off the main path (``pcg_stencil_grid`` takes K4r or K4c);
+    ``chip_smoke.py`` calls it here to hold it beside them."""
     global grid_launches
     from bayesianinferencedl_tpu_torch.ops._build import load_library
 
@@ -598,7 +695,7 @@ def solve_fom_stencil(
     check_every: int = 16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched FOM solve A(k_b) u_b = F through K1, K3r or the single
-    layout's K4r / K4, by the mesh size (``layout_for``, then
+    layout's K4r / K4c, by the mesh size (``layout_for``, then
     ``grid_route``).
 
     op: fem.dia.StencilOperator; ks: (B, 5). Returns (u (B, n), iters (B,)).

@@ -9,9 +9,10 @@ Phases, one or more lines each; any failure exits non-zero with no result:
   0. device   require CUDA; print the card's name and power limit
   1. build    compile kernels K1 (csrc/pcg_stencil.cu), K2 (csrc/pcn_fused.cu),
               K3 (csrc/pcg_stencil_tile.cu), K4 (csrc/pcg_stencil_grid.cu), K4r
-              (csrc/pcg_stencil_grid_resident.cu), K5 (csrc/shift_cost.cu) and
-              K3r (csrc/pcg_stencil_tile_mma.cu) with nvcc, one process each,
-              started together
+              (csrc/pcg_stencil_grid_resident.cu), K5 (csrc/shift_cost.cu), K3r
+              (csrc/pcg_stencil_tile_mma.cu) and K4c
+              (csrc/pcg_stencil_grid_cluster.cu) with nvcc, one process each,
+              started together; each one's registers and spills from ptxas
   2. K1       the kernel against its plain torch version on the card at res4,
               B = 256 log-uniform conductivities, m = 128, tol 1e-7,
               maxiter 1500: deflated, undeflated and warm-started. Per-sample
@@ -109,16 +110,21 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               on the same inputs and held to the same per-sample 1e-3 gap and
               5% mean counts, with both count spreads, how many solves hit the
               cap (printed, not gated: the cap is the reference's own) and
-              K4r's time per CG iteration; K4 is timed beside K4r at B = 64.
+              K4r's time per CG iteration; K4 and K4c (through its launcher,
+              its own cluster size; not routed here) are timed beside K4r at
+              B = 64, K4c twice (its first launch, then the one recorded)
+              under the same per-sample 1e-3 gap and 5% mean counts, with
+              its streaming floor.
               K4r alone on one cold sample, timed, and its floor: the same
               launch on one 8-cell row per block, 4 samples of the 5-point
               Laplacian at tol 0 (at least 1,000 iterations in all)
   8. FOM CLI  cli.main in-process at --resolution 32: fom, snapshots --n 256,
-              rom --n-snapshots 256 --r 40; then snapshots --resolution 40 --n 8,
-              a grid whose strips outgrow the card's shared memory. Each with
-              the launch counts set to 0 before it and read after: K4r carries
-              every batched solve at res32 (>= 1 launch for snapshots, >= 2 for
-              rom) and K4 every one at res40 (>= 1), the other kernels none,
+              rom --n-snapshots 256 --r 40; then snapshots --resolution 40 --n
+              256 (the reference CLI's default n), a grid whose strips outgrow
+              the card's shared memory. Each with the launch counts set to 0
+              before it and read after: K4r carries every batched solve at
+              res32 (>= 1 launch for snapshots, >= 2 for rom) and K4c every one
+              at res40 (>= 1), the other kernels none (K4 included),
               and no deflation basis is built; JSON lines finite, the fom QoI
               positive with 5 entries; rom's rel_err_vs_fom < 0.1; solves/s
               printed. The fom k is also solved by K4r, its plain version and
@@ -126,10 +132,26 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               first: K4r's QoI within 1e-4 of the plain version's, and each of
               the four QoIs within 1e-3 of the float64 direct solve's (the
               readings and which plain solve is the outlier are printed).
-              Then K4 at the shapes of that res40 sweep (B = 8, cap 4,800),
-              through pcg_stencil_grid, against the plain version on every
-              sample (gap < 1e-3, mean counts within 5%), both timed
-  9. K5       the shift-cost probe at res8, B = 64, tile 8, 256 iterations: with
+  9. K4c      the single layout's kernel past K4r's reach at the shapes of that
+              res40 sweep (961 x 641 grid padded to 968 x 768, cap 4,800): the
+              route, K4c's shared memory (the Python count and the kernel's
+              own, which must agree), how many clusters of 1-16 blocks the card
+              holds and grid_cluster's pick for B = 1, 8, 64, 256. One set of
+              256 conductivities; B = 8 and 64 are its first samples. K4c
+              through pcg_stencil_grid at B = 8 against the plain version
+              (every per-sample gap < 1e-3, mean counts within 5%, no sample
+              at the cap that the plain version does not also hit); sample 0
+              against a float64 direct solve (within max(1e-4, 1.5x the plain
+              version's error)); one cold sample alone, its count equal to the
+              B = 8 run's where grid_cluster picks one size for both; K4
+              through its launcher at B = 8 under the same gates; K4c against
+              K4 at B = 64 (gap < 1e-3, mean counts within 5%); K4c at B = 256,
+              its first 8 samples under the B = 8 gates. Every run timed by
+              CUDA events with its least-work bound and streaming floor (K4c
+              68 B a true node, K4 80 B a padded cell). Then every cluster
+              size at B = 8 and 64 (gap < 1e-3 from the plain run or the
+              pick's), and whether grid_cluster's pick was the fastest
+ 10. K5       the shift-cost probe at res8, B = 64, tile 8, 256 iterations: with
               the shifts on A's planes, without them on |A|'s (a CG of an SPD
               diagonal operator; on A's own planes its values are set by
               rounding, see experimental/shift_cost.py), each against the
@@ -617,14 +639,16 @@ def _cluster(B: int, m: int = 128) -> int:
     return K.tile_cluster(B, K.tile_capacity(m, 0))
 
 
-def _k3_floor(bytes_per: int, n: int, iters: np.ndarray) -> float:
-    """A sublanes kernel's streaming floor (ms): the bytes its design moves
-    per node, sample and iteration, times n and the batch's sum(iters + 1),
-    over HBM's rate. K3 moves ~76 B, K3r 64 B (their sources' notes)."""
+def _stream_floor(bytes_per: int, n: int, iters: np.ndarray) -> float:
+    """A streaming kernel's floor (ms): the bytes its design moves per node
+    (or cell), sample and iteration, times n and the batch's sum(iters + 1),
+    over HBM's rate. K3 moves ~76 B a node, K3r 64 B, K4 ~80 B a padded
+    cell, K4c 68 B a true node (their sources' notes)."""
     return bytes_per * n * float(np.sum(iters + 1)) / PEAK_HBM * 1e3
 
 
 K3_BYTES, K3R_BYTES = 76, 64
+K4_BYTES, K4C_BYTES = 80, 68
 
 
 def _k3_gates(tag, name, xk, itk, xp, itp, deflated):
@@ -744,7 +768,7 @@ def _k3_times(tag, fin, op, defl, inputs, batches, kw, with_k1, n_direct, res):
         for key, it, nbytes in (("", it_r, K3R_BYTES), ("k3_", it_3, K3_BYTES)):
             it = it.cpu().numpy()
             rec[key + "bound"] = _k1_bound(B, op.n, defl.m, it)
-            rec[key + "floor"] = _k3_floor(nbytes, op.n, it)
+            rec[key + "floor"] = _stream_floor(nbytes, op.n, it)
             rec[key + "iters_mean"] = float(it.mean())
         times[B] = rec
         k1 = f", K1 {k1_ms:.3f} ms (for the record)" if with_k1 else ""
@@ -1037,8 +1061,10 @@ K4_DIRECT = 2  # samples held against the float64 direct solve
 K4_BATCHES = (256, 64)  # the snapshots/rom batch and rom's test batch
 K4_STREAM_B = 64  # the batch at which K4 is timed beside K4r
 FLOOR_ITERS, FLOOR_B = 2000, 4  # the cap and batch of K4r's floor run (phase 7)
-K4_STREAM_RES = 40  # a mesh past K4r's reach on an H100 (res >= 39), so K4's route
-K4_STREAM_N = 8  # the batch of phase 8's snapshot sweep there
+K4_STREAM_RES = 40  # a mesh past K4r's reach on an H100 (res >= 39), so K4c's route
+K4_STREAM_N = 256  # the batch of phase 8's snapshot sweep there (the reference CLI's default --n)
+K4C_BATCHES = (8, 64, 256)  # K4c's timed batches at res40: the first 8 and 64 of the 256
+K4C_CAP = max(480, 120 * K4_STREAM_RES)  # the reference CLI's _cg_maxiter in float32: 4,800
 
 
 def _time_once_ms(fn) -> tuple[float, object]:
@@ -1226,6 +1252,29 @@ def phase_k4():
                 f"K4r vs K4 per-sample gap max {g4.max():.3e} ({int((g4 == 0).sum())} of {B} "
                 f"bit-identical), count difference max {np.abs(it - it4).max()}")
             del x4
+            # K4c, the streaming route past K4r's reach, on the same inputs:
+            # recorded beside K4r, not routed here (ISSUE: its streaming
+            # floor is no better than K4r's time at res32)
+            # timed twice: K4c's first launch in this process, then the
+            # second on the same inputs (the first has read seconds slower)
+            c1_ms, _ = _time_once_ms(lambda: K._launch_grid_cluster(v2, F2d, None, (X0, Y0), **kw))
+            c_ms, (xc, itc) = _time_once_ms(lambda: K._launch_grid_cluster(v2, F2d, None, (X0, Y0), **kw))
+            gc, itc = _rel_gap(xc, xp), itc.cpu().numpy()
+            g4r = _rel_gap(xc, xk)
+            c4c = K.grid_cluster(B, K.grid_capacity(torch.cuda.current_device(), Y0))
+            fl = _stream_floor(K4C_BYTES, op.n_grid, itc)
+            times["K4c"] = dict(ms=c_ms, first_ms=c1_ms, r_ms=r_ms, floor=fl)
+            say("K4c", f"res{K4_RES} cold B={B}, same inputs: K4c (clusters of {c4c}) {c_ms:.3f} ms (its first "
+                f"launch {c1_ms:.3f} ms) "
+                f"({B / c_ms * 1e3:.2f} solves/s), K4r {r_ms:.3f} ms: K4r/K4c time ratio {r_ms / c_ms:.3f}; "
+                f"K4c streaming floor {fl:.3f} ms ({K4C_BYTES} B a true node), K4c at {100 * fl / c_ms:.1f}% of "
+                f"it; K4c vs plain max {gc.max():.3e}, counts min/mean/max {itc.min()}/{itc.mean():.1f}/"
+                f"{itc.max()} (plain {itp.mean():.1f}); K4c vs K4r per-sample gap max {g4r.max():.3e} "
+                f"({int((g4r == 0).sum())} of {B} bit-identical)")
+            if not torch.isfinite(xc).all() or gc.max() > 1e-3 or abs(itc.mean() / itp.mean() - 1) > 0.05:
+                fail(f"K4c res{K4_RES} B={B}: finite {bool(torch.isfinite(xc).all())}, gap vs plain "
+                     f"{gc.max():.3e} (gate 1e-3), mean count {itc.mean():.2f} vs plain {itp.mean():.2f} (5%)")
+            del xc
         del xk, xp
         if not finite:
             fail(f"K4r cold B={B}: non-finite solution")
@@ -1264,7 +1313,7 @@ def phase_k4():
 def phase_fom_cli(k4):
     """The slice: the reference CLI's FOM commands at res32, in-process, on
     K4r; and a snapshot sweep at res40, where the single layout's strips
-    outgrow the card's shared memory, on K4."""
+    outgrow the card's shared memory, on K4c."""
     import torch
 
     from bayesianinferencedl_tpu_torch import cli
@@ -1285,13 +1334,13 @@ def phase_fom_cli(k4):
                 ("snapshots", ["snapshots", "--resolution", res, "--n", "256"], "K4r", 1),
                 ("rom", ["rom", "--resolution", res, "--n-snapshots", "256", "--r", "40"], "K4r", 2),
                 (f"snapshots res{K4_STREAM_RES}", ["snapshots", "--resolution", str(K4_STREAM_RES),
-                                                   "--n", str(K4_STREAM_N)], "K4", 1))
-    out, counts = {}, {"K4r": 0, "K4": 0}
+                                                   "--n", str(K4_STREAM_N)], "K4c", 1))
+    out, counts = {}, {"K4r": 0, "K4c": 0}
     DeflationBasis.create = counted_create
     try:
         for name, argv, kern, least in commands:
             K.launches = K.tile_launches = K.tile_mma_launches = 0
-            K.grid_launches = K.grid_resident_launches = 0
+            K.grid_launches = K.grid_resident_launches = K.grid_cluster_launches = 0
             builds.clear()
             buf = io.StringIO()
             t0 = time.perf_counter()
@@ -1299,8 +1348,8 @@ def phase_fom_cli(k4):
                 cli.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            n = {"K4r": K.grid_resident_launches, "K4": K.grid_launches, "K1": K.launches,
-                 "K3r": K.tile_mma_launches, "K3": K.tile_launches}
+            n = {"K4r": K.grid_resident_launches, "K4c": K.grid_cluster_launches, "K4": K.grid_launches,
+                 "K1": K.launches, "K3r": K.tile_mma_launches, "K3": K.tile_launches}
             nb = len(builds)
             line = buf.getvalue().strip().splitlines()[-1]
             out[name] = rec = json.loads(line)
@@ -1325,7 +1374,7 @@ def phase_fom_cli(k4):
     _fom_qoi_check(k4["fin"], np.array([float(v) for v in k_fom]), qoi)
     rel = out["rom"]["rel_err_vs_fom"]
     say("CLI", f"snapshots: {out['snapshots']['fom_solves_per_sec']:.2f} FOM solves/s at res{K4_RES} "
-        f"(K4r), {out[commands[3][0]]['fom_solves_per_sec']:.2f} at res{K4_STREAM_RES} (K4); rom r=40 "
+        f"(K4r), {out[commands[3][0]]['fom_solves_per_sec']:.2f} at res{K4_STREAM_RES} (K4c); rom r=40 "
         f"rel_err_vs_fom {rel:.4e}")
     if not rel < 0.1:
         fail(f"rom: rel_err_vs_fom {rel} not below 0.1")
@@ -1395,44 +1444,175 @@ def _fom_qoi_check(fin, k_np: np.ndarray, qoi: np.ndarray) -> None:
             fail(f"fom: {name} QoI error {e:.3e} against the direct solve > {K4_QOI_ERR:g}")
 
 
-def phase_k4_stream(k4):
-    """K4 at the shapes of its own main path (phase 8's res40 sweep): the
-    wrapper routes a res40 grid to K4, held against the plain version on
-    every sample and timed beside it."""
+def _k4c_gates(tag, x, it, xp, itp, cap):
+    """The per-sample gates of a res40 run against the plain version on the
+    same inputs: finite, every gap below 1e-3, mean counts within 5%, and no
+    sample at the cap that the plain version does not also hit."""
+    import torch
+
+    gap = _rel_gap(x, xp)
+    it, itp = it.cpu().numpy(), itp.cpu().numpy()
+    only = int(((it >= cap) & (itp < cap)).sum())
+    say("K4c", f"{tag} vs plain: per-sample rel gap max {gap.max():.3e} median {np.median(gap):.3e}; counts "
+        f"min/mean/max {it.min()}/{it.mean():.1f}/{it.max()}, plain {itp.min()}/{itp.mean():.1f}/{itp.max()}; "
+        f"per-sample count difference max {np.abs(it - itp).max()}; at the {cap} cap: {int((it >= cap).sum())}, "
+        f"plain {int((itp >= cap).sum())}")
+    if not torch.isfinite(x).all():
+        fail(f"{tag}: non-finite solution")
+    if gap.max() > 1e-3:
+        fail(f"{tag}: per-sample gap {gap.max():.3e} from the plain version > 1e-3")
+    if abs(it.mean() / itp.mean() - 1) > 0.05:
+        fail(f"{tag}: mean iteration count {it.mean():.2f} vs plain {itp.mean():.2f}")
+    if only:
+        fail(f"{tag}: {only} samples at the {cap} cap where the plain version converged")
+    return (x - xp).abs().max().item()
+
+
+def phase_k4c(k4):
+    """K4c (csrc/pcg_stencil_grid_cluster.cu), the single layout's kernel past
+    K4r's reach, at the shapes of its main path (phase 8's res40 sweep, cap
+    4,800), through pcg_stencil_grid; K4 (csrc/pcg_stencil_grid.cu), off the
+    main path, through its launcher beside it. The batches are the first 8,
+    64 and all 256 of one set of conductivities."""
     import torch
 
     from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+    from bayesianinferencedl_tpu_torch.ops import _build
     from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
 
-    cap = max(480, 120 * K4_STREAM_RES)  # the reference CLI's _cg_maxiter in float32
-    op = FiveParamFin.create(resolution=K4_STREAM_RES, biot=0.1, device="cuda").op
+    t0 = time.perf_counter()
+    fin = FiveParamFin.create(resolution=K4_STREAM_RES, biot=0.1, device="cuda", cg_tol=TOL,
+                              cg_maxiter=K4C_CAP)
+    op = fin.op
     X, Y = op.grid_shape
-    ks = np.exp(np.random.default_rng(1).uniform(np.log(0.1), np.log(10.0), (K4_STREAM_N, 5)))
-    v2 = op.vals_grid(torch.tensor(ks, dtype=torch.float32, device="cuda"))
+    X0, Y0 = op.grid_shape0
+    cells, nodes = X * Y, op.n_grid
+    n_sm, smem = K.device_limits(torch.device("cuda"))
+    route = K.grid_route(X0, Y0, n_sm, smem)
+    cap = K.grid_capacity(torch.cuda.current_device(), Y0)
+    picks = {B: K.grid_cluster(B, cap) for B in (1, *K4C_BATCHES)}
+    c_bytes = _build.load_library("pcg_stencil_grid_cluster").pcg_stencil_grid_cluster_smem_bytes
+    c_bytes.restype, c_bytes.argtypes = ctypes.c_longlong, [ctypes.c_int]
+    py_bytes, k_bytes = K.cluster_bytes(Y0), int(c_bytes(Y0))
+    say("K4c", f"res{K4_STREAM_RES} n={op.n} grid {op.grid_shape0} padded to {op.grid_shape} ({nodes} true "
+        f"nodes, {cells} cells); fin {time.perf_counter() - t0:.2f} s; cap {K4C_CAP}; route: grid_route({X0}, "
+        f"{Y0}, {n_sm} SMs, {smem} B a block) = {route} (K4r's strips would need "
+        f"{K.resident_bytes(X0, Y0, min(n_sm, X0))} B a block); {py_bytes} B of shared memory a K4c block "
+        f"(the kernel's own count: {k_bytes})")
+    say("K4c", f"capacity, clusters of c the card holds at once: {cap}; grid_cluster(B, capacity) = "
+        + ", ".join(f"{B}: {c}" for B, c in picks.items()))
+    for line in _build.build_logs.get("pcg_stencil_grid_cluster", {}).get("ptxas", "").splitlines():
+        if "registers" in line or "spill" in line:
+            say("K4c", f"ptxas: {line.strip()}")
+    if route != "stream" or py_bytes != k_bytes:
+        fail(f"res{K4_STREAM_RES} routed to {route}, bytes {py_bytes} vs the kernel's {k_bytes}")
+
+    ks_np = np.exp(np.random.default_rng(1).uniform(np.log(0.1), np.log(10.0), (K4C_BATCHES[-1], 5)))
+    v_all = op.vals_grid(torch.tensor(ks_np, dtype=torch.float32, device="cuda"))
     F2d = op.to_grid(op.F_root)
-    kw = dict(tol=TOL, maxiter=cap)
-    n_r, n_s = K.grid_resident_launches, K.grid_launches
-    ms, (xk, itk) = _time_once_ms(lambda: K.pcg_stencil_grid(v2, F2d, None, shape0=op.grid_shape0, **kw))
-    if (K.grid_resident_launches - n_r, K.grid_launches - n_s) != (0, 1):
-        fail(f"res{K4_STREAM_RES}: pcg_stencil_grid did not take K4")
-    p_ms, (xp, itp) = _time_once_ms(lambda: K.pcg_stencil_grid_reference(v2, F2d, None, **kw))
-    rel_s = _rel_gap(xk, xp)
-    it, itp = itk.cpu().numpy(), itp.cpu().numpy()
-    bound = _k4_bound(K4_STREAM_N, X * Y, op.n_grid, it)
-    k4["max_abs_err"]["K4"] = max(k4["max_abs_err"]["K4"], (xk - xp).abs().max().item())
-    k4["times"]["K4 main"] = dict(ms=ms, plain_ms=p_ms, bound=bound)
-    say("K4", f"res{K4_STREAM_RES} (grid {op.grid_shape0} padded to {op.grid_shape}), cold B={K4_STREAM_N}: "
-        f"K4 {ms:.3f} ms, plain torch {p_ms:.3f} ms; bound {bound[0]:.4f} ms ({bound[1]}), K4 at "
-        f"{100 * bound[0] / ms:.2f}% of it; per-sample rel diff vs plain max {rel_s.max():.3e}; counts "
-        f"min/mean/max kernel {it.min()}/{it.mean():.1f}/{it.max()}, plain "
-        f"{itp.min()}/{itp.mean():.1f}/{itp.max()}; at the {cap} cap: kernel {int((it >= cap).sum())}, "
-        f"plain {int((itp >= cap).sum())}")
-    if not torch.isfinite(xk).all():
-        fail(f"K4 res{K4_STREAM_RES}: non-finite solution")
-    if abs(it.mean() / itp.mean() - 1) > 0.05:
-        fail(f"K4 res{K4_STREAM_RES}: mean iteration count {it.mean():.2f} vs plain {itp.mean():.2f}")
-    if rel_s.max() > 1e-3:
-        fail(f"K4 res{K4_STREAM_RES}: kernel vs plain {rel_s.max():.3e} > 1e-3 on some sample")
+    kw = dict(tol=TOL, maxiter=K4C_CAP)
+    k4c = lambda v: K.pcg_stencil_grid(v, F2d, None, shape0=(X0, Y0), **kw)
+    k4 = lambda v: K._launch_grid(v, F2d, None, **kw)
+    times, max_abs = {}, {}
+
+    def report(name, B, ms, it, bytes_per, n):
+        it = it.cpu().numpy()
+        bound, fl = _k4_bound(B, cells, nodes, it), _stream_floor(bytes_per, n, it)
+        times[name, B] = dict(ms=ms, bound=bound, floor=fl)
+        say(name, f"res{K4_STREAM_RES} cold B={B}: {ms:.3f} ms ({B / ms * 1e3:.2f} solves/s), counts mean "
+            f"{it.mean():.1f}, sum(iters + 1) {int(np.sum(it + 1))}; least-work bound {bound[0]:.4f} ms "
+            f"({bound[1]}), {name} at {100 * bound[0] / ms:.2f}% of it; streaming floor {fl:.3f} ms "
+            f"({bytes_per} B x {n} x sum(iters + 1) / 3.35 TB/s), {name} at {100 * fl / ms:.1f}% of it")
+
+    # B = 8 through the wrapper, against the plain version
+    v8 = v_all[: K4C_BATCHES[0]]
+    before = (K.grid_cluster_launches, K.grid_launches, K.grid_resident_launches)
+    ms8, (x8, it8) = _time_once_ms(lambda: k4c(v8))
+    launched = tuple(a - b for a, b in zip((K.grid_cluster_launches, K.grid_launches,
+                                            K.grid_resident_launches), before))
+    if launched != (1, 0, 0):
+        fail(f"res{K4_STREAM_RES}: pcg_stencil_grid launched K4c/K4/K4r {launched}, not K4c once")
+    p_ms, (xp, itp) = _time_once_ms(lambda: K.pcg_stencil_grid_reference(v8, F2d, None, **kw))
+    times["plain", 8] = dict(ms=p_ms)
+    say("K4c", f"cold B=8 through pcg_stencil_grid (clusters of {picks[8]}): {ms8:.3f} ms, plain torch "
+        f"{p_ms:.3f} ms: K4c {p_ms / ms8:.2f}x faster than plain")
+    max_abs["K4c"] = _k4c_gates("K4c cold B=8", x8, it8, xp, itp, K4C_CAP)
+    report("K4c", 8, ms8, it8, K4C_BYTES, nodes)
+
+    # one sample against the float64 direct solve
+    flat = lambda x: op.from_grid(x[:1]).cpu().numpy()
+    err_k, res_k, floor = _direct_rel_err(fin, ks_np[:1], flat(x8))
+    err_p, _, _ = _direct_rel_err(fin, ks_np[:1], flat(xp))
+    gate = max(REL_GATE, 1.5 * err_p.max())
+    say("K4c", f"sample 0 vs the float64 direct solve: K4c rel err {err_k[0]:.4e}, plain {err_p[0]:.4e}; f64 "
+        f"rel residual {res_k[0]:.3e} (float32-rounded exact solution: {floor:.3e}); gate {gate:.4e} = "
+        f"max({REL_GATE:g}, 1.5 x the plain version's error: f32 CG's attainable accuracy at "
+        f"res{K4_STREAM_RES} is its own)")
+    if err_k.max() > gate:
+        fail(f"K4c: relative error {err_k.max():.3e} against the f64 direct solve > {gate:.3e}")
+
+    # one cold sample alone
+    ms1, (x1, it1) = _time_once_ms(lambda: k4c(v_all[:1]))
+    same = int(it1[0]) == int(it8[0])
+    say("K4c", f"cold B=1 (clusters of {picks[1]}): {ms1:.3f} ms, {int(it1[0])} iterations; the B=8 run's "
+        f"sample 0 (clusters of {picks[8]}): {int(it8[0])}; equal: {same}; bit-identical: "
+        f"{bool(torch.equal(x1[0], x8[0]))}" + ("" if picks[1] == picks[8] else
+                                                " (other cluster sizes: printed, not gated)"))
+    if picks[1] == picks[8] and not same:
+        fail(f"K4c B=1: {int(it1[0])} iterations, the B=8 run's sample 0 took {int(it8[0])} on the same c")
+    del x1
+
+    # K4, off the main path, at B = 8: its gates against the same plain run
+    ms48, (x48, it48) = _time_once_ms(lambda: k4(v8))
+    max_abs["K4"] = _k4c_gates("K4 cold B=8", x48, it48, xp, itp, K4C_CAP)
+    report("K4", 8, ms48, it48, K4_BYTES, cells)
+    g = _rel_gap(x8, x48)
+    say("K4c", f"cold B=8: K4 {ms48:.3f} ms, K4c {ms8:.3f} ms: K4c {ms48 / ms8:.2f}x faster; K4c vs K4 "
+        f"per-sample gap max {g.max():.3e} ({int((g == 0).sum())} of 8 bit-identical)")
+    del x48
+
+    # B = 64: K4c and K4 on the same inputs
+    v64 = v_all[: K4C_BATCHES[1]]
+    ms64, (x64, it64) = _time_once_ms(lambda: k4c(v64))
+    report("K4c", 64, ms64, it64, K4C_BYTES, nodes)
+    ms464, (x464, it464) = _time_once_ms(lambda: k4(v64))
+    report("K4", 64, ms464, it464, K4_BYTES, cells)
+    g, a, b = _rel_gap(x64, x464), it64.cpu().numpy(), it464.cpu().numpy()
+    say("K4c", f"cold B=64 (clusters of {picks[64]}), same inputs: K4 {ms464:.3f} ms, K4c {ms64:.3f} ms: K4c "
+        f"{ms464 / ms64:.2f}x faster; K4c vs K4 per-sample gap max {g.max():.3e} ({int((g == 0).sum())} of 64 "
+        f"bit-identical); counts mean {a.mean():.1f} vs {b.mean():.1f}, difference max {np.abs(a - b).max()}")
+    if not torch.isfinite(x64).all() or g.max() > 1e-3 or abs(a.mean() / b.mean() - 1) > 0.05:
+        fail(f"K4c B=64 vs K4: gap {g.max():.3e} (gate 1e-3), mean counts {a.mean():.2f} vs {b.mean():.2f} (5%)")
+    del x464
+
+    # B = 256, the main path's batch; its first 8 against the plain run
+    ms256, (x256, it256) = _time_once_ms(lambda: k4c(v_all))
+    report("K4c", 256, ms256, it256, K4C_BYTES, nodes)
+    say("K4c", f"cold B=256 (clusters of {picks[256]}): first 8 samples against the B=8 plain run:")
+    max_abs["K4c"] = max(max_abs["K4c"], _k4c_gates("K4c cold B=256 [:8]", x256[:8], it256[:8], xp, itp,
+                                                    K4C_CAP))
+    a = it256.cpu().numpy()
+    say("K4c", f"cold B=256: counts min/mean/max {a.min()}/{a.mean():.1f}/{a.max()}, at the {K4C_CAP} cap "
+        f"{int((a >= K4C_CAP).sum())} (printed, not gated: the cap is the reference CLI's own); finite "
+        f"{bool(torch.isfinite(x256).all())}")
+    if not torch.isfinite(x256).all():
+        fail("K4c B=256: non-finite solution")
+    del x256
+
+    # the cluster sizes beside the pick, at B = 8 (against the plain run) and 64
+    for B, v, ref in ((8, v8, xp), (64, v64, x64)):
+        t = {}
+        for c in K.GRID_CLUSTERS:
+            t[c], (xc, _) = _time_once_ms(
+                lambda: K._launch_grid_cluster(v, F2d, None, (X0, Y0), cluster=c, **kw))
+            g = _rel_gap(xc, ref).max()
+            if not torch.isfinite(xc).all() or g > 1e-3:
+                fail(f"K4c sweep B={B}, clusters of {c}: gap {g:.3e} from the reference run (gate 1e-3)")
+        fastest = min(t, key=t.get)
+        say("K4c", f"sweep B={B}: " + ", ".join(f"c={c} {ms:.3f} ms" for c, ms in t.items())
+            + f"; grid_cluster picks {picks[B]}, the fastest is {fastest}: the pick is the fastest: "
+            f"{picks[B] == fastest} (the pick at {t[picks[B]] / t[fastest]:.3f}x the fastest)")
+    return dict(max_abs_err=max_abs, times=times)
 
 
 def _numbers(rec):
@@ -1547,11 +1727,14 @@ def main() -> None:
     k3_launches = phase_da()
     k4 = phase_k4()
     k4_launches = phase_fom_cli(k4)
-    phase_k4_stream(k4)
+    k4c = phase_k4c(k4)
     k5 = phase_k5(k3)
     k_ms, p_ms = times[B_CHECK]
     t3 = k3["times"][1024]
-    t4r, t4 = k4["times"][K4_BATCHES[0]], k4["times"]["K4 main"]
+    t4r = k4["times"][K4_BATCHES[0]]
+    # K4c and K4 at res40, B = 8: the batch at which the plain version is
+    # timed on the same inputs (phase K4c; the main path's 256 is timed there too)
+    t4c, t4, p40 = k4c["times"]["K4c", 8], k4c["times"]["K4", 8], k4c["times"]["plain", 8]["ms"]
     print(json.dumps({"kernels": [
         _kernel_entry("pcg_stencil", "pcg_stencil.cu", "bayesianinferencedl_tpu/ops/pcg_stencil.py:236",
                       launches, max_abs, k_ms, p_ms, k1_bound),
@@ -1564,9 +1747,13 @@ def main() -> None:
         _kernel_entry("pcg_stencil_tile", "pcg_stencil_tile.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385", 0,
                       k3["k3_max_abs_err"], t3["k3_ms"], t3["plain_ms"], t3["k3_bound"]),
+        _kernel_entry("pcg_stencil_grid_cluster", "pcg_stencil_grid_cluster.cu",
+                      "bayesianinferencedl_tpu/ops/pcg_stencil.py:58", k4_launches["K4c"],
+                      k4c["max_abs_err"]["K4c"], t4c["ms"], p40, t4c["bound"]),
+        # K4, off the main path since K4c: timed on the same inputs, for the record
         _kernel_entry("pcg_stencil_grid", "pcg_stencil_grid.cu",
-                      "bayesianinferencedl_tpu/ops/pcg_stencil.py:58", k4_launches["K4"],
-                      k4["max_abs_err"]["K4"], t4["ms"], t4["plain_ms"], t4["bound"]),
+                      "bayesianinferencedl_tpu/ops/pcg_stencil.py:58", 0,
+                      max(k4["max_abs_err"]["K4"], k4c["max_abs_err"]["K4"]), t4["ms"], p40, t4["bound"]),
         _kernel_entry("pcg_stencil_grid_resident", "pcg_stencil_grid_resident.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:58", k4_launches["K4r"],
                       k4["max_abs_err"]["K4r"], t4r["ms"], t4r["plain_ms"], t4r["bound"]),
