@@ -13,9 +13,10 @@ Layer map (the offline build, single-temperature pCN and the fused sampler):
     geometry/    the fin's regions and its structured P1 mesh
     fem/     P1 elements, 7-diagonal stencil operator (NumPy host + torch),
              the differentiable Jacobi-PCG solve
-    ops/     hand-written CUDA kernels (K1, K3r, K4r, K4c) with their plain versions
-    experimental/  the whole pCN sampler as one CUDA kernel (K2); the
-             shift-cost probe (K5)
+    ops/     hand-written CUDA kernels (K3r, K4r, K4c; K1 where lanes_route
+             names it) with their plain versions
+    experimental/  the whole pCN sampler as one CUDA kernel (K2r; K2 kept
+             beside it); the shift-cost probe (K5)
     rom/     snapshots, host-f64 POD, Galerkin ROM, batched reduced PCG
     models/  the 5-parameter fin, MLP error surrogate, corrected forward
     data/    ROM-error dataset generation

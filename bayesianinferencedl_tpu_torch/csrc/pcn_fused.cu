@@ -1,6 +1,12 @@
 // K2: the whole pCN sampler in one launch (proposal, reduced PCG solve, MLP
 // correction, Metropolis accept, burn-in adaptation), for C chains and T steps.
 //
+// Off the main path: K2r (csrc/pcn_fused_r.cu) computes the same function
+// for `run_pcn_fused`, with A(k) assembled once per proposal and held in
+// registers. K2 stays built as the record K2r is timed against, reachable
+// only through the launcher `_launch(..., kernel="K2")` of
+// experimental/pcn_fused.py.
+//
 // Replaces the TPU Pallas kernel `_kernel` of
 // bayesianinferencedl_tpu/experimental/pcn_fused.py (launched by
 // `run_pcn_fused`). Same step, same operand packing (see the Python wrapper in
@@ -26,7 +32,7 @@
 // Every product is float32 FMAs on the CUDA cores, no TF32 and no bf16: the
 // reference runs at Precision.HIGHEST. Each warp re-reads astack from shared
 // memory at every operator product, so shared-memory bandwidth, not the FMA
-// rate, is the first limit of this version (PERF.md).
+// rate, is the first limit of this version (PERF.md); K2r is the redesign.
 //
 // Plain C interface (built with nvcc, loaded with ctypes); the launch function
 // returns the cudaError_t of the launch.

@@ -1,4 +1,4 @@
-"""The fully fused pCN sampler (kernel K2).
+"""The fully fused pCN sampler (kernels K2r and K2).
 
 One launch runs the whole sampler for C chains and ``n_steps`` steps; per
 step and chain:
@@ -16,12 +16,18 @@ step and chain:
   6. one (C, 8) row [theta(5) | phi | log beta | accept] of the (T, C, 8)
      trace
 
-On CUDA tensors ``run_pcn_fused`` launches the hand-written kernel in
-``csrc/pcn_fused.cu`` (one warp per chain, the step loop inside the kernel,
-the operators in shared memory). On CPU tensors it runs
-``pcn_fused_reference``, the plain torch version of the same step, which the
-tests hold against the JAX Pallas kernel and against ``infer.pcn.run_pcn``,
-and ``chip_smoke.py`` holds the CUDA kernel against.
+On CUDA tensors ``run_pcn_fused`` launches K2r (``csrc/pcn_fused_r.cu``):
+one warp per chain, the step loop inside the kernel, each chain's
+A(k) = sum_j k_j Ahat_j + Bi*Mhat assembled once per proposal and held in
+registers for the whole reduced CG, so a product costs r^2 FMAs where the
+stacked form of step 3 costs 6 r^2; ``k2r_plan`` gives its launch shape. K2
+(``csrc/pcn_fused.cu``, the stacked product with the operators in shared
+memory) computes the same function and stays built, off the main path,
+reachable only through ``_launch``, as the record ``chip_smoke.py`` times K2r
+against. On CPU tensors ``run_pcn_fused`` runs ``pcn_fused_reference``, the
+plain torch version of the same step, which the tests hold against the JAX
+Pallas kernel and against ``infer.pcn.run_pcn``, and ``chip_smoke.py`` holds
+both CUDA kernels against.
 
 Random numbers: uniforms come from Philox4x32-10 keyed by ``seed`` with the
 counter (chain, step, draw, 0); draw q = 0..3 gives uniforms 4q..4q+3 of the
@@ -44,7 +50,8 @@ STATE_COLS = 8  # [theta_0..theta_4 | phi | log_beta | accept]
 TARGET_ACCEPT = 0.234
 MAX_DIM = 5
 MAX_OBS = 8
-# one warp per chain, each lane holding two entries of an r- or h-vector
+# one warp per chain, each lane holding two entries of an h-vector (and, in
+# K2, of an r-vector; K2r holds r-vectors and matrices in tiles, r <= 64)
 MAX_R = 64
 MAX_H = 64
 LOG_BETA_LO, LOG_BETA_HI = math.log(1e-4), math.log(0.9999)
@@ -53,7 +60,14 @@ _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _MASK32 = 0xFFFFFFFF
 
-launches = 0  # K2 launches in this process (the CUDA path only)
+launches = 0  # K2 launches in this process (off the main path: ``_launch`` only)
+r_launches = 0  # K2r launches in this process (the CUDA path of ``run_pcn_fused``)
+
+# K2r's launch plan (csrc/pcn_fused_r.cu, whose constants these mirror)
+K2R_WARPS = (8, 4, 2, 1)  # warps (chains) per block it is launched with
+K2R_REG_MAX = 48  # A(k) and P0 in registers up to this padded r, else in shared memory
+MAX_SMEM = 232_448  # the shared memory a block may opt into on an H100
+H100_SMS = 132
 
 
 class FusedPCNResult(NamedTuple):
@@ -181,21 +195,34 @@ def pack_operands(rom, P0, surrogate_params, surrogate_norm, prior, data, noise_
     )
 
 
+def _k_aug(ops: FusedOperands, theta: torch.Tensor) -> torch.Tensor:
+    """(C, 6) weights of astack's components at theta (C, 8): exp(theta_j)
+    for j < d, 0 for d <= j < 5, and 1 for Bi*Mhat."""
+    col_mask = torch.arange(STATE_COLS, device=theta.device) < ops.d
+    k = torch.where(col_mask, torch.exp(theta), 0.0)
+    return torch.cat([k[:, :5], torch.ones_like(k[:, :1])], 1)
+
+
+def stacked_amat(astack: torch.Tensor, k_aug: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A(k) p as the reference forms it (K2's product): one p @ astack
+    (C, 6r), then the k-weighted sum of its r-column blocks."""
+    r = astack.shape[0]
+    comp = p @ astack  # (C, 6r)
+    acc = k_aug[:, 0:1] * comp[:, :r]
+    for j in range(1, 6):
+        acc = acc + k_aug[:, j:j + 1] * comp[:, j * r:(j + 1) * r]
+    return acc
+
+
 def _misfit(ops: FusedOperands, theta: torch.Tensor, cg_iters: int) -> torch.Tensor:
     """phi (C,) at theta (C, 8) with columns d:8 zero: the reference's
     likelihood_phi, operation for operation."""
     C = theta.shape[0]
     r = ops.astack.shape[0]
-    col_mask = torch.arange(STATE_COLS, device=theta.device) < ops.d
-    k = torch.where(col_mask, torch.exp(theta), 0.0)
-    k_aug = torch.cat([k[:, :5], torch.ones_like(k[:, :1])], 1)  # (C, 6)
+    k_aug = _k_aug(ops, theta)  # (C, 6)
 
     def amat(p):
-        comp = p @ ops.astack  # (C, 6r)
-        acc = k_aug[:, 0:1] * comp[:, :r]
-        for j in range(1, 6):
-            acc = acc + k_aug[:, j:j + 1] * comp[:, j * r:(j + 1) * r]
-        return acc
+        return stacked_amat(ops.astack, k_aug, p)
 
     def prec(v):
         return v @ ops.P0.T
@@ -303,11 +330,13 @@ def run_pcn_fused(
     Limits (each raises ValueError): iid Gaussian prior, d <= 5 parameters,
     m <= 8 observables, an MLP of exactly 2 hidden layers (tanh is applied,
     as in the reference), r <= 64 and hidden widths <= 64. The last pair is
-    the kernel's layout (one warp per chain, two vector entries per lane);
-    at r = 64 and h = 64 the operands the kernel stages in one block's
-    shared memory come to about 138 KB of the 227 KB a block may use.
+    the kernels' layout (one warp per chain: K2r holds an (r/4, r/8) tile of
+    A(k) and of P0 in each lane, and two entries of each hidden layer);
+    ``k2r_plan`` gives the launch, its template instance and its shared
+    memory.
 
-    The operands are packed in theta0's dtype; the kernel takes float32.
+    The operands are packed in theta0's dtype; the kernel (K2r) takes
+    float32, and on a CUDA tensor a failed build or launch raises.
     ``uniforms``: optional (u1, u2), each (n_steps, C, 8), used in place of
     the Philox draws from ``seed``; ``return_uniforms`` puts the uniforms
     the run used into the result. ``cg_iters = pipe.rom_pcg_iters`` targets
@@ -333,7 +362,7 @@ def run_pcn_fused(
     elif dev.type == "cuda":
         out, drawn = _launch(ops, **kw)
     else:
-        raise ValueError(f"K2 runs on CUDA or CPU tensors, got {dev}")
+        raise ValueError(f"K2r runs on CUDA or CPU tensors, got {dev}")
     kept = out[n_burn:]
     return FusedPCNResult(
         samples=kept[:, :, :ops.d],
@@ -345,40 +374,131 @@ def run_pcn_fused(
     )
 
 
-def _launch(ops: FusedOperands, *, n_steps, n_burn, cg_iters, seed, uniforms, keep_uniforms):
-    global launches
-    from bayesianinferencedl_tpu_torch.ops._build import load_library
+class K2rPlan(NamedTuple):
+    """K2r's launch for C chains at widths (r, h1, h2) (``k2r_plan``)."""
 
+    r_pad: int  # r rounded up to a multiple of 8: the template instance
+    instance: str  # the kernel's template instance
+    tile: tuple  # (rows, columns) of A(k) and of P0 each lane holds: (r_pad / 4, r_pad / 8)
+    a_in: str  # where a chain's A(k) lives: "registers" or "shared"
+    p0_in: str  # where P0 lives: "registers" or "shared"
+    warps: int  # warps (chains) per block
+    blocks: int
+    smem_bytes: int  # dynamic shared memory of one block
+
+
+def _check_widths(r: int, h1: int, h2: int) -> None:
+    if not (1 <= r <= MAX_R and 1 <= h1 <= MAX_H and 1 <= h2 <= MAX_H):
+        raise ValueError(f"the fused kernels take 1 <= r <= {MAX_R} and hidden widths 1..{MAX_H} "
+                         f"(got r = {r}, widths {h1}, {h2})")
+
+
+def k2r_astack_stride(r: int) -> int:
+    """The row stride of astack in K2r's shared memory (the kernel's
+    ``astack_stride``), where it is held zero-padded to (rp, 6 rp): the
+    least S >= 6 rp for which the 32 lanes' reads of one assembly step,
+    lane cb + 8 rb at word (rp / 4) rb S + (rp / 8) cb, fall on the fewest
+    words of one of the 32 banks."""
+    rp = 8 * -(-r // 8)
+    hr, wc = rp // 4, rp // 8
+
+    def ways(S):
+        banks = [(hr * (lane >> 3) * S + wc * (lane & 7)) % 32 for lane in range(32)]
+        return max(banks.count(b) for b in set(banks))
+
+    return min(range(6 * rp, 6 * rp + 32), key=lambda S: (ways(S), S))
+
+
+def k2r_smem_bytes(r: int, h1: int, h2: int, warps: int) -> int:
+    """One K2r block's dynamic shared memory, as the kernel's ``layout``
+    counts it: astack (rp rows of ``k2r_astack_stride``), P0 transposed
+    (rp, rp) where it is not in registers, fhat (rp), Bhat^T (rp, 8), the
+    MLP padded to 64 wide, x_norm and the data; then per warp 16 uniforms
+    and, where it is not in registers, the chain's A(k) (rp, rp). rp is r
+    rounded up to a multiple of 8; every section starts on a 16-byte
+    boundary. h1 and h2 do not change it."""
+    _check_widths(r, h1, h2)
+    rp = 8 * -(-r // 8)
+    mats = rp * rp if rp > K2R_REG_MAX else 0
+    up4 = lambda n: -(-n // 4) * 4
+    block = [rp * k2r_astack_stride(r), mats, rp, rp * STATE_COLS, STATE_COLS * MAX_H, MAX_H,
+             MAX_H * MAX_H, MAX_H, MAX_H * STATE_COLS, STATE_COLS, 2 * STATE_COLS, STATE_COLS]
+    per_warp = [2 * STATE_COLS, mats]
+    return 4 * (sum(map(up4, block)) + warps * sum(map(up4, per_warp)))
+
+
+def k2r_plan(C: int, r: int, h1: int, h2: int, sms: int = H100_SMS) -> K2rPlan:
+    """K2r's launch shape on a card of ``sms`` SMs. One warp per chain; the
+    warps per block are the most of ``K2R_WARPS`` whose block fits the
+    shared memory and still gives at least one block per SM (C = 1,024 on
+    132 SMs: 4, so 256 blocks, two to an SM where the card holds them), else
+    the fewest that fit. Raises ValueError for widths the kernel does not
+    take."""
+    _check_widths(r, h1, h2)
+    if C < 1 or sms < 1:
+        raise ValueError(f"need C >= 1 and sms >= 1 (got {C}, {sms})")
+    rp = 8 * -(-r // 8)
+    fits = [w for w in K2R_WARPS if k2r_smem_bytes(r, h1, h2, w) <= MAX_SMEM]
+    cover = [w for w in fits if -(-C // w) >= sms]
+    warps = max(cover) if cover else min(fits)
+    where = "registers" if rp <= K2R_REG_MAX else "shared"
+    return K2rPlan(r_pad=rp, instance=f"pcn_fused_r_kernel<{rp}>", tile=(rp // 4, rp // 8),
+                   a_in=where, p0_in=where, warps=warps, blocks=-(-C // warps),
+                   smem_bytes=k2r_smem_bytes(r, h1, h2, warps))
+
+
+def _launch(ops: FusedOperands, *, n_steps, n_burn, cg_iters, seed, uniforms, keep_uniforms,
+            kernel="K2r"):
+    """Launch K2r (``kernel="K2r"``, the main path's, on ``k2r_plan``'s
+    shape) or K2 (``kernel="K2"``, off the main path: ``chip_smoke.py``
+    times it beside K2r) and count the launch.
+    Returns (trace (n_steps, C, 8), the drawn (u1, u2) if ``keep_uniforms``
+    else None)."""
+    global launches, r_launches
+    from bayesianinferencedl_tpu_torch.ops import _build
+
+    if kernel not in ("K2r", "K2"):
+        raise ValueError(f"kernel is K2r or K2, got {kernel!r}")
     operands = [ops.theta0, ops.astack, ops.P0, ops.fhat, ops.bhatT, ops.w1, ops.b1, ops.w2,
                 ops.b2, ops.w3, ops.b3, ops.xnorm, ops.data]
     u_in = tuple(u.contiguous() for u in uniforms) if uniforms is not None else (None, None)
     for t in operands + [u for u in u_in if u is not None]:
         if t.dtype != torch.float32:
-            raise TypeError(f"K2 takes float32 operands, got {t.dtype}")
-    lib = load_library("pcn_fused")
-    fn = lib.pcn_fused_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 18
-        + [ctypes.c_int] * 8
-        + [ctypes.c_float] * 4
-        + [ctypes.c_ulonglong, ctypes.c_void_p]
-    )
+            raise TypeError(f"{kernel} takes float32 operands, got {t.dtype}")
     C = ops.theta0.shape[0]
     r = ops.astack.shape[0]
     h1, h2 = ops.w2.shape
+    _check_widths(r, h1, h2)
+    if kernel == "K2r":
+        fn = _build.load_library("pcn_fused_r").pcn_fused_r_launch
+        shape_types = [ctypes.c_int] * 9
+    else:
+        fn = _build.load_library("pcn_fused").pcn_fused_launch
+        shape_types = [ctypes.c_int] * 8
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 18 + shape_types + [ctypes.c_float] * 4
+        + [ctypes.c_ulonglong, ctypes.c_void_p]
+    )
     dev = ops.theta0.device
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
+        shape = [C, r, h1, h2, ops.d, n_steps, n_burn, cg_iters]
+        if kernel == "K2r":
+            plan = k2r_plan(C, r, h1, h2, torch.cuda.get_device_properties(dev).multi_processor_count)
+            shape.append(plan.warps)
         out = torch.empty((n_steps, C, STATE_COLS), dtype=torch.float32, device=dev)
         u_out = tuple(torch.empty_like(out) for _ in range(2)) if keep_uniforms else (None, None)
         pm, ps, inv2n2, beta0 = (float(v) for v in ops.consts.cpu())
         err = fn(
             *(ptr(t) for t in operands), *(ptr(u) for u in u_in), *(ptr(u) for u in u_out),
-            ptr(out), C, r, h1, h2, ops.d, n_steps, n_burn, cg_iters,
-            pm, ps, inv2n2, beta0, seed, torch.cuda.current_stream(dev).cuda_stream,
+            ptr(out), *shape, pm, ps, inv2n2, beta0, seed,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"pcn_fused_launch failed with cudaError_t {err}")
-    launches += 1
+        raise RuntimeError(f"{kernel}'s launch failed with cudaError_t {err}")
+    if kernel == "K2r":
+        r_launches += 1
+    else:
+        launches += 1
     return out, (u_out if keep_uniforms else None)

@@ -1,13 +1,19 @@
 """Fused batched Jacobi-PCG on the 7-diagonal stencil (kernels K1, K3r, K3, K4r, K4c, K4).
 
-A FOM solve is CG on the symmetric stencil operator of ``fem/dia.py``. Three
-hand-written CUDA kernels compute it, one for each layout of the JAX
-package's ``solve_fom_stencil_pallas``, chosen by the mesh size alone
-(``layout_for``, the JAX package's ``pick_layout`` rule):
+A FOM solve is CG on the symmetric stencil operator of ``fem/dia.py``.
+Hand-written CUDA kernels compute it for each layout of the JAX package's
+``solve_fom_stencil_pallas``, chosen by the mesh size alone (``layout_for``,
+the JAX package's ``pick_layout`` rule):
 
-- "lanes", K1, ``pcg_stencil`` (``csrc/pcg_stencil.cu``): one thread block
-  per sample, with the optional two-level deflation preconditioner of
-  ``ops/deflation.py``, up to n = 18,618 (res4);
+- "lanes", up to n = 18,618 (res4), with the optional two-level deflation
+  preconditioner of ``ops/deflation.py``: on the card the kernel that
+  ``lanes_route`` names. That is K3r (the sublanes kernel below) wherever
+  its contract holds, as it does on every fin mesh: the split at
+  ``LANES_MAX_N`` is the TPU's VMEM rule, and on an H100 K3r's tile of 8
+  samples sharing each pass over the basis is no slower than K1 at the res4
+  build's batches (``chip_smoke.py`` phase 2). K1, ``pcg_stencil``
+  (``csrc/pcg_stencil.cu``, one thread block per sample, streaming the
+  whole basis for each sample), stays built, off the main path;
 - "sublanes", ``pcg_stencil_tile``, up to n = 182,044 (res8 to res21): a
   tile of 8 samples shares each pass over the deflation basis. On the card
   K3r (``csrc/pcg_stencil_tile_mma.cu``) computes it: each tile runs on a
@@ -74,8 +80,9 @@ OFFSETS_2D = ((-1, -1), (-1, 0), (0, -1), (0, 0), (0, 1), (1, 0), (1, 1))
 # The largest n the JAX package solves with its lanes kernel: that layout's
 # VMEM working set, 11 * n * 128 * 4 bytes, must fit its 100 MiB budget
 # (bayesianinferencedl_tpu/ops/pcg_stencil.py, pick_layout). Up to this
-# size the port takes K1, above it K3. res4 (n = 6,400) is below; res8
-# (24,960) and res16 (99,072) are above.
+# size the port's "lanes" layout takes the kernel ``lanes_route`` names,
+# above it K3r. res4 (n = 6,400) is below; res8 (24,960) and res16 (99,072)
+# are above.
 LANES_MAX_N = (100 * 1024 * 1024) // (11 * 128 * 4)  # 18,618
 # The largest n the JAX package solves with its sublanes kernel: a tile of 8
 # samples needs ~18 * 8 * n * 4 bytes of its 100 MiB VMEM budget (the same
@@ -223,7 +230,8 @@ def pcg_stencil(
     check_every: int = 16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1's wrapper: the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors. Arguments as for ``pcg_stencil_reference``."""
+    CPU tensors. Arguments as for ``pcg_stencil_reference``. The lanes
+    layout takes it only where ``lanes_route`` names it."""
     kw = _checked("K1", vals4, F, x0, offsets=offsets, maxiter=maxiter, Wt=Wt, Binv=Binv,
                   check_every=check_every, words_always=False)
     if vals4.device.type == "cpu":
@@ -302,6 +310,20 @@ def tile_ranges(n: int, c: int) -> list[tuple[int, int]]:
         raise ValueError(f"K3r's cluster size is one of {TILE_CLUSTERS}, got {c}")
     n16 = n // TILE_ROW
     return [(TILE_ROW * (j * n16 // c), TILE_ROW * ((j + 1) * n16 // c)) for j in range(c)]
+
+
+def lanes_route(n: int, m: int) -> str:
+    """The kernel that carries the "lanes" layout (n <= ``LANES_MAX_N``) on
+    the card: "K3r" wherever K3r's contract holds (n a multiple of 16; no
+    deflation, or m a multiple of 16 up to ``TILE_MAX_M``), else "K1". K3r
+    computes K1's function (the same ``_checked`` contract) and shares each
+    pass over the deflation basis among a tile of 8 samples, where K1 streams
+    the whole basis once per sample (``chip_smoke.py`` phase 2 times both at
+    the res4 build's batches). The fin's res1-4 meshes, with m = 0 or 128,
+    all take K3r."""
+    if n % TILE_ROW == 0 and (m == 0 or (m % 16 == 0 and m <= TILE_MAX_M)):
+        return "K3r"
+    return "K1"
 
 
 def layout_for(n: int) -> str:
@@ -646,8 +668,9 @@ def _launch_tile_mma(vals4, F, x0, *, offsets, tol, maxiter, Wt, Binv, check_eve
 
 def _launch(name, vals4, F, x0, *, offsets, tol, maxiter, Wt, Binv, check_every):
     """Launch ``csrc/<name>.cu`` (K1 and K3 share one C signature) and count
-    the launch. K3 is off the main path (``pcg_stencil_tile`` takes K3r);
-    ``chip_smoke.py`` calls it here to hold it beside K3r."""
+    the launch. Both are off the main path (``lanes_route`` and
+    ``pcg_stencil_tile`` take K3r where its contract holds); ``chip_smoke.py``
+    holds them beside K3r."""
     global launches, tile_launches
     from bayesianinferencedl_tpu_torch.ops._build import load_library
 
@@ -694,9 +717,9 @@ def solve_fom_stencil(
     coarse_inv: torch.Tensor | None = None,
     check_every: int = 16,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched FOM solve A(k_b) u_b = F through K1, K3r or the single
-    layout's K4r / K4c, by the mesh size (``layout_for``, then
-    ``grid_route``).
+    """Batched FOM solve A(k_b) u_b = F by the mesh size (``layout_for``):
+    the "lanes" layout through the kernel ``lanes_route`` names (K3r or K1),
+    "sublanes" through K3r, "single" through K4r or K4c (``grid_route``).
 
     op: fem.dia.StencilOperator; ks: (B, 5). Returns (u (B, n), iters (B,)).
     x0: optional (B, n) warm starts.
@@ -724,7 +747,10 @@ def solve_fom_stencil(
         Binv = Binv.to(op.dtype).contiguous()
     if x0 is not None:
         x0 = x0.contiguous()
-    kernel = pcg_stencil if layout == "lanes" else pcg_stencil_tile
+    if layout == "lanes" and lanes_route(op.n, 0 if Wt is None else Wt.shape[0]) == "K1":
+        kernel = pcg_stencil
+    else:
+        kernel = pcg_stencil_tile
     x, iters = kernel(
         vals4, op.F_root, x0, offsets=op.offsets[DIAG_SLOT + 1:], tol=tol,
         maxiter=maxiter, Wt=Wt, Binv=Binv, check_every=check_every,

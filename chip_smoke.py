@@ -7,25 +7,32 @@ NVIDIA GPU, from the root of a checkout:
 Phases, one or more lines each; any failure exits non-zero with no result:
 
   0. device   require CUDA; print the card's name and power limit
-  1. build    compile kernels K1 (csrc/pcg_stencil.cu), K2 (csrc/pcn_fused.cu),
-              K3 (csrc/pcg_stencil_tile.cu), K4 (csrc/pcg_stencil_grid.cu), K4r
-              (csrc/pcg_stencil_grid_resident.cu), K5 (csrc/shift_cost.cu), K3r
-              (csrc/pcg_stencil_tile_mma.cu) and K4c
+  1. build    compile kernels K1 (csrc/pcg_stencil.cu), K2r (csrc/pcn_fused_r.cu),
+              K2 (csrc/pcn_fused.cu), K3 (csrc/pcg_stencil_tile.cu), K4
+              (csrc/pcg_stencil_grid.cu), K4r (csrc/pcg_stencil_grid_resident.cu),
+              K5 (csrc/shift_cost.cu), K3r (csrc/pcg_stencil_tile_mma.cu) and K4c
               (csrc/pcg_stencil_grid_cluster.cu) with nvcc, one process each,
-              started together; each one's registers and spills from ptxas
-  2. K1       the kernel against its plain torch version on the card at res4,
-              B = 256 log-uniform conductivities, m = 128, tol 1e-7,
-              maxiter 1500: deflated, undeflated and warm-started. Per-sample
-              relative L2 difference <= 1e-4, no sample at the cap, the
-              deflated solutions within 1e-4 of a float64 direct solve, and
+              started together; each one's registers and spills from ptxas,
+              K2r's for each template instance
+  2. lanes    the lanes layout's kernels at res4, B = 256 log-uniform
+              conductivities, m = 128, tol 1e-7, maxiter 1500: first the one
+              lanes_route names (K3r through pcg_stencil_tile, or K1 through
+              pcg_stencil), then the other, each against the plain torch
+              version on the card, deflated, undeflated and warm-started:
+              per-sample relative L2 difference <= 1e-4, no sample at the cap,
+              the deflated solutions within 1e-4 of a float64 direct solve, and
               iteration counts that show the preconditioner is the plain
-              version's (see phase_kernel). Kernel and plain times by CUDA
-              events, also at the build's batch sizes 1024 and 128, with
-              K3r's time on the same inputs for the record
+              version's (see _lanes_gates). Then K1 and K3r timed in turns by
+              CUDA events on the same deflated inputs at B = 1, 128, 256 and
+              1,024 (the res4 build's batches and the truth solve's), with the
+              plain version's time; if lanes_route names K3r, K3r must be no
+              slower than K1 at every one of them
   3. slice    build_pipeline (res4, 256 snapshots, r = 40, 1024 + 128
               training/holdout samples, (64, 64) tanh MLP, 300 epochs) and
               run_inversion (pcn, rom_nn, 1024 chains, 4000 steps, 1000 burn,
-              noise 1e-2) on the card; K1 must have been launched, every
+              noise 1e-2) on the card; the kernel lanes_route names must carry
+              the FOM solves (>= 3 launches in the build, >= 4 with the
+              inversion's truth solve) and the other lanes kernel none, every
               output finite, and the surrogate must lower the training-set
               error below the ROM's. The holdout comparison is printed, not
               gated: at these widths in full fp32 the holdout ROM error is
@@ -34,20 +41,25 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               lowers it depends on the seed, for the JAX reference as much
               as for the port.
   4. K2       the fused pCN sampler (experimental.pcn_fused) on the slice's
-              pipeline, data and noise, cg_iters = pipe.rom_pcg_iters:
-              (a) the kernel against its plain torch version on the card,
-              1,024 chains x 200 steps (50 burn-in), the plain version
-              replaying the uniforms the kernel wrote: the uniforms equal
-              the plain Philox stream bit for bit and pass loose moment and
-              neighbour-correlation gates; at most 1% of chains accept
-              differently; on the others theta and log beta within 1e-4 and
-              phi within 1e-3 relative (see phase_k2); (b) the main path,
-              run_pcn_fused over 4,000 steps (1,000 burn-in) timed by CUDA
-              events after the warm-up of (a), with its launches counted:
-              posterior means within 5 Monte-Carlo standard errors (bulk
-              ESS of both runs) of run_inversion's pcn, sds within 10%,
-              accept rates within 0.02; split-R-hat printed beside pcn's;
-              (c) the plain version over the same 4,000 steps, timed.
+              pipeline, data and noise, cg_iters = pipe.rom_pcg_iters. First
+              k2r_plan's launch beside the kernel's own count of its shared
+              memory (they must agree) and the blocks an SM holds. (a) K2r
+              through run_pcn_fused and K2 through its launcher, each against
+              the plain torch version on the card, 1,024 chains x 200 steps
+              (50 burn-in), the plain version replaying the uniforms K2r wrote:
+              both kernels' uniforms equal the plain Philox stream bit for bit
+              and pass loose moment and neighbour-correlation gates; for each
+              kernel at most 1% of chains accept differently; on the others
+              theta and log beta within 1e-4 and phi within 1e-3 relative (see
+              _k2_check); (b) the main path, run_pcn_fused over 4,000 steps
+              (1,000 burn-in) timed by CUDA events after the warm-up of (a),
+              with both kernels' launches counted (K2r must carry it, K2 not):
+              posterior means within 5 Monte-Carlo standard errors (bulk ESS of
+              both runs) of run_inversion's pcn, sds within 10%, accept rates
+              within 0.02; split-R-hat printed beside pcn's; K2 timed beside
+              K2r on the same run, in turns; (c) the plain version over the
+              same 4,000 steps, timed. For the record, not gated: K2 and K2r
+              in turns at C = 4,096 over 1,000 steps.
   5. K3r, K3  the sublanes layout's kernels against their plain torch version
               at res8 (n = 24,960), B = 256, m = 128, tol 1e-7, maxiter 1500.
               First the route: the cluster size tile_cluster gives for the
@@ -172,6 +184,7 @@ import contextlib
 import ctypes
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -211,8 +224,9 @@ def phase_device():
     return card
 
 
-KERNEL_SOURCES = ("pcg_stencil", "pcn_fused", "pcg_stencil_tile", "pcg_stencil_grid",
-                  "pcg_stencil_grid_resident", "shift_cost", "pcg_stencil_tile_mma")
+KERNEL_SOURCES = ("pcg_stencil", "pcn_fused", "pcn_fused_r", "pcg_stencil_tile", "pcg_stencil_grid",
+                  "pcg_stencil_grid_resident", "shift_cost", "pcg_stencil_tile_mma",
+                  "pcg_stencil_grid_cluster")
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 PEAK_F32 = 67e12  # FLOP/s on the CUDA cores
@@ -232,9 +246,30 @@ def phase_build():
             say("build", f"cached {lib._name} (no nvcc run)")
             continue
         say("build", f"{name}.cu -> sm_90a by nvcc in {log['seconds']:.2f} s")
+        if name == "pcn_fused_r":  # one line per template instance <padded r>
+            for fn, regs, spill in _ptxas_functions(log["ptxas"]):
+                inst = re.search(r"kernelILi(\d+)E", fn)
+                say("build", f"K2r <{inst[1] if inst else fn}>: {regs}; {spill}")
+            continue
         for line in log["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 say("build", line.strip())
+
+
+def _ptxas_functions(log: str) -> list[tuple[str, str, str]]:
+    """(mangled name, registers line, spill line) of each kernel in a ptxas
+    -v log."""
+    rows, fn, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, spill = m[1], ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and fn is not None:
+            rows.append((fn, line.split(":", 1)[-1].strip(), spill))
+            fn = None
+    return rows
 
 
 def _bound(nbytes: float, f32_ops: float, bf16_ops: float = 0.0) -> tuple[float, str]:
@@ -309,6 +344,68 @@ def _direct_qoi(fin, k: np.ndarray) -> np.ndarray:
     return fin.host.qoi @ spla.spsolve(A, fin.host.F_root)
 
 
+LANES_BATCHES = (1, 128, B_CHECK, 1024)  # the res4 build's batches and the truth solve's
+
+
+def _lanes_gates(kname, fin, ks_np, kernel, vals4, cases, kw):
+    """K1's res4 gates on one lanes kernel (phase 2's docstring). Returns
+    (max abs difference from the plain version, counts by case)."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K1
+
+    op = fin.op
+    max_abs = 0.0
+    iters = {}
+    for name, c in cases.items():
+        xk, itk = kernel(vals4, op.F_root, c["x0"], Wt=c["Wt"], Binv=c["Binv"], **kw)
+        torch.cuda.synchronize()
+        xp, itp = c["plain"]
+        if not torch.isfinite(xk).all():
+            fail(f"{kname} {name}: non-finite solution")
+        rel = (torch.linalg.norm(xk - xp, dim=1) / torch.linalg.norm(xp, dim=1)).max().item()
+        abs_err = (xk - xp).abs().max().item()
+        max_abs = max(max_abs, abs_err)
+        it, itp = itk.cpu().numpy(), itp.cpu().numpy()
+        iters[name] = it
+        it_diff = np.abs(it - itp)
+        mean_shift = abs(it.mean() / itp.mean() - 1)
+        say("lanes", f"{kname} {name}: max per-sample rel diff vs plain {rel:.3e} (max abs "
+            f"{abs_err:.3e}); iters kernel min/median/max {it.min()}/{int(np.median(it))}/{it.max()}, "
+            f"plain {itp.min()}/{int(np.median(itp))}/{itp.max()}; per-sample count difference "
+            f"max {it_diff.max()}, {int((it_diff > CHECK_EVERY).sum())} samples > {CHECK_EVERY}; "
+            f"mean count {it.mean():.2f} vs {itp.mean():.2f}")
+        if rel > REL_GATE:
+            fail(f"{kname} {name}: kernel vs plain relative difference {rel:.3e} > {REL_GATE}")
+        if it.max() >= MAXITER:
+            fail(f"{kname} {name}: {int((it >= MAXITER).sum())} samples hit the {MAXITER}-iteration cap")
+        # CG reaches the same x under any SPD preconditioner, so the solution
+        # alone cannot show that the preconditioner is right: the iteration
+        # counts can. With deflation (<= 48 iterations) they must agree per
+        # sample to one check block. Undeflated f32 CG runs 256-448
+        # iterations and its residual norm is not monotone near tol, so
+        # single samples stop blocks apart under two summation orders; there
+        # the batch's mean count must agree to 5%.
+        if c["Wt"] is not None and it_diff.max() > CHECK_EVERY:
+            fail(f"{kname} {name}: iteration counts differ from the plain version's by "
+                 f"{it_diff.max()} > {CHECK_EVERY} for some sample")
+        if mean_shift > 0.05:
+            fail(f"{kname} {name}: mean iteration count {it.mean():.2f} vs plain {itp.mean():.2f}")
+        if name == "deflated":
+            sub = slice(0, 16)
+            err, res, floor = _direct_rel_err(fin, ks_np[sub], xk[sub].cpu().numpy())
+            err, res = err.max(), res.max()
+            say("lanes", f"{kname} {name}: vs float64 direct solve (16 samples): max rel err {err:.3e}; "
+                f"f64 rel residual {res:.3e} (float32-rounded exact solution: {floor:.3e})")
+            if err > REL_GATE:
+                fail(f"{kname} {name}: relative error {err:.3e} against the f64 direct solve > {REL_GATE}")
+    for name in ("deflated", "warm"):
+        slow = int((2 * iters[name] > iters["undeflated"]).sum())
+        if slow:
+            fail(f"{kname} {name}: {slow} samples took more than half their undeflated iterations")
+    return max_abs, iters
+
+
 def phase_kernel():
     import torch
 
@@ -321,8 +418,10 @@ def phase_kernel():
     fin = FiveParamFin.create(resolution=4, biot=0.1, device="cuda", cg_tol=TOL, cg_maxiter=MAXITER)
     defl = fin.deflation_basis()
     op = fin.op
-    say("K1", f"res4 n={op.n} offsets={op.offsets[4:]} m={defl.m}; fin + deflation basis "
-        f"{time.perf_counter() - t0:.2f} s")
+    routes = {m: K1.lanes_route(op.n, m) for m in (0, defl.m)}
+    route = routes[defl.m]
+    say("lanes", f"res4 n={op.n} offsets={op.offsets[4:]} m={defl.m}; fin + deflation basis "
+        f"{time.perf_counter() - t0:.2f} s; lanes_route(n, m) = {route} (m = 0: {routes[0]})")
     rng = np.random.default_rng(0)
 
     def inputs(B):
@@ -346,74 +445,42 @@ def phase_kernel():
         "undeflated": dict(x0=None, Wt=None, Binv=None),
         "warm": dict(x0=x0.contiguous(), Wt=defl.Wt_bf16, Binv=Binv),
     }
-    max_abs = 0.0
-    iters = {}
-    for name, c in cases.items():
-        xk, itk = K1.pcg_stencil(vals4, op.F_root, c["x0"], Wt=c["Wt"], Binv=c["Binv"], **kw)
-        torch.cuda.synchronize()
-        xp, itp = K1.pcg_stencil_reference(vals4, op.F_root, c["x0"], Wt=c["Wt"], Binv=c["Binv"], **kw)
-        if not torch.isfinite(xk).all():
-            fail(f"K1 {name}: non-finite solution")
-        rel = (torch.linalg.norm(xk - xp, dim=1) / torch.linalg.norm(xp, dim=1)).max().item()
-        abs_err = (xk - xp).abs().max().item()
-        max_abs = max(max_abs, abs_err)
-        it, itp = itk.cpu().numpy(), itp.cpu().numpy()
-        iters[name] = it
-        it_diff = np.abs(it - itp)
-        mean_shift = abs(it.mean() / itp.mean() - 1)
-        say("K1", f"{name}: max per-sample rel diff vs plain {rel:.3e} (max abs {abs_err:.3e}); "
-            f"iters kernel min/median/max {it.min()}/{int(np.median(it))}/{it.max()}, "
-            f"plain {itp.min()}/{int(np.median(itp))}/{itp.max()}; per-sample count difference "
-            f"max {it_diff.max()}, {int((it_diff > CHECK_EVERY).sum())} samples > {CHECK_EVERY}; "
-            f"mean count {it.mean():.2f} vs {itp.mean():.2f}")
-        if rel > REL_GATE:
-            fail(f"K1 {name}: kernel vs plain relative difference {rel:.3e} > {REL_GATE}")
-        if it.max() >= MAXITER:
-            fail(f"K1 {name}: {int((it >= MAXITER).sum())} samples hit the {MAXITER}-iteration cap")
-        # CG reaches the same x under any SPD preconditioner, so the solution
-        # alone cannot show that the preconditioner is right: the iteration
-        # counts can. With deflation (<= 48 iterations) they must agree per
-        # sample to one check block. Undeflated f32 CG runs 256-448
-        # iterations and its residual norm is not monotone near tol, so
-        # single samples stop blocks apart under two summation orders; there
-        # the batch's mean count must agree to 5%.
-        if c["Wt"] is not None and it_diff.max() > CHECK_EVERY:
-            fail(f"K1 {name}: iteration counts differ from the plain version's by "
-                 f"{it_diff.max()} > {CHECK_EVERY} for some sample")
-        if mean_shift > 0.05:
-            fail(f"K1 {name}: mean iteration count {it.mean():.2f} vs plain {itp.mean():.2f}")
-        if name == "deflated":
-            sub = slice(0, 16)
-            err, res, floor = _direct_rel_err(fin, ks_np[sub], xk[sub].cpu().numpy())
-            err, res = err.max(), res.max()
-            say("K1", f"{name}: vs float64 direct solve (16 samples): max rel err {err:.3e}; "
-                f"f64 rel residual {res:.3e} (float32-rounded exact solution: {floor:.3e})")
-            if err > REL_GATE:
-                fail(f"K1 {name}: relative error {err:.3e} against the f64 direct solve > {REL_GATE}")
-    for name in ("deflated", "warm"):
-        slow = int((2 * iters[name] > iters["undeflated"]).sum())
-        if slow:
-            fail(f"K1 {name}: {slow} samples took more than half their undeflated iterations")
+    for c in cases.values():
+        c["plain"] = K1.pcg_stencil_reference(vals4, op.F_root, c["x0"], Wt=c["Wt"], Binv=c["Binv"], **kw)
+    # the route's kernel first, then the other: both held to K1's gates
+    kernels = {"K3r": K1.pcg_stencil_tile, "K1": K1.pcg_stencil}
+    max_abs, iters = {}, {}
+    for kname in sorted(kernels, key=lambda k: k != route):
+        max_abs[kname], iters[kname] = _lanes_gates(kname, fin, ks_np, kernels[kname], vals4, cases, kw)
 
+    # K1 and K3r in turns (K1, K3r, K3r, K1) on the same deflated inputs at
+    # the res4 build's batches
     times = {}
-    for B in (B_CHECK, 1024, 128):
+    for B in LANES_BATCHES:
         if B != B_CHECK:
             _, _, vals4, Binv = inputs(B)
         args = dict(Wt=defl.Wt_bf16, Binv=Binv, **kw)
-        k_ms = _time_ms(lambda: K1.pcg_stencil(vals4, op.F_root, None, **args), 5)
+        t = {"K1": [], "K3r": []}
+        for kname in ("K1", "K3r", "K3r", "K1"):
+            t[kname].append(_time_ms(lambda: kernels[kname](vals4, op.F_root, None, **args), 5))
         p_ms = _time_ms(lambda: K1.pcg_stencil_reference(vals4, op.F_root, None, **args), 3)
-        times[B] = (k_ms, p_ms)
-        # the sublanes layout's kernel (K3r) on K1's inputs, for the record:
-        # the K1/K3r split (LANES_MAX_N) is the JAX package's layout rule, and
-        # these times say where it sits
-        k3_ms = _time_ms(lambda: K1.pcg_stencil_tile(vals4, op.F_root, None, **args), 5)
-        say("K1", f"deflated B={B}: kernel {k_ms:.3f} ms, plain torch {p_ms:.3f} ms per batched "
-            f"solve; K3r on the same inputs {k3_ms:.3f} ms (cluster of {_cluster(B)}; for the "
-            f"record)")
-    bound = _k1_bound(B_CHECK, op.n, defl.m, iters["deflated"])
-    say("K1", f"deflated B={B_CHECK}: bound {bound[0]:.4f} ms ({bound[1]}), kernel at "
-        f"{100 * bound[0] / times[B_CHECK][0]:.2f}% of it")
-    return max_abs, times, bound
+        times[B] = {k: float(np.mean(v)) for k, v in t.items()} | {"plain": p_ms}
+        say("lanes", f"deflated B={B}: K3r {times[B]['K3r']:.3f} ms (cluster of {_cluster(B)}), K1 "
+            f"{times[B]['K1']:.3f} ms (each the mean of two turns: "
+            + ", ".join(f"{k} {' / '.join(f'{x:.3f}' for x in v)}" for k, v in t.items())
+            + f"), plain torch {p_ms:.3f} ms per batched solve; K3r / K1 "
+            f"{times[B]['K3r'] / times[B]['K1']:.3f}")
+    no_slower = all(times[B]["K3r"] <= times[B]["K1"] for B in LANES_BATCHES)
+    say("lanes", f"K3r no slower than K1 at every batch {LANES_BATCHES}: {no_slower}; "
+        f"lanes_route gives {route}")
+    if route == "K3r" and not no_slower:
+        fail("lanes_route sends the lanes layout to K3r, which was slower than K1 at some batch")
+    bound = _k1_bound(B_CHECK, op.n, defl.m, iters["K1"]["deflated"])
+    bound_r = _k1_bound(B_CHECK, op.n, defl.m, iters["K3r"]["deflated"])
+    say("lanes", f"deflated B={B_CHECK}: bound K1 {bound[0]:.4f} ms ({bound[1]}), kernel at "
+        f"{100 * bound[0] / times[B_CHECK]['K1']:.2f}% of it; K3r {bound_r[0]:.4f} ms, at "
+        f"{100 * bound_r[0] / times[B_CHECK]['K3r']:.2f}%")
+    return dict(route=route, max_abs=max_abs, times=times, bound={"K1": bound, "K3r": bound_r})
 
 
 def phase_slice():
@@ -435,19 +502,23 @@ def phase_slice():
                         likelihood="rom_nn", sampler="pcn"),
     )
     log = MetricsLogger()
-    K1.launches = 0
+    counts = lambda: {"K1": K1.launches, "K3r": K1.tile_mma_launches}
+    K1.launches = K1.tile_mma_launches = 0
     t0 = time.perf_counter()
     pipe = build_pipeline(cfg, device="cuda", metrics=log)
     build_s = time.perf_counter() - t0
-    n_build = K1.launches
+    n_build = counts()
     inv = run_inversion(pipe, metrics=log)
     torch.cuda.synchronize()
-    n_main = K1.launches
+    n_main = counts()
     s = log.summary()
     stages = {k: s[k]["seconds"] for k in ("build_fom", "snapshots", "project_rom", "error_dataset",
                                           "train_surrogate", "holdout_eval")}
+    route = K1.lanes_route(pipe.fin.op.n, pipe.fin.deflation_for_kernels().m)
+    other = "K1" if route == "K3r" else "K3r"
     say("slice", f"build_pipeline {build_s:.2f} s; stages (s) " + json.dumps(stages))
-    say("slice", f"K1 launches: {n_build} in the build, {n_main} in build + inversion")
+    say("slice", f"lanes_route: {route}; launches " + "; ".join(
+        f"{k} {n_build[k]} in the build, {n_main[k]} in build + inversion" for k in (route, other)))
     hold = s["holdout_rel_err"]
     say("slice", f"rom_rel_err {s['rom_rel_err']['value']:.4e} corrected_rel_err "
         f"{s['corrected_rel_err']['value']:.4e}; holdout rom {hold['rom']:.4e} "
@@ -462,10 +533,12 @@ def phase_slice():
     say("slice", f"posterior mean log k {np.round(post, 4).tolist()} vs truth "
         f"{np.round(inv.theta_true.cpu().numpy(), 4).tolist()}")
 
-    if n_build < 3:
-        fail(f"K1 was launched {n_build} times in build_pipeline (expected >= 3)")
-    if n_main <= n_build:
-        fail("K1 was not launched for the synthetic-truth solve in run_inversion")
+    if n_build[route] < 3:
+        fail(f"{route} was launched {n_build[route]} times in build_pipeline (expected >= 3)")
+    if n_main[route] <= n_build[route]:
+        fail(f"{route} was not launched for the synthetic-truth solve in run_inversion")
+    if n_main[other]:
+        fail(f"{other}, the other lanes kernel, was launched {n_main[other]} times on the slice")
     for name, t in (("samples", res.samples), ("phi", res.phi_trace), ("ess", inv.ess),
                     ("ess_tail", inv.ess_tail), ("rhat", inv.rhat), ("data", inv.data)):
         if not torch.isfinite(t).all():
@@ -512,11 +585,38 @@ def _k2_bound(C: int, T: int, r: int, d: int, m: int, h1: int, h2: int,
     return _bound(4 * (C * 8 + operands + T * C * 8), C * (T + 1) * float(misfit))
 
 
+K2_BIG_C, K2_BIG_T = 4096, 1000  # the record-only run where chains outnumber the warp slots
+
+
+def _k2_check(kname, tk, tp, d):
+    """(a)'s gates on one kernel's trace tk against the plain version's tp
+    on the same uniforms; returns the max abs difference on agreeing chains."""
+    flips = (tk[:, :, 7] != tp[:, :, 7]).any(0)
+    agree = ~flips
+    dd = (tk[:, agree] - tp[:, agree]).abs()
+    d_theta = float(dd[..., :d].max())
+    d_lbeta = float(dd[..., 6].max())
+    d_phi = float((dd[..., 5] / tp[:, agree, 5].abs().clamp(min=1.0)).max())
+    max_abs = float(dd.max())
+    C = tk.shape[1]
+    say("K2", f"{kname} vs plain, {C} chains x {tk.shape[0]} steps: chains whose accept sequences "
+        f"differ {int(flips.sum())} ({100 * float(flips.float().mean()):.2f}%); on the others max "
+        f"|d theta| {d_theta:.3e}, |d log beta| {d_lbeta:.3e}, rel |d phi| {d_phi:.3e}, max abs "
+        f"{max_abs:.3e}; accept {float(tk[K2_CHECK_BURN:, :, 7].mean()):.4f} vs "
+        f"{float(tp[K2_CHECK_BURN:, :, 7].mean()):.4f}")
+    if float(flips.float().mean()) > K2_FLIP_GATE:
+        fail(f"{kname}: {int(flips.sum())} chains accept differently from the plain version")
+    if max(d_theta, d_lbeta) > K2_STATE_GATE or d_phi > K2_PHI_GATE:
+        fail(f"{kname}: kernel and plain states differ beyond the gates")
+    return max_abs
+
+
 def phase_k2(cfg, pipe, inv):
     import torch
 
     from bayesianinferencedl_tpu_torch.experimental import pcn_fused as K2
     from bayesianinferencedl_tpu_torch.infer.diagnostics import ess_bulk, split_rhat
+    from bayesianinferencedl_tpu_torch.ops import _build
 
     mc = cfg.mcmc
     C, T, NB = mc.n_chains, mc.n_steps, mc.n_burn
@@ -527,9 +627,28 @@ def phase_k2(cfg, pipe, inv):
             mc.noise_sigma, theta0)
     ops = K2.pack_operands(*args, mc.beta)
     r, (h1, h2) = ops.astack.shape[0], ops.w2.shape
-    say("K2", f"C={C} r={r} h=({h1}, {h2}) cg_iters={cg} d={ops.d}")
+    m = pipe.rom.Bhat.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = K2.k2r_plan(C, r, h1, h2, sms)
+    lib = _build.load_library("pcn_fused_r")
+    smem_fn = lib.pcn_fused_r_smem_bytes
+    smem_fn.restype, smem_fn.argtypes = ctypes.c_longlong, [ctypes.c_int] * 4
+    occ = lib.pcn_fused_r_blocks_per_sm
+    occ.restype = ctypes.c_int
+    occ.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    held = ctypes.c_int()
+    err = occ(r, h1, h2, plan.warps, ctypes.byref(held))
+    c_bytes = smem_fn(r, h1, h2, plan.warps)
+    say("K2", f"C={C} r={r} h=({h1}, {h2}) cg_iters={cg} d={ops.d} m={m}; k2r_plan on {sms} SMs: "
+        f"{plan._asdict()}; the kernel's own count {c_bytes} B; {held.value} blocks per SM "
+        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor, error {err})")
+    if c_bytes != plan.smem_bytes:
+        fail(f"K2r: k2r_plan counts {plan.smem_bytes} B of shared memory, the kernel {c_bytes} B")
+    if err != 0 or held.value < 1:
+        fail(f"K2r: the card holds {held.value} of its blocks per SM (cudaError_t {err})")
 
-    # (a) the kernel against the plain version on the uniforms it drew
+    # (a) each kernel against the plain version on the uniforms it drew: K2r
+    # through the main path's entry point, K2 through its launcher
     rk = K2.run_pcn_fused(*args, K2_SEED, n_steps=K2_CHECK_STEPS, n_burn=K2_CHECK_BURN,
                           beta=mc.beta, cg_iters=cg, return_uniforms=True)
     torch.cuda.synchronize()
@@ -537,59 +656,47 @@ def phase_k2(cfg, pipe, inv):
     tp, _ = K2.pcn_fused_reference(ops, n_steps=K2_CHECK_STEPS, n_burn=K2_CHECK_BURN,
                                    cg_iters=cg, uniforms=(u1, u2))
     tk = rk.trace
-    if not (torch.isfinite(tk).all() and torch.isfinite(tp).all()):
+    t2, (v1, v2) = K2._launch(ops, n_steps=K2_CHECK_STEPS, n_burn=K2_CHECK_BURN, cg_iters=cg,
+                              seed=K2_SEED, uniforms=None, keep_uniforms=True, kernel="K2")
+    torch.cuda.synchronize()
+    if not (torch.isfinite(tk).all() and torch.isfinite(tp).all() and torch.isfinite(t2).all()):
         fail("K2: non-finite trace")
     philox = [K2.philox_uniforms(K2_SEED, t, C, device="cuda") for t in range(K2_CHECK_STEPS)]
-    same = torch.equal(torch.stack([a for a, _ in philox]), u1) and torch.equal(
-        torch.stack([b for _, b in philox]), u2)
+    p1, p2 = torch.stack([a for a, _ in philox]), torch.stack([b for _, b in philox])
+    same = torch.equal(p1, u1) and torch.equal(p2, u2)
+    same2 = torch.equal(p1, v1) and torch.equal(p2, v2)
     u = torch.cat([u1, u2], -1)  # (T, C, 16)
     u_mean, u_var = float(u.double().mean()), float(u.double().var())
     c_chain, c_step = _corr(u[:, :-1], u[:, 1:]), _corr(u[:-1], u[1:])
-    say("K2", f"uniforms: equal to the plain Philox stream: {same}; mean {u_mean:.6f} "
-        f"(1/2), var {u_var:.6f} (1/12 = {1 / 12:.6f}), corr neighbouring chains {c_chain:.2e}, "
-        f"neighbouring steps {c_step:.2e}")
-    if not same:
-        fail("K2: the kernel's uniforms differ from the plain Philox4x32-10 stream")
+    say("K2", f"uniforms: K2r's equal to the plain Philox stream: {same}, K2's: {same2}; mean "
+        f"{u_mean:.6f} (1/2), var {u_var:.6f} (1/12 = {1 / 12:.6f}), corr neighbouring chains "
+        f"{c_chain:.2e}, neighbouring steps {c_step:.2e}")
+    if not (same and same2):
+        fail("K2: a kernel's uniforms differ from the plain Philox4x32-10 stream")
     if abs(u_mean - 0.5) > 0.01 or abs(u_var - 1 / 12) > 0.005 or max(abs(c_chain), abs(c_step)) > 0.01:
         fail("K2: the uniforms fail the moment or correlation gates")
-    flips = (tk[:, :, 7] != tp[:, :, 7]).any(0)
-    agree = ~flips
-    d = (tk[:, agree] - tp[:, agree]).abs()
-    d_theta = float(d[..., :ops.d].max())
-    d_lbeta = float(d[..., 6].max())
-    d_phi = float((d[..., 5] / tp[:, agree, 5].abs().clamp(min=1.0)).max())
-    max_abs = float(d.max())
-    say("K2", f"kernel vs plain, {C} chains x {K2_CHECK_STEPS} steps: chains whose accept "
-        f"sequences differ {int(flips.sum())} ({100 * float(flips.float().mean()):.2f}%); on the "
-        f"others max |d theta| {d_theta:.3e}, |d log beta| {d_lbeta:.3e}, rel |d phi| "
-        f"{d_phi:.3e}, max abs {max_abs:.3e}; accept {float(tk[K2_CHECK_BURN:, :, 7].mean()):.4f} "
-        f"vs {float(tp[K2_CHECK_BURN:, :, 7].mean()):.4f}")
-    if float(flips.float().mean()) > K2_FLIP_GATE:
-        fail(f"K2: {int(flips.sum())} chains accept differently from the plain version")
-    if max(d_theta, d_lbeta) > K2_STATE_GATE or d_phi > K2_PHI_GATE:
-        fail("K2: kernel and plain states differ beyond the gates")
+    max_abs = {"K2r": _k2_check("K2r", tk, tp, ops.d), "K2": _k2_check("K2", t2, tp, ops.d)}
 
     # (b) the main path: run_pcn_fused over the whole run, counted and timed
-    K2.launches = 0
+    K2.r_launches = K2.launches = 0
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     e0.record()
     res = K2.run_pcn_fused(*args, K2_SEED + 1, n_steps=T, n_burn=NB, beta=mc.beta, cg_iters=cg)
     e1.record()
     e1.synchronize()
-    launches = K2.launches
-    k_ms = e0.elapsed_time(e1)
+    launches = {"K2r": K2.r_launches, "K2": K2.launches}
+    first_ms = e0.elapsed_time(e1)
     eager_us = inv.wall_seconds / T * 1e6
     n_kept = (T - NB) * C
-    say("K2", f"run_pcn_fused {T} steps ({NB} burn-in) x {C} chains: {k_ms:.3f} ms, "
-        f"{k_ms / T * 1e3:.3f} us/step, {n_kept / (k_ms / 1e3):.1f} kept samples/s, launches "
-        f"{launches}; the eager pcn step of run_inversion in this call: {eager_us:.3f} us/step, "
-        f"{inv.samples_per_sec:.1f} samples/s")
-    if launches < 1:
-        fail("K2 was not launched on the main path")
+    say("K2", f"run_pcn_fused {T} steps ({NB} burn-in) x {C} chains: {first_ms:.3f} ms, launches "
+        f"K2r {launches['K2r']}, K2 {launches['K2']}; the eager pcn step of run_inversion in this "
+        f"call: {eager_us:.3f} us/step, {inv.samples_per_sec:.1f} samples/s")
+    if launches["K2r"] < 1 or launches["K2"]:
+        fail("K2r did not carry the main path alone")
     if not (torch.isfinite(res.samples).all() and torch.isfinite(res.phi_trace).all()):
-        fail("K2: non-finite samples")
+        fail("K2r: non-finite samples")
     if tuple(res.samples.shape) != (T - NB, C, ops.d):
-        fail(f"K2 samples shape {tuple(res.samples.shape)}")
+        fail(f"K2r samples shape {tuple(res.samples.shape)}")
     ref = inv.result.samples
     means, sds, ses, rhats = [], [], [], []
     for x in (res.samples, ref):
@@ -601,18 +708,33 @@ def phase_k2(cfg, pipe, inv):
     z = ((means[0] - means[1]).abs() / (ses[0] ** 2 + ses[1] ** 2).sqrt()).cpu().numpy()
     sd_rel = ((sds[0] - sds[1]).abs() / sds[1]).cpu().numpy()
     acc_k, acc_p = float(res.accept_rate.mean()), float(inv.result.accept_rate.mean())
-    say("K2", f"posterior mean K2 {np.round(means[0].cpu().numpy(), 4).tolist()} vs pcn "
+    say("K2", f"posterior mean K2r {np.round(means[0].cpu().numpy(), 4).tolist()} vs pcn "
         f"{np.round(means[1].cpu().numpy(), 4).tolist()}; |diff| / MCSE "
         f"{np.round(z, 2).tolist()}")
-    say("K2", f"posterior sd K2 {np.round(sds[0].cpu().numpy(), 4).tolist()} vs pcn "
+    say("K2", f"posterior sd K2r {np.round(sds[0].cpu().numpy(), 4).tolist()} vs pcn "
         f"{np.round(sds[1].cpu().numpy(), 4).tolist()}; accept {acc_k:.4f} vs {acc_p:.4f}; "
         f"split-rhat max {rhats[0]:.4f} vs {rhats[1]:.4f}")
     if z.max() > K2_MEAN_GATE:
-        fail(f"K2: posterior means {z.max():.2f} Monte-Carlo errors from pcn's")
+        fail(f"K2r: posterior means {z.max():.2f} Monte-Carlo errors from pcn's")
     if sd_rel.max() > K2_SD_GATE:
-        fail(f"K2: posterior sd {100 * sd_rel.max():.1f}% from pcn's")
+        fail(f"K2r: posterior sd {100 * sd_rel.max():.1f}% from pcn's")
     if abs(acc_k - acc_p) > K2_ACC_GATE:
-        fail(f"K2: accept rate {acc_k:.4f} vs pcn {acc_p:.4f}")
+        fail(f"K2r: accept rate {acc_k:.4f} vs pcn {acc_p:.4f}")
+
+    # K2 beside K2r on the same run, in turns after the main path's K2r run
+    # (K2, K2r, K2); K2r's time is the mean of its two runs
+    def timed(ops_, T_, NB_, kname):
+        e0.record()
+        K2._launch(ops_, n_steps=T_, n_burn=NB_, cg_iters=cg, seed=K2_SEED + 1, uniforms=None,
+                   keep_uniforms=False, kernel=kname)
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1)
+
+    k2_runs = [timed(ops, T, NB, "K2")]
+    r_runs = [first_ms, timed(ops, T, NB, "K2r")]
+    k2_runs.append(timed(ops, T, NB, "K2"))
+    k_ms, k2_ms = float(np.mean(r_runs)), float(np.mean(k2_runs))
 
     # (c) the plain version over the same run
     e0.record()
@@ -620,10 +742,30 @@ def phase_k2(cfg, pipe, inv):
     e1.record()
     e1.synchronize()
     p_ms = e0.elapsed_time(e1)
-    bound = _k2_bound(C, T, r, ops.d, pipe.rom.Bhat.shape[0], h1, h2, cg)
-    say("K2", f"plain torch version over the same {T} steps: {p_ms:.3f} ms; bound "
-        f"{bound[0]:.3f} ms ({bound[1]}), kernel at {100 * bound[0] / k_ms:.2f}% of it")
-    return dict(launches=launches, max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound=bound)
+    bound = _k2_bound(C, T, r, ops.d, m, h1, h2, cg)
+    for kname, ms, runs in (("K2r", k_ms, r_runs), ("K2", k2_ms, k2_runs)):
+        say("K2", f"{kname} over {T} steps x {C} chains: {ms:.3f} ms (runs "
+            f"{' / '.join(f'{x:.3f}' for x in runs)}), {ms / T * 1e3:.3f} us/step, "
+            f"{n_kept / (ms / 1e3):.1f} kept samples/s, {100 * bound[0] / ms:.2f}% of the bound")
+    say("K2", f"K2r is {k2_ms / k_ms:.2f}x K2's speed; plain torch version over the same {T} steps: "
+        f"{p_ms:.3f} ms; bound {bound[0]:.3f} ms ({bound[1]})")
+
+    # for the record: more chains than the SMs' warp slots
+    gen_big = torch.Generator(device="cuda").manual_seed(mc.seed + 3)
+    ops_big = K2.pack_operands(*args[:-1], pipe.prior.sample(gen_big, (K2_BIG_C,)), mc.beta)
+    big_plan = K2.k2r_plan(K2_BIG_C, r, h1, h2, sms)
+    big = {"K2": [], "K2r": []}
+    for kname in ("K2", "K2r", "K2r", "K2"):
+        big[kname].append(timed(ops_big, K2_BIG_T, 0, kname))
+    big = {kname: float(np.mean(v)) for kname, v in big.items()}
+    big_bound = _k2_bound(K2_BIG_C, K2_BIG_T, r, ops.d, m, h1, h2, cg)
+    say("K2", f"record, C={K2_BIG_C} x {K2_BIG_T} steps (k2r_plan: {big_plan.warps} warps x "
+        f"{big_plan.blocks} blocks): " + ", ".join(
+            f"{kname} {ms:.3f} ms ({ms / K2_BIG_T * 1e3:.3f} us/step, "
+            f"{K2_BIG_C * K2_BIG_T / (ms / 1e3):.1f} samples/s, {100 * big_bound[0] / ms:.2f}% of "
+            f"the {big_bound[0]:.3f} ms bound)" for kname, ms in big.items()))
+    return {kname: dict(launches=launches[kname], max_abs_err=max_abs[kname], ms=ms, plain_ms=p_ms,
+                        bound=bound) for kname, ms in (("K2r", k_ms), ("K2", k2_ms))}
 
 
 K3_RES = 8
@@ -1720,8 +1862,8 @@ def main() -> None:
     import torch
 
     phase_build()
-    max_abs, times, k1_bound = phase_kernel()
-    launches, cfg, pipe, inv = phase_slice()
+    lanes = phase_kernel()
+    slice_launches, cfg, pipe, inv = phase_slice()
     k2 = phase_k2(cfg, pipe, inv)
     k3 = phase_k3()
     k3_launches = phase_da()
@@ -1729,20 +1871,32 @@ def main() -> None:
     k4_launches = phase_fom_cli(k4)
     k4c = phase_k4c(k4)
     k5 = phase_k5(k3)
-    k_ms, p_ms = times[B_CHECK]
+    t1 = lanes["times"][B_CHECK]
     t3 = k3["times"][1024]
     t4r = k4["times"][K4_BATCHES[0]]
     # K4c and K4 at res40, B = 8: the batch at which the plain version is
     # timed on the same inputs (phase K4c; the main path's 256 is timed there too)
     t4c, t4, p40 = k4c["times"]["K4c", 8], k4c["times"]["K4", 8], k4c["times"]["plain", 8]["ms"]
     print(json.dumps({"kernels": [
+        # K1: res4, deflated, B = 256; its launches are the res4 slice's
         _kernel_entry("pcg_stencil", "pcg_stencil.cu", "bayesianinferencedl_tpu/ops/pcg_stencil.py:236",
-                      launches, max_abs, k_ms, p_ms, k1_bound),
+                      slice_launches["K1"], lanes["max_abs"]["K1"], t1["K1"], t1["plain"],
+                      lanes["bound"]["K1"]),
+        # K2r carries run_pcn_fused; K2, off the main path, timed on the same run
+        _kernel_entry("pcn_fused_r", "pcn_fused_r.cu",
+                      "bayesianinferencedl_tpu/experimental/pcn_fused.py:67",
+                      k2["K2r"]["launches"], k2["K2r"]["max_abs_err"], k2["K2r"]["ms"],
+                      k2["K2r"]["plain_ms"], k2["K2r"]["bound"]),
         _kernel_entry("pcn_fused", "pcn_fused.cu", "bayesianinferencedl_tpu/experimental/pcn_fused.py:67",
-                      k2["launches"], k2["max_abs_err"], k2["ms"], k2["plain_ms"], k2["bound"]),
+                      k2["K2"]["launches"], k2["K2"]["max_abs_err"], k2["K2"]["ms"],
+                      k2["K2"]["plain_ms"], k2["K2"]["bound"]),
+        # K3r: res8, B = 1,024; its launches are the res4 slice's (the lanes
+        # route) and the res8 DA slice's
         _kernel_entry("pcg_stencil_tile_mma", "pcg_stencil_tile_mma.cu",
-                      "bayesianinferencedl_tpu/ops/pcg_stencil.py:385", k3_launches,
-                      k3["max_abs_err"], t3["ms"], t3["plain_ms"], t3["bound"]),
+                      "bayesianinferencedl_tpu/ops/pcg_stencil.py:385",
+                      slice_launches["K3r"] + k3_launches,
+                      max(k3["max_abs_err"], lanes["max_abs"]["K3r"]), t3["ms"], t3["plain_ms"],
+                      t3["bound"]),
         # K3, off the main path since K3r: timed on the same inputs, for the record
         _kernel_entry("pcg_stencil_tile", "pcg_stencil_tile.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385", 0,
