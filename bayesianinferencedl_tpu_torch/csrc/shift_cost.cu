@@ -2,7 +2,10 @@
 //
 // Replaces the TPU Pallas kernel `make_kernel` (scripts/diag_roll_cost.py, launched
 // by `run`), which measured what share of a sublane-tiled PCG iteration the 7
-// lane rolls cost. The same loop, one CUDA thread block per tile of S samples:
+// lane rolls cost. Since K5r (csrc/shift_cost_cluster.cu, each sample resident
+// in a thread-block cluster) this kernel runs only where `shift_route` finds no
+// cluster that holds a sample (res >= 16 on an H100). The same loop, one CUDA
+// thread block per tile of S samples:
 //
 //   matvec    acc = v3 p + sum_{s != 3} v_s q_s over the 7 planes, in ascending
 //             offset order, with q_s[i] = p[i + o_s] read through the generic flat

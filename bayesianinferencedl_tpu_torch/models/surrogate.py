@@ -17,6 +17,8 @@ from typing import NamedTuple, Sequence
 import torch
 from torch import nn
 
+from bayesianinferencedl_tpu_torch.utils.device import resolve_device
+
 _ACTIVATIONS = {
     "tanh": torch.tanh,
     "relu": torch.relu,
@@ -26,7 +28,8 @@ _ACTIVATIONS = {
 
 
 class MLP(nn.Module):
-    """Fully connected net with sizes (in, hidden..., out)."""
+    """Fully connected net with sizes (in, hidden..., out), built on the card
+    unless ``device`` names another ("cuda" without a card raises)."""
 
     def __init__(
         self,
@@ -35,9 +38,10 @@ class MLP(nn.Module):
         *,
         generator: torch.Generator | None = None,
         dtype=torch.float32,
-        device="cpu",
+        device="cuda",
     ):
         super().__init__()
+        device = resolve_device(device)
         self.sizes = tuple(int(s) for s in sizes)
         self.activation = activation
         self._act = _ACTIVATIONS[activation]

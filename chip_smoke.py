@@ -10,10 +10,11 @@ Phases, one or more lines each; any failure exits non-zero with no result:
   1. build    compile kernels K1 (csrc/pcg_stencil.cu), K2r (csrc/pcn_fused_r.cu),
               K2 (csrc/pcn_fused.cu), K3 (csrc/pcg_stencil_tile.cu), K4
               (csrc/pcg_stencil_grid.cu), K4r (csrc/pcg_stencil_grid_resident.cu),
-              K5 (csrc/shift_cost.cu), K3r (csrc/pcg_stencil_tile_mma.cu) and K4c
-              (csrc/pcg_stencil_grid_cluster.cu) with nvcc, one process each,
+              K5 (csrc/shift_cost.cu), K3r (csrc/pcg_stencil_tile_mma.cu), K4c
+              (csrc/pcg_stencil_grid_cluster.cu) and K5r
+              (csrc/shift_cost_cluster.cu) with nvcc, one process each,
               started together; each one's registers and spills from ptxas,
-              K2r's for each template instance
+              K2r's and K5r's for each template instance
   2. lanes    the lanes layout's kernels at res4, B = 256 log-uniform
               conductivities, m = 128, tol 1e-7, maxiter 1500: first the one
               lanes_route names (K3r through pcg_stencil_tile, or K1 through
@@ -163,15 +164,30 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               68 B a true node, K4 80 B a padded cell). Then every cluster
               size at B = 8 and 64 (gap < 1e-3 from the plain run or the
               pick's), and whether grid_cluster's pick was the fastest
- 10. K5       the shift-cost probe at res8, B = 64, tile 8, 256 iterations: with
-              the shifts on A's planes, without them on |A|'s (a CG of an SPD
-              diagonal operator; on A's own planes its values are set by
-              rounding, see experimental/shift_cost.py), each against the
-              plain version within max(1e-4, 3x the plain float32 run's gap
-              from its float64 run), reason printed; then its entry point,
-              shift_cost.main(["8", "8"]), counted, with the per-tile-iteration
-              times of both variants, their gap and K3's time per iteration
-              at res8 from phase 5 beside them
+ 10. K5r, K5  the shift-cost probe at B = 64, tile 8, 256 iterations.
+              First the route: shift_route's answer at res8 (K5r) and res16
+              (K5) on this card, k5r_plan's pick beside the kernel's own count
+              of its shared memory and threads (they must agree). At res8 K5r
+              (through shift_cost, which must launch it and not K5) and K5
+              (through its launcher), at res16 K5 (through shift_cost, which
+              must launch it and not K5r): with the shifts on A's planes,
+              without them on |A|'s (a CG of an SPD diagonal operator; on A's
+              own planes its values are set by rounding, see
+              experimental/shift_cost.py), each against the plain version on
+              the same inputs within max(1e-4, 3x the plain float32 run's gap
+              from its float64 run), reason printed, non-finite output
+              failing. Then every cluster size that fits at res8
+              (k5r_configs), timed under the same gate, and whether the pick
+              was the fastest; the floor (the pick's launch with the per-node
+              work removed, its reductions met over mbarriers as K5r meets
+              them, then by cluster barriers), per iteration and wave and as a
+              share of an iteration. Then the entry point,
+              shift_cost.main(["8", "8"]) (K5r >= 2 launches, K5 0) and
+              main(["16", "8"]) (K5 >= 2, K5r 0), each counted from 0 (the
+              kernel summary's launches are the two runs' sums), with the
+              per-tile-iteration times of both variants, their gap and K3r's
+              time per batch iteration at res8 from phase 5 beside them; K5
+              timed at res8 on the same shape
 
 The last three lines are the kernel summary (JSON: time, launches, bound,
 plain time of each kernel), the nvidia-smi line, and
@@ -226,7 +242,7 @@ def phase_device():
 
 KERNEL_SOURCES = ("pcg_stencil", "pcn_fused", "pcn_fused_r", "pcg_stencil_tile", "pcg_stencil_grid",
                   "pcg_stencil_grid_resident", "shift_cost", "pcg_stencil_tile_mma",
-                  "pcg_stencil_grid_cluster")
+                  "pcg_stencil_grid_cluster", "shift_cost_cluster")
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit)
 PEAK_F32 = 67e12  # FLOP/s on the CUDA cores
@@ -250,6 +266,11 @@ def phase_build():
             for fn, regs, spill in _ptxas_functions(log["ptxas"]):
                 inst = re.search(r"kernelILi(\d+)E", fn)
                 say("build", f"K2r <{inst[1] if inst else fn}>: {regs}; {spill}")
+            continue
+        if name == "shift_cost_cluster":  # one line per instance <shifts, floor, nodes a thread>
+            for fn, regs, spill in _ptxas_functions(log["ptxas"]):
+                inst = re.search(r"kernelILb(\d)ELi(\d)ELi(\d)E", fn)
+                say("build", f"K5r <{', '.join(inst.groups()) if inst else fn}>: {regs}; {spill}")
             continue
         for line in log["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
@@ -1768,86 +1789,198 @@ def _numbers(rec):
 K5_RES, K5_B, K5_TILE = 8, 64, 8
 K5_ITERS = 256  # the reference probe's iteration count
 K5_GATE_FLOOR = 1e-4
+K5_OTHER_RES = 16  # a mesh whose sample outgrows a cluster of 16 on an H100: K5's side of shift_route
 
 
 def _k5_bound(B: int, n: int, n_iters: int) -> tuple[float, str]:
-    """K5's bound for one run: per iteration and node the 7-plane matvec
-    (13), p.Ap, the x and r updates, z, r.z and the p update (11): 24
+    """K5's and K5r's bound for one run: per iteration and node the 7-plane
+    matvec (13), p.Ap, the x and r updates, z, r.z and the p update (11): 24
     float32 operations, and ~4 for the setup. Bytes: the (B, n, 7) values
     and F read once, x written once."""
     return _bound(4 * (7 * B * n + n + B * n), float(B) * n * (24 * n_iters + 4))
 
 
-def phase_k5(k3):
-    """K5 (csrc/shift_cost.cu) against its plain version at res8, then its
-    entry point."""
-    import torch
-
+def _k5_entry(res: int) -> tuple[dict, int, int]:
+    """shift_cost.main([res, tile]) with both kernels' counts set to 0 just
+    before it and read just after: (its rows by use_rolls, K5r's launches,
+    K5's launches)."""
     from bayesianinferencedl_tpu_torch.experimental import shift_cost as K5
-    from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
-    from bayesianinferencedl_tpu_torch.rom.snapshots import sample_log_uniform
 
-    fin = FiveParamFin.create(resolution=K5_RES, biot=0.1, device="cuda", cg_tol=TOL, cg_maxiter=2000)
-    op = fin.op
-    vals = op.vals(sample_log_uniform(torch.Generator(device="cuda").manual_seed(1), K5_B))
-    max_abs = 0.0
-    why = ("a fixed-iteration f32 CG with no stop test keeps every rounding difference of its sums, so "
-           "two float32 runs differ by about what each differs from the float64 one")
-    # without the shifts the operator is the diagonal of A's row sums, which
-    # cancel to rounding level off the convective boundary, so on A's own
-    # planes the values are set by rounding from the second iteration on
-    # (experimental/shift_cost.py); on |A|'s planes the row sums are
-    # positive, the loop is a CG of an SPD diagonal operator, and the
-    # comparison is as tight as with the shifts
-    variants = ((True, vals, "A's planes"), (False, vals.abs(), "|A|'s planes"))
-    for use_rolls, v, what in variants:
-        n_iters = K5_ITERS
-        kw = dict(offsets=op.offsets, n_iters=n_iters, use_rolls=use_rolls)
-        xk = K5.shift_cost(v, op.F_root, tile=K5_TILE, **kw)
-        torch.cuda.synchronize()
-        xp = K5.shift_cost_reference(v, op.F_root, **kw)
-        x64 = K5.shift_cost_reference(v.double(), op.F_root.double(), **kw)
-        rel = lambda a, b: (torch.linalg.norm(a.double() - b.double(), dim=1)
-                            / torch.linalg.norm(b.double(), dim=1)).max().item()
-        r_kp, r_p64, r_k64 = rel(xk, xp), rel(xp, x64), rel(xk, x64)
-        gate = max(K5_GATE_FLOOR, 3 * r_p64)
-        max_abs = max(max_abs, (xk - xp).abs().max().item())
-        say("K5", f"{'shifts' if use_rolls else 'no shifts'} on {what}, {n_iters} iterations, B={K5_B}, "
-            f"tile {K5_TILE}: kernel vs plain max per-sample rel diff {r_kp:.3e}; plain float32 vs its "
-            f"float64 run {r_p64:.3e}, kernel vs float64 {r_k64:.3e}; gate {gate:.3e} = "
-            f"max({K5_GATE_FLOOR:g}, 3x the plain float32 run's gap from its float64 run): {why}")
-        if not torch.isfinite(xk).all():
-            fail("K5: non-finite output")
-        if r_kp > gate:
-            fail(f"K5: kernel vs plain {r_kp:.3e} > {gate:.3e}")
-
-    # the main path: the probe's entry point
-    K5.launches = 0
+    K5.launches = K5.r_launches = 0
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        K5.main([str(K5_RES), str(K5_TILE)])
-    launches = K5.launches
+        K5.main([str(res), str(K5_TILE)])
+    counts = K5.r_launches, K5.launches
     rows = {r["use_rolls"]: r for r in (json.loads(line) for line in buf.getvalue().splitlines()
                                         if line.startswith("{"))}
     for r in rows.values():
         say("K5", json.dumps(r))
-    if launches < 2 or set(rows) != {True, False}:
-        fail(f"K5's entry point made {launches} launches and printed {len(rows)} variants")
+    if set(rows) != {True, False}:
+        fail(f"shift_cost.main at res{res} printed {len(rows)} variants")
+    return rows, *counts
+
+
+def phase_k5(k3):
+    """Phase 10 (the module docstring): K5r and K5 against their plain
+    version at res8, K5 at res16; K5r's plan, cluster sweep and floor; then
+    the entry point on both sides of the route."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.experimental import shift_cost as K5
+    from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+    from bayesianinferencedl_tpu_torch.ops._build import load_library
+    from bayesianinferencedl_tpu_torch.rom.snapshots import sample_log_uniform
+
+    fin = FiveParamFin.create(resolution=K5_RES, biot=0.1, device="cuda", cg_tol=TOL, cg_maxiter=2000)
+    op = fin.op
+    n, offsets, H = op.n, op.offsets, K5.halo(op.offsets)
+    dev = op.device
+    vals = op.vals(sample_log_uniform(torch.Generator(device="cuda").manual_seed(1), K5_B))
+
+    # the route and the plan, beside the kernel's own count of its shared memory
+    smem, cap = K5.shift_limits(dev, n, H)
+    route, plan = K5.shift_route(n, offsets, smem, cap), K5.k5r_plan(n, offsets, K5_B, smem, cap)
+    if route != "K5r" or plan is None:
+        fail(f"K5r: shift_route names {route} at res{K5_RES} on this card ({smem} B a block, capacity {cap})")
+    lib = load_library("shift_cost_cluster")
+    lib.shift_cost_cluster_smem_bytes.restype = ctypes.c_longlong
+    lib.shift_cost_cluster_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.shift_cost_cluster_threads.restype = ctypes.c_int
+    lib.shift_cost_cluster_threads.argtypes = [ctypes.c_int] * 2
+    own = lib.shift_cost_cluster_smem_bytes(n, plan["cluster"], H)
+    own_threads = lib.shift_cost_cluster_threads(n, plan["cluster"])
+    say("K5r", f"res{K5_RES} (n = {n}, offsets {offsets}, halo {H}), B={K5_B}: shift_route = {route}; "
+        f"the card holds {cap} clusters of 1-16 blocks, {smem} B a block; k5r_plan: {plan}; "
+        f"the kernel's own count {own} B, {own_threads} threads a block")
+    if (own, own_threads) != (plan["smem"], plan["threads"]):
+        fail(f"K5r: k5r_plan counts {plan['smem']} B and {plan['threads']} threads a block, the kernel "
+             f"{own} B and {own_threads}")
+    other = FiveParamFin.create(resolution=K5_OTHER_RES, biot=0.1, device="cuda", cg_tol=TOL,
+                                cg_maxiter=2000).op
+    smem16, cap16 = K5.shift_limits(dev, other.n, K5.halo(other.offsets))
+    other_route = K5.shift_route(other.n, other.offsets, smem16, cap16)
+    say("K5r", f"res{K5_OTHER_RES} (n = {other.n}): shift_route = {other_route} (capacity {cap16})")
+    if other_route != "K5":
+        fail(f"K5r: shift_route names {other_route} at res{K5_OTHER_RES}")
+
+    # at res8 K5r (the wrapper's route) then K5, at res16 K5 (the route's
+    # other side), each against the plain version on the same inputs
+    why = ("a fixed-iteration f32 CG with no stop test keeps every rounding difference of its sums, so "
+           "two float32 runs differ by about what each differs from the float64 one")
+    max_abs = {"K5r": 0.0, "K5": 0.0}
+    plain = {}
+    rel = lambda a, b: (torch.linalg.norm(a.double() - b.double(), dim=1)
+                        / torch.linalg.norm(b.double(), dim=1)).max().item()
+
+    def check(name, xk, res, use_rolls, what, kernel="K5r"):
+        xp, x64, gate = plain[res, use_rolls]
+        r_kp, r_k64 = rel(xk, xp), rel(xk, x64)
+        if not torch.isfinite(xk).all():
+            fail(f"{name} at res{res}: non-finite output")
+        max_abs[kernel] = max(max_abs[kernel], (xk - xp).abs().max().item())
+        say("K5", f"{name}: res{res}, {'shifts' if use_rolls else 'no shifts'} on {what}, {K5_ITERS} "
+            f"iterations, B={K5_B}: kernel vs plain max per-sample rel diff {r_kp:.3e}; kernel vs float64 "
+            f"{r_k64:.3e}; gate {gate:.3e}")
+        if r_kp > gate:
+            fail(f"{name} at res{res}: kernel vs plain {r_kp:.3e} > {gate:.3e}")
+
+    def hold(op, v_shift, res, kernel):
+        """shift_cost at res on both variants, which must launch ``kernel``
+        alone, against the plain version; at res8 K5 beside K5r."""
+        # without the shifts the operator is the diagonal of A's row sums,
+        # which cancel to rounding level off the convective boundary, so on
+        # A's own planes the values are set by rounding from the second
+        # iteration on (experimental/shift_cost.py); on |A|'s planes the row
+        # sums are positive, the loop is a CG of an SPD diagonal operator,
+        # and the comparison is as tight as with the shifts
+        for use_rolls, v, what in ((True, v_shift, "A's planes"), (False, v_shift.abs(), "|A|'s planes")):
+            kw = dict(offsets=op.offsets, n_iters=K5_ITERS, use_rolls=use_rolls)
+            xp = K5.shift_cost_reference(v, op.F_root, **kw)
+            x64 = K5.shift_cost_reference(v.double(), op.F_root.double(), **kw)
+            r_p64 = rel(xp, x64)
+            plain[res, use_rolls] = (xp, x64, max(K5_GATE_FLOOR, 3 * r_p64))
+            say("K5", f"res{res}, {'shifts' if use_rolls else 'no shifts'} on {what}: plain float32 vs its "
+                f"float64 run {r_p64:.3e}; gate max({K5_GATE_FLOOR:g}, 3x that) = "
+                f"{plain[res, use_rolls][2]:.3e}: {why}")
+            del x64
+            before = K5.r_launches, K5.launches
+            xk = K5.shift_cost(v, op.F_root, tile=K5_TILE, **kw)
+            torch.cuda.synchronize()
+            if (K5.r_launches - before[0], K5.launches - before[1]) != ((1, 0) if kernel == "K5r" else (0, 1)):
+                fail(f"{kernel}: shift_cost on CUDA tensors at res{res} did not launch {kernel} alone")
+            check(kernel, xk, res, use_rolls, what, kernel=kernel)
+            if kernel == "K5r":
+                xk = K5._launch(v.contiguous(), op.F_root, tile=K5_TILE, **kw)
+                torch.cuda.synchronize()
+                check("K5", xk, res, use_rolls, what, kernel="K5")
+
+    hold(op, vals, K5_RES, "K5r")
+    hold(other, other.vals(sample_log_uniform(torch.Generator(device="cuda").manual_seed(1), K5_B)),
+         K5_OTHER_RES, "K5")
+    plain = {k: v for k, v in plain.items() if k[0] == K5_RES}
+    torch.cuda.empty_cache()
+
+    # every cluster size that fits, with shifts, under the same gate; the
+    # plan's pick beside the fastest
+    kw = dict(offsets=offsets, n_iters=K5_ITERS, use_rolls=True)
+    sweep = {}
+    for c in K5.k5r_configs(n, offsets, smem, cap):
+        clusters = min(cap[c], K5_B)
+        run = lambda: K5._launch_r(vals, op.F_root, cluster=c, clusters=clusters, **kw)
+        check(f"K5r c={c}", run(), K5_RES, True, "A's planes")
+        sweep[c] = (_time_ms(run, 5), -(-K5_B // clusters))  # (ms, waves)
+    pick = plan["cluster"]
+    fastest = min(sweep, key=lambda k: sweep[k][0])
+    say("K5r", "sweep at res8, B=64, with shifts: " + ", ".join(
+        f"c={c} {ms:.4f} ms ({w} waves, {ms * 1e3 / (K5_ITERS * w):.4f} us per iteration per wave)"
+        for c, (ms, w) in sweep.items())
+        + f"; k5r_plan picks c={pick}, the fastest is c={fastest}: the pick is the fastest: {pick == fastest} "
+        f"(the pick at {sweep[pick][0] / sweep[fastest][0]:.3f}x the fastest)")
+
+    # the floor: the pick's launch with the per-node work removed, its two
+    # reductions met over mbarriers as K5r meets them, then each closed by a
+    # cluster barrier instead
+    k_ms, waves = sweep[pick]
+    it_us = k_ms * 1e3 / (K5_ITERS * waves)
+    floors = {}
+    for how in ("mbarrier", "cluster_barrier"):
+        floors[how] = _time_ms(lambda: K5._launch_r(vals, op.F_root, cluster=pick, clusters=plan["clusters"],
+                                                    floor=how, **kw), 5)
+        say("K5r", f"floor ({how}: the reductions, no per-node work), c={pick}: "
+            f"{floors[how]:.4f} ms, {floors[how] * 1e3 / (K5_ITERS * waves):.4f} us per iteration per wave "
+            f"against the kernel's {it_us:.4f}: {100 * floors[how] / k_ms:.1f}% of an iteration")
+
+    # the main path: the probe's entry point, K5r's side of the route, then K5's
+    rows, r_launches, k5_launches = _k5_entry(K5_RES)
+    say("K5", f"entry point at res{K5_RES}: launches K5r {r_launches}, K5 {k5_launches}")
+    if r_launches < 2 or k5_launches != 0:
+        fail(f"K5r: the entry point at res{K5_RES} made {r_launches} K5r and {k5_launches} K5 launches")
+    rows16, r16, k16 = _k5_entry(K5_OTHER_RES)
+    say("K5", f"entry point at res{K5_OTHER_RES}: launches K5r {r16}, K5 {k16}")
+    if k16 < 2 or r16 != 0:
+        fail(f"K5: the entry point at res{K5_OTHER_RES} made {r16} K5r and {k16} K5 launches")
     us_s, us_n = rows[True]["per_tile_iter_us"], rows[False]["per_tile_iter_us"]
     t3 = k3["times"][B_CHECK]
-    k3_us = t3["k3_ms"] * 1e3 / t3["k3_iters_mean"]
-    say("K5", f"launches {launches}; per tile-iteration: shifts {us_s:.4f} us, no shifts {us_n:.4f} us, "
-        f"shift cost {us_s - us_n:.4f} us ({100 * (us_s - us_n) / us_s:.1f}%); K3 deflated at res8, "
-        f"B={B_CHECK} (phase 5): {k3_us:.3f} us per batch iteration, "
-        f"{k3_us / (B_CHECK // 8):.4f} us per tile-iteration in the reference's division")
+    k3r_us = t3["ms"] * 1e3 / t3["iters_mean"]
+    w_s, w_n = (rows[v]["total_s"] * 1e6 / (K5_ITERS * waves) for v in (True, False))
+    say("K5", f"shift cost on K5r at res{K5_RES}, B={K5_B}: per tile-iteration (the reference's division) "
+        f"shifts {us_s:.4f} us, no shifts {us_n:.4f} us, shift cost {us_s - us_n:.4f} us "
+        f"({100 * (us_s - us_n) / us_s:.1f}%); per iteration per wave {w_s:.4f} / {w_n:.4f} us; K3r deflated "
+        f"at res8, B={B_CHECK} (phase 5): {k3r_us:.3f} us per batch iteration, "
+        f"{k3r_us / (B_CHECK // 8):.4f} us per tile-iteration in the reference's division")
+
     vals2 = op.vals(sample_log_uniform(torch.Generator(device="cuda").manual_seed(2), K5_B))
-    p_ms, _ = _time_once_ms(lambda: K5.shift_cost_reference(vals2, op.F_root, offsets=op.offsets,
-                                                           n_iters=K5_ITERS, use_rolls=True))
+    p_ms, _ = _time_once_ms(lambda: K5.shift_cost_reference(vals2, op.F_root, **kw))
+    k5_ms, _ = _time_once_ms(lambda: K5._launch(vals2, op.F_root, tile=K5_TILE, **kw))
     ms = rows[True]["total_s"] * 1e3
-    bound = _k5_bound(K5_B, op.n, K5_ITERS)
-    say("K5", f"shifts, {K5_ITERS} iterations: kernel {ms:.3f} ms, plain torch {p_ms:.3f} ms; bound "
-        f"{bound[0]:.4f} ms ({bound[1]}), kernel at {100 * bound[0] / ms:.2f}% of it")
-    return dict(launches=launches, max_abs_err=max_abs, ms=ms, plain_ms=p_ms, bound=bound)
+    bound = _k5_bound(K5_B, n, K5_ITERS)
+    say("K5", f"shifts, {K5_ITERS} iterations: K5r {ms:.3f} ms, K5 {k5_ms:.3f} ms ({k5_ms / ms:.1f}x), plain "
+        f"torch {p_ms:.3f} ms; bound {bound[0]:.4f} ms ({bound[1]}), K5r at {100 * bound[0] / ms:.2f}% of "
+        f"it, K5 at {100 * bound[0] / k5_ms:.3f}%")
+    # launches: both entry-point runs (res8 on K5r, res16 on K5)
+    return dict(r=dict(launches=r_launches + r16, max_abs_err=max_abs["K5r"], ms=ms, plain_ms=p_ms, bound=bound),
+                k5=dict(launches=k5_launches + k16, max_abs_err=max_abs["K5"], ms=k5_ms, plain_ms=p_ms,
+                        bound=bound))
 
 
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
@@ -1911,8 +2044,13 @@ def main() -> None:
         _kernel_entry("pcg_stencil_grid_resident", "pcg_stencil_grid_resident.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:58", k4_launches["K4r"],
                       k4["max_abs_err"]["K4r"], t4r["ms"], t4r["plain_ms"], t4r["bound"]),
-        _kernel_entry("shift_cost", "shift_cost.cu", "scripts/diag_roll_cost.py:27", k5["launches"],
-                      k5["max_abs_err"], k5["ms"], k5["plain_ms"], k5["bound"]),
+        # K5r carries the probe's entry point at res8; K5, the route's other
+        # side, carries it at res16 (an H100) and is timed at res8 on K5r's shape
+        _kernel_entry("shift_cost_r", "shift_cost_cluster.cu", "scripts/diag_roll_cost.py:27",
+                      k5["r"]["launches"], k5["r"]["max_abs_err"], k5["r"]["ms"], k5["r"]["plain_ms"],
+                      k5["r"]["bound"]),
+        _kernel_entry("shift_cost", "shift_cost.cu", "scripts/diag_roll_cost.py:27", k5["k5"]["launches"],
+                      k5["k5"]["max_abs_err"], k5["k5"]["ms"], k5["k5"]["plain_ms"], k5["k5"]["bound"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,8 @@ import torch
 from bayesianinferencedl_tpu import cli as jcli
 from bayesianinferencedl_tpu_torch import cli as tcli
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 
 def _run(main, argv, capsys) -> dict:
     main(argv)

@@ -25,6 +25,8 @@ from bayesianinferencedl_tpu_torch.cli import main
 from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
 from bayesianinferencedl_tpu_torch.config import MeshConfig, PipelineConfig, ROMConfig
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 SMALL = ["--device", "cpu", "--resolution", "1", "--n-snapshots", "32", "--r", "8",
          "--n-train", "64", "--epochs", "5", "--chains", "8", "--steps", "24", "--burn", "12",
          "--noise", "1e-2"]

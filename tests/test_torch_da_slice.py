@@ -27,6 +27,8 @@ from bayesianinferencedl_tpu_torch.convert import pipeline_from_arrays
 from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
 from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 D = 5
 
 

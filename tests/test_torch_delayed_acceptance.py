@@ -29,6 +29,8 @@ from bayesianinferencedl_tpu_torch.infer.pcn import gaussian_misfit as t_misfit
 from bayesianinferencedl_tpu_torch.infer.pcn import run_pcn
 from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior as TPrior
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 D, M, SIGMA = 3, 4, 0.5
 BIAS = np.array([0.4, -0.3, 0.2, 0.1])
 

@@ -10,6 +10,8 @@ import torch
 from bayesianinferencedl_tpu.fem import dia as jdia
 from bayesianinferencedl_tpu_torch.fem import dia as tdia
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 FIELDS = ("offsets", "comp_vals", "ext_mass", "fixed", "F_root", "qoi", "qoi_root")
 
 

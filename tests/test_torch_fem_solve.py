@@ -22,6 +22,8 @@ from bayesianinferencedl_tpu_torch.fem import solve as S
 from bayesianinferencedl_tpu_torch.fem.dia import StencilOperator, assemble_fin_dia
 from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 BIOT = 0.1
 NOISE = 1e-2
 

@@ -26,6 +26,8 @@ from bayesianinferencedl_tpu_torch.fem.dia import StencilOperator, assemble_fin_
 from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
 from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 BIOT = 0.1
 B = 4
 MAXITER = 800

@@ -16,6 +16,8 @@ import torch
 from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
 from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 H100_SM = 132
 H100_SMEM = 232_448
 

@@ -27,6 +27,8 @@ from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K1
 from bayesianinferencedl_tpu_torch.ops.deflation import DeflationBasis
 from bayesianinferencedl_tpu_torch.ops.pcg_stencil import solve_fom_stencil
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 BIOT = 0.1
 TOL = 1e-6
 B = 6

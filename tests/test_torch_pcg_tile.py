@@ -30,6 +30,8 @@ from bayesianinferencedl_tpu_torch.fem.dia import StencilOperator, assemble_fin_
 from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
 from bayesianinferencedl_tpu_torch.ops.deflation import DeflationBasis
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 BIOT = 0.1
 TOL = 1e-6
 B = 6  # not a multiple of the 8-sample tile: the JAX wrapper pads, K3 masks its last tile

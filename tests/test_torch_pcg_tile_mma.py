@@ -17,6 +17,8 @@ from bayesianinferencedl_tpu_torch.geometry import build_fin_mesh
 from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
 from bayesianinferencedl_tpu_torch.ops.deflation import DeflationBasis
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 H100_CAPACITY = {1: 132, 2: 66, 4: 30, 8: 15}
 BIOT = 0.1
 

@@ -17,6 +17,8 @@ from bayesianinferencedl_tpu_torch.infer import diagnostics as td
 from bayesianinferencedl_tpu_torch.infer import pcn as tp
 from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 C, D = 32, 5
 M = np.random.default_rng(0).normal(size=(D, 4))
 DATA = np.array([0.3, -0.2, 0.5, 0.1])

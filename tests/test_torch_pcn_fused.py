@@ -27,6 +27,8 @@ from bayesianinferencedl_tpu_torch.infer import pcn as tp
 from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior
 from bayesianinferencedl_tpu_torch.rom.galerkin import ReducedOperator
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 C, D, NOISE = 32, 5, 1e-2
 ZERO_BITS_UNIFORM = 2.0**-25  # the interpreter's all-zero bits through the reference's map
 

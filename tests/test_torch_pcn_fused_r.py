@@ -15,6 +15,8 @@ from bayesianinferencedl_tpu_torch.experimental import pcn_fused as K2
 from bayesianinferencedl_tpu_torch.ops import _build
 from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 H100_SMS, H100_SMEM = 132, 232_448
 
 

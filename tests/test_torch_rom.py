@@ -18,6 +18,8 @@ from bayesianinferencedl_tpu_torch.fem.dia import assemble_fin_dia
 from bayesianinferencedl_tpu_torch.rom.galerkin import ReducedOperator
 from bayesianinferencedl_tpu_torch.rom.pod import pod_basis_host
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 BIOT = 0.1
 R = 8
 ITERS = 15

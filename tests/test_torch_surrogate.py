@@ -12,6 +12,8 @@ import torch
 from bayesianinferencedl_tpu.models import surrogate as js
 from bayesianinferencedl_tpu_torch.models import surrogate as ts
 
+torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
 SIZES = (5, 16, 16, 5)
 
 
@@ -119,3 +121,15 @@ def test_train_surrogate_keeps_best_validation_state(setup):
     err = torch.mean(((sur.predict(xv) - yv) / sur.norm.y_std) ** 2)
     anchor = torch.mean(((sur.norm.y_mean - yv) / sur.norm.y_std) ** 2)
     assert err <= anchor * (1 + 1e-5)
+
+
+def test_mlp_defaults_to_the_card():
+    """The card is the default; absent, MLP raises, no CPU fallback.
+    from_params keeps the params' device."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            ts.MLP(SIZES)
+    mlp = ts.MLP(SIZES, device="cpu")
+    assert all(p.device.type == "cpu" for p in mlp.params())
+    again = ts.MLP.from_params([(W.detach(), b.detach()) for W, b in zip(mlp.weights, mlp.biases)])
+    assert all(p.device.type == "cpu" for p in again.params())
