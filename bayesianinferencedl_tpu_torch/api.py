@@ -3,18 +3,21 @@
 ``build_pipeline`` runs the offline stack (mesh -> stencil FOM -> batched
 FOM snapshots through K1, K3r or K4r / K4c -> host-f64 POD and Galerkin projection ->
 reduced preconditioner P0 -> ROM-error dataset -> tanh MLP trained with
-Adam) on one device. ``run_inversion`` runs single-temperature pCN on the
-``rom`` or ``rom_nn`` likelihood, or delayed-acceptance pCN (``da_pcn``):
-subchains on the ``da_coarse`` surrogate corrected against the ``fom``
-likelihood (or ``rom``), one batched FOM solve per outer step. Nothing moves
-between devices on its own: asking for ``device="cuda"`` without a card
-raises.
+Adam) on one device. ``run_inversion`` runs single-temperature pCN (on the
+``fom`` likelihood in segments of 64 steps, one batched FOM solve a step),
+parallel-tempered pCN (``pt_pcn``) on ``rom`` or ``rom_nn``, and delayed
+acceptance, plain (``da_pcn``) or tempered (``pt_da_pcn``): subchains on the
+``da_coarse`` surrogate corrected against the ``fom`` likelihood (or
+``rom``), one batched FOM solve per outer step. With ``infer_noise`` every
+sampler runs on the noise-marginalised potential. Tempered runs also return
+the log evidence. Nothing moves between devices on its own: asking for
+``device="cuda"`` without a card raises.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: pcn on the ``fom`` likelihood, the other samplers, the
-MALA inner kernel of da_pcn, the ``high``/``fast`` online precision tiers,
-box priors and the unknown-noise potential. Chains start from prior draws;
-the other initialisations are ROADMAP.md queue 1, item 20.
+ROADMAP.md item: the other samplers, the MALA inner kernel of the DA
+samplers, the ``high``/``fast`` online precision tiers and box priors.
+Chains start from prior draws; the other initialisations are ROADMAP.md
+queue 1, item 20.
 """
 
 from __future__ import annotations
@@ -32,8 +35,16 @@ from bayesianinferencedl_tpu_torch.data.datasets import ErrorDataset, generate_e
 from bayesianinferencedl_tpu_torch.fem.solve import pcg_fom
 from bayesianinferencedl_tpu_torch.infer.delayed_acceptance import DAResult, run_da_pcn_segmented
 from bayesianinferencedl_tpu_torch.infer.diagnostics import ess_bulk, ess_tail, split_rhat
-from bayesianinferencedl_tpu_torch.infer.pcn import PCNResult, gaussian_misfit, run_pcn
+from bayesianinferencedl_tpu_torch.infer.evidence import log_evidence_from_pt
+from bayesianinferencedl_tpu_torch.infer.pcn import (
+    PCNResult,
+    gaussian_misfit,
+    marginal_misfit,
+    run_pcn,
+    run_pcn_segmented,
+)
 from bayesianinferencedl_tpu_torch.infer.priors import BoxPrior, GaussianPrior
+from bayesianinferencedl_tpu_torch.infer.tempering import PTDAResult, PTResult, run_pt_da_segmented, run_pt_pcn
 from bayesianinferencedl_tpu_torch.models.corrected import CorrectedForward
 from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
 from bayesianinferencedl_tpu_torch.models.surrogate import TrainedSurrogate, train_surrogate
@@ -43,15 +54,19 @@ from bayesianinferencedl_tpu_torch.rom.pod import pod_basis_host
 from bayesianinferencedl_tpu_torch.rom.snapshots import sample_log_uniform
 from bayesianinferencedl_tpu_torch.utils.device import resolve_device
 from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
-from bayesianinferencedl_tpu_torch.utils.ppc import ppc_chi2_pvalue
+from bayesianinferencedl_tpu_torch.utils.ppc import noise_posterior, ppc_chi2_pvalue, ppc_shape_pvalue
 
-# the untimed warm-up run that precedes the timed one: pcn runs
-# 2 * _WARMUP_STEPS steps (_WARMUP_STEPS burn-in); da_pcn runs _WARMUP_DA
-# (outer steps, burn-in), each a subchain and a batched FOM solve, enough to
-# build the kernels and allocate
+# the untimed warm-up run that precedes the timed one: pcn and pt_pcn run
+# 2 * _WARMUP_STEPS steps (_WARMUP_STEPS burn-in); the samplers with a
+# batched FOM solve in every step (pcn on fom, da_pcn, pt_da_pcn) run
+# _WARMUP_DA (steps, burn-in), enough to build the kernels and allocate
 _WARMUP_STEPS = 20
 _WARMUP_DA = (2, 1)
 _AUDIT_MAX = 1024  # kept states re-solved by the FOM iteration audit
+_PORTED = ("pcn", "da_pcn", "pt_pcn", "pt_da_pcn")
+# the unported samplers and their ROADMAP.md queue 1 items
+_UNPORTED = {"laplace_mh": 17, "gpcn": 17, "mala": 18, "mala_lap": 18, "hmc": 18, "hmc_lap": 18,
+             "pt_mala": 18, "mlda_pcn": 19}
 
 
 def _sync(dev: torch.device) -> None:
@@ -267,7 +282,7 @@ def build_pipeline(
 
 @dataclass
 class InversionResult:
-    result: Union[PCNResult, DAResult]
+    result: Union[PCNResult, DAResult, PTResult, PTDAResult]
     theta_true: torch.Tensor
     data: torch.Tensor
     ess: torch.Tensor  # bulk ESS per dimension (rank-normalised, split)
@@ -282,6 +297,15 @@ class InversionResult:
     fom_iter_cap: Optional[int] = None
     fom_iter_max: Optional[int] = None
     fom_hit_cap_frac: Optional[float] = None
+    # tempered samplers only: the log evidence log E_prior[exp(-Phi)] by
+    # stepping-stone over the ladder (infer/evidence.py); differences across
+    # likelihoods on the same data are log Bayes factors
+    log_evidence: Optional[float] = None
+    log_evidence_std: Optional[float] = None
+    # infer_noise runs only: the marginal posterior of the noise sigma
+    # (utils/ppc.py noise_posterior): {"sigma_mean", "sigma_sd", "sigma_q05",
+    # "sigma_q50", "sigma_q95", "n_draws", "n_obs"}
+    noise_sigma_post: Optional[dict] = None
 
 
 def _child(gen: torch.Generator) -> torch.Generator:
@@ -300,40 +324,46 @@ def run_inversion(
     generator: Optional[torch.Generator] = None,
     metrics: Optional[MetricsLogger] = None,
 ) -> InversionResult:
-    """Bayesian inversion with batched chains on pipe's device: ``pcn`` on
-    the rom/rom_nn likelihood, or ``da_pcn`` (delayed acceptance: subchains
-    of ``cfg.subchain`` pCN steps on the ``cfg.da_coarse`` surrogate,
-    Metropolis-corrected against ``likelihood``, in segments of 64 outer
-    steps for fom and 512 otherwise; n_steps and n_burn count outer steps).
+    """Bayesian inversion with batched chains on pipe's device:
+    - ``pcn``: on rom/rom_nn, or on fom in segments of 64 steps;
+    - ``pt_pcn``: ``cfg.n_chains`` cold chains x ``cfg.n_temps`` levels from
+      ``cfg.lambda_min``, the ladder adapted in burn-in if
+      ``cfg.adapt_ladder``, on rom/rom_nn;
+    - ``da_pcn`` / ``pt_da_pcn``: subchains of ``cfg.subchain`` pCN steps on
+      the ``cfg.da_coarse`` surrogate, Metropolis-corrected against
+      ``likelihood``, in segments of 64 (da_pcn) or 32 (pt_da_pcn) outer
+      steps for fom and 512 otherwise; n_steps and n_burn count outer steps.
+    Every misfit is Gaussian at ``cfg.noise_sigma``, or with
+    ``cfg.infer_noise`` the noise-marginalised potential under the prior
+    sigma^2 ~ InvGamma(2, noise_sigma^2).
 
     data=None: theta_true is drawn from the prior (or given) and the noisy
     observations are simulated with one FOM solve. data=(n_obs,): invert
     those observations as they are. An untimed warm-up run precedes the
     timed run, which uses a fresh generator and is timed with CUDA events on
     a card. fom-likelihood runs re-solve up to 1,024 kept states and report
-    the solver's iteration audit."""
+    the solver's iteration audit; tempered runs report the log evidence,
+    infer_noise runs the noise posterior and the scale-free PPC."""
     log = metrics or MetricsLogger()
     cfg = pipe.config.mcmc
     like = likelihood or cfg.likelihood
     smp = sampler or cfg.sampler
-    if smp not in ("pcn", "da_pcn"):
+    if smp not in _PORTED:
         raise NotImplementedError(
-            f"sampler {smp!r} is not ported yet (pt_pcn: ROADMAP.md queue 1, item 11; "
-            "the others: items 17-21)"
+            f"sampler {smp!r} is not ported yet: ROADMAP.md queue 1, item {_UNPORTED.get(smp, '17-21')}"
         )
-    if smp == "pcn" and like == "fom":
+    if smp == "pt_pcn" and like == "fom":
         raise NotImplementedError(
-            "pcn on the fom likelihood runs in segments (run_pcn_segmented), which is not "
-            "ported yet: ROADMAP.md queue 1, item 10; sampler='da_pcn' gives the fom posterior"
+            "pt_pcn with the fom likelihood puts a full-order solve in every step; use "
+            "sampler='pt_da_pcn' (tempered delayed acceptance: the exact FOM posterior, "
+            "segmented, one batched FOM solve per outer step) instead"
         )
-    if smp == "da_pcn" and like == cfg.da_coarse:
+    if smp in ("da_pcn", "pt_da_pcn") and like == cfg.da_coarse:
         raise ValueError(
-            f"sampler='da_pcn' with likelihood == da_coarse ({like!r}) is degenerate: the outer "
+            f"sampler={smp!r} with likelihood == da_coarse ({like!r}) is degenerate: the outer "
             "correction always accepts and each kept sample costs subchain + 1 evaluations of "
             "the same model. Set likelihood='fom' (the exact target) or use sampler='pcn'."
         )
-    if cfg.infer_noise:
-        raise NotImplementedError("infer_noise (marginal_misfit) is not ported yet: ROADMAP.md queue 1, item 10")
     fwd_b = pipe.batched_forward_fn(like)
     dev = pipe.device
     dtype = pipe.prior.mean.dtype
@@ -353,22 +383,49 @@ def run_inversion(
         y_true = pipe.fin.forward(torch.exp(pipe.prior.to_theta(theta_true)))
         data = y_true + cfg.noise_sigma * torch.randn(y_true.shape, generator=gen, dtype=dtype, device=dev)
 
-    misfit_b = gaussian_misfit(fwd_b, data, cfg.noise_sigma)
+    # every misfit below: conditioned on noise_sigma, or with sigma integrated
+    # out under the proper prior InvGamma(2, noise_sigma^2), whose mean is
+    # noise_sigma^2 with infinite variance: the noise becomes a scale guess
+    b0 = float(cfg.noise_sigma) ** 2
+    if cfg.infer_noise:
+        mk_misfit = lambda f: marginal_misfit(f, data, a0=2.0, b0=b0)
+    else:
+        mk_misfit = lambda f: gaussian_misfit(f, data, cfg.noise_sigma)
+    misfit_b = mk_misfit(fwd_b)
     theta0 = pipe.prior.sample(gen, (cfg.n_chains,))
-    if smp == "pcn":
-        warm = (2 * _WARMUP_STEPS, _WARMUP_STEPS)
+    warm = (2 * _WARMUP_STEPS, _WARMUP_STEPS)
+    if smp == "pcn" and like == "fom":
+        warm = _WARMUP_DA
+        run = lambda g, n_steps, n_burn: run_pcn_segmented(
+            misfit_b, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn, beta=cfg.beta,
+            segment=64,
+        )
+    elif smp == "pcn":
         run = lambda g, n_steps, n_burn: run_pcn(
             misfit_b, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
             beta=cfg.beta, thin=cfg.thin,
         )
+    elif smp == "pt_pcn":
+        run = lambda g, n_steps, n_burn: run_pt_pcn(
+            misfit_b, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn, beta=cfg.beta,
+            n_temps=cfg.n_temps, lambda_min=cfg.lambda_min, adapt_ladder=cfg.adapt_ladder,
+        )
     else:
         warm = _WARMUP_DA
-        misfit_c = gaussian_misfit(pipe.batched_forward_fn(cfg.da_coarse), data, cfg.noise_sigma)
-        segment = 64 if like == "fom" else 512
-        run = lambda g, n_steps, n_burn: run_da_pcn_segmented(
-            misfit_b, misfit_c, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
-            beta=cfg.beta, subchain=cfg.subchain, segment=segment, inner=cfg.da_inner,
-        )
+        misfit_c = mk_misfit(pipe.batched_forward_fn(cfg.da_coarse))
+        fom = like == "fom"
+        if smp == "da_pcn":
+            run = lambda g, n_steps, n_burn: run_da_pcn_segmented(
+                misfit_b, misfit_c, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
+                beta=cfg.beta, subchain=cfg.subchain, segment=64 if fom else 512, inner=cfg.da_inner,
+            )
+        else:
+            run = lambda g, n_steps, n_burn: run_pt_da_segmented(
+                misfit_b, misfit_c, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
+                beta=cfg.beta, subchain=cfg.subchain, n_temps=cfg.n_temps,
+                lambda_min=cfg.lambda_min, segment=32 if fom else 512, inner=cfg.da_inner,
+                adapt_ladder=cfg.adapt_ladder,
+            )
 
     run(_child(gen), min(cfg.n_steps, warm[0]), min(cfg.n_burn, warm[1]))
     _sync(dev)
@@ -405,10 +462,26 @@ def run_inversion(
                 stacklevel=2,
             )
 
-    ppc = None
-    if T > 0:
+    ppc = sigma_post = None
+    if T > 0 and cfg.infer_noise:
+        # an unknown noise absorbs any misfit magnitude, so the chi-square
+        # check is powerless: check the residuals' shape, and recover the
+        # noise marginal from its conjugate conditional
+        ppc = ppc_shape_pvalue(fwd_b, res.samples, data, _child(gen))
+        _, sigma_post = noise_posterior(fwd_b, res.samples, data, _child(gen), a0=2.0, b0=b0)
+        log.log("noise_post", **sigma_post)
+    elif T > 0:
         ppc = ppc_chi2_pvalue(fwd_b, res.samples, data, cfg.noise_sigma, _child(gen))
+    if ppc is not None:
         log.log("ppc", **ppc)
+
+    # tempered runs: one batch of prior draws turns the stepping-stone
+    # accumulators into the log evidence
+    log_z = log_z_std = None
+    if smp in ("pt_pcn", "pt_da_pcn"):
+        est = log_evidence_from_pt(res, misfit_b, pipe.prior, _child(gen))
+        log_z, log_z_std = est.log_z, est.log_z_std
+        log.log("log_evidence", log_z=log_z, log_z_std=log_z_std, method="ss")
 
     n_kept = T * C
     out = InversionResult(
@@ -416,11 +489,14 @@ def run_inversion(
         wall_seconds=wall, samples_per_sec=n_kept / wall,
         ess_per_sec=float(torch.min(ess)) / wall, ess_tail=ess_t, ppc=ppc,
         fom_iter_cap=cap, fom_iter_max=it_max, fom_hit_cap_frac=hit_frac,
+        log_evidence=log_z, log_evidence_std=log_z_std, noise_sigma_post=sigma_post,
     )
     extra = {}
-    if smp == "da_pcn":
+    if smp in ("da_pcn", "pt_da_pcn"):
         extra = dict(inner_accept_rate=float(torch.mean(res.inner_accept_rate)),
                      n_fine_evals=res.n_fine_evals, subchain=cfg.subchain)
+    if smp in ("pt_pcn", "pt_da_pcn"):
+        extra["swap_rate"] = res.swap_rate.cpu().tolist()
     log.log(
         "inversion", likelihood=like, sampler=smp, wall_seconds=wall,
         samples_per_sec=out.samples_per_sec, ess_min=float(torch.min(ess)),

@@ -23,14 +23,18 @@ keys of the reference CLI's ``invert``.
 runs delayed acceptance on the exact FOM likelihood (``--subchain`` rom_nn
 pCN steps per batched FOM correction; steps count outer steps) and adds the
 FOM iteration audit (``fom_iter_audit``, as the reference nests it) and the
-outer and inner accept rates to the line. ``invert --data obs.npz`` inverts
+outer and inner accept rates to the line; ``--sampler pcn --likelihood fom``
+runs pCN on it in segments. ``--sampler pt_pcn`` (rom, rom_nn) and
+``--sampler pt_da_pcn`` run ``--n-temps`` levels from ``--lambda-min``
+(``--adapt-ladder`` tunes the ladder in burn-in) and add ``log_evidence``
+and ``log_evidence_std``; ``--infer-noise`` integrates the noise out and
+adds ``noise_sigma_post``. ``invert --data obs.npz`` inverts
 the observations ``fom --save-obs`` wrote (``theta_true`` is then null);
 ``--dtype float64`` builds the pipeline in float64, with FOM solves at tol
 1e-10 under a cap of 4,000 (the plain PCG).
-Flags the port does not support yet (other samplers, pcn on the fom
-likelihood, box priors, the bf16 precision tiers, the MALA inner kernel,
-the greedy ROM basis) raise NotImplementedError naming their ROADMAP.md
-item.
+Flags the port does not support yet (other samplers, box priors, the bf16
+precision tiers, the MALA inner kernel, the greedy ROM basis) raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -172,8 +176,9 @@ def cmd_invert(args) -> None:
         mcmc=MCMCConfig(
             n_chains=args.chains, n_steps=args.steps, n_burn=args.burn, beta=args.beta,
             noise_sigma=args.noise, likelihood=args.likelihood, sampler=args.sampler,
-            seed=args.seed, subchain=args.subchain, da_coarse=args.da_coarse,
-            da_inner=args.da_inner,
+            seed=args.seed, n_temps=args.n_temps, lambda_min=args.lambda_min,
+            adapt_ladder=args.adapt_ladder, subchain=args.subchain, da_coarse=args.da_coarse,
+            da_inner=args.da_inner, infer_noise=args.infer_noise,
         ),
         prior=PriorConfig(mean=args.prior_mean, sigma=args.prior_sigma, dim=5, kind=args.prior),
     )
@@ -200,12 +205,19 @@ def cmd_invert(args) -> None:
     }
     if inv.ppc is not None:
         out["ppc_p_value"] = inv.ppc["p_value"]
-    if args.sampler == "da_pcn":
+    if args.sampler in ("da_pcn", "pt_da_pcn"):
         out["outer_accept"] = out["accept_rate"]
         out["inner_accept"] = float(torch.mean(inv.result.inner_accept_rate))
     if inv.fom_iter_cap is not None:
         out["fom_iter_audit"] = {"cap": inv.fom_iter_cap, "max_iters": inv.fom_iter_max,
                                  "hit_cap_frac": inv.fom_hit_cap_frac}
+    if inv.log_evidence is not None:
+        # stepping-stone over the ladder; differences across --likelihood runs
+        # on the same data and seed are log Bayes factors
+        out["log_evidence"] = inv.log_evidence
+        out["log_evidence_std"] = inv.log_evidence_std
+    if inv.noise_sigma_post is not None:
+        out["noise_sigma_post"] = inv.noise_sigma_post
     print(json.dumps(out))
 
 
@@ -265,6 +277,10 @@ def main(argv=None) -> None:
                  "mlda_pcn", "mala", "mala_lap", "hmc", "hmc_lap"],
         default="pcn",
     )
+    p.add_argument("--n-temps", type=int, default=4, help="pt_pcn ladder size")
+    p.add_argument("--lambda-min", type=float, default=0.05, help="pt_pcn hottest level")
+    p.add_argument("--adapt-ladder", action="store_true",
+                   help="tune the PT ladder during burn-in (swap-rate targeting)")
     p.add_argument("--subchain", type=int, default=64, help="da_pcn inner steps per fine correction")
     p.add_argument("--da-coarse", choices=["rom", "rom_nn"], default="rom_nn")
     p.add_argument("--da-inner", choices=["pcn", "mala"], default="pcn",
@@ -272,6 +288,10 @@ def main(argv=None) -> None:
     p.add_argument("--data", type=str, default=None,
                    help="observation npz (key 'data', as `fom --save-obs` writes) to invert "
                         "instead of synthetic data")
+    p.add_argument("--infer-noise", action="store_true",
+                   help="treat the observation noise as unknown: integrate sigma out under a "
+                        "conjugate InvGamma(2, noise^2) prior; --noise becomes the prior's scale "
+                        "and the sigma posterior is reported")
     p.set_defaults(fn=cmd_invert)
 
     args = ap.parse_args(argv)

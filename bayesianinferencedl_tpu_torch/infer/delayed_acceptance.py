@@ -60,23 +60,27 @@ class InnerKernel(NamedTuple):
     target: float
 
 
-def pcn_inner_kernel(misfit_coarse: Callable, prior: GaussianPrior) -> InnerKernel:
-    """pCN subchains on the (batched) coarse misfit."""
+def pcn_inner_kernel(misfit_coarse: Callable, prior: GaussianPrior, lam=None) -> InnerKernel:
+    """pCN subchains on the (batched) coarse misfit; lam: per-chain inverse
+    temperatures (a tempered level's target exp(-lam Phi_c) x prior), or
+    None."""
 
     def init(theta, phi_c):
         return PCNState(theta=theta, phi=phi_c, n_accept=torch.zeros_like(phi_c, dtype=torch.int32))
 
     def step(beta, s, gen, *, normals=None, uniforms=None):
-        return pcn_step(misfit_coarse, prior, beta, s, gen, normals=normals, uniforms=uniforms)
+        return pcn_step(misfit_coarse, prior, beta, s, gen, normals=normals, uniforms=uniforms,
+                        lam=lam)
 
     return InnerKernel(
         init=init, step=step, theta=lambda s: s.theta, phi=lambda s: s.phi, target=TARGET_ACCEPT,
     )
 
 
-def make_inner_kernel(inner: str, misfit_coarse: Callable, prior: GaussianPrior) -> InnerKernel:
+def make_inner_kernel(inner: str, misfit_coarse: Callable, prior: GaussianPrior,
+                      lam=None) -> InnerKernel:
     if inner == "pcn":
-        return pcn_inner_kernel(misfit_coarse, prior)
+        return pcn_inner_kernel(misfit_coarse, prior, lam)
     if inner == "mala":
         raise NotImplementedError(
             "the MALA inner kernel of delayed acceptance is not ported yet: ROADMAP.md "
@@ -113,10 +117,13 @@ def da_step(
     normals: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
     outer_uniform: Optional[torch.Tensor] = None,
+    lam: Optional[torch.Tensor] = None,
 ) -> tuple[DAState, torch.Tensor, torch.Tensor]:
     """One outer step: ``subchain`` coarse kernel steps, then one fine MH
     correction. normals (subchain, C, d), uniforms (subchain, C) and
-    outer_uniform (C,): the step's draws, else drawn from gen.
+    outer_uniform (C,): the step's draws, else drawn from gen. lam:
+    per-chain inverse temperatures of a tempered level, scaling the
+    correction's log ratio as the kernel's coarse target is scaled, or None.
 
     Returns (state, outer accept (C,) bool, inner accept count (C,) int32)."""
     inner = kernel.init(state.theta, state.phi_c)
@@ -133,6 +140,8 @@ def da_step(
     phi_f_prop = misfit_fine(theta_prop)
     # if the subchain never moved, both differences are 0: a harmless self-accept
     log_alpha = (state.phi_f - phi_f_prop) - (state.phi_c - phi_c_prop)
+    if lam is not None:
+        log_alpha = lam * log_alpha
     u = outer_uniform
     if u is None:
         u = torch.rand(state.phi_f.shape, generator=gen, dtype=state.phi_f.dtype,

@@ -88,3 +88,13 @@ def inner_accept_rate_spec(subchain: int) -> RateSpec:
         lambda kept: kept * subchain,
         lambda total: max(total * subchain, 1),
     )
+
+
+def swap_rate_spec() -> RateSpec:
+    """Adjacent-pair swaps are proposed every other step: segment rate =
+    count / max(kept / 2, 1), the denominator the tempered samplers use."""
+    return (
+        lambda r: r.swap_rate,
+        lambda kept: max(kept / 2, 1),
+        lambda total: max(total / 2, 1),
+    )

@@ -188,6 +188,39 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               per-tile-iteration times of both variants, their gap and K3r's
               time per batch iteration at res8 from phase 5 beside them; K5
               timed at res8 on the same shape
+ 11. PT       the tempered samplers, pcn on the fom likelihood and the
+              unknown-noise potential, each through run_inversion on the
+              card with every FOM kernel's count set to 0 just before it and
+              read just after. (a) pt_pcn on phase 3's build and data (rom_nn,
+              noise 1e-2): 1,024 chains x 4 levels from lambda_min 0.05, the
+              ladder adapted, 4,000 steps (1,000 burn-in): the cold level's
+              means within 5 MCSE of phase 3's pcn posterior and its sds
+              within 10% (phase 4's gates), every swap rate in (0, 1), the
+              ladder rising strictly to exactly 1 in every chain group, log Z
+              and its std finite. (b) the reference bench's headline
+              (bench.py:401-445): 4,096 chains x 5 levels, adapted ladder,
+              noise 1e-3, data simulated at phase 3's truth, 5,000 steps
+              (1,000 burn-in; the bench runs 15,000 / 2,000): samples/s,
+              min bulk ESS/s, split-R-hat beside the reference's 1.05, the
+              mean ladder, swap rates, log Z and us per step printed; gated
+              on finiteness, swap rates and the ladder's shape only. Then the
+              parts of its step, each timed alone at its shapes: the move
+              (and its misfit), the exchange, the ladder, the accumulators.
+              (c) pt_da_pcn on the fom likelihood on phase 6's build and
+              data: 256 chains x 4 levels (a fine batch of 1,024), subchains
+              of 64, segments of 32, 64 outer steps (20 burn-in): K3r carries
+              every fine solve (>= outer steps + segments launches), K3 and
+              K1 none; on the cold level outer accept > 0.6 and inner in
+              (0.05, 0.9); no audited state at the cap; the PT gates of (a)
+              but the posterior's. (d) pcn on the fom likelihood, phase 6's
+              data: 1,024 chains, 128 steps (64 burn-in), segments of 64:
+              K3r carries every solve, outputs finite, accept in (0.05,
+              0.9), no audited state at the cap; its posterior mean against
+              phase 6's da_pcn in MCSE units and beside (c)'s, printed, not
+              gated. (e) pcn with infer_noise on phase 3's data, 1,024
+              chains, 2,000 steps (500 burn-in): finite outputs, the noise
+              posterior's quantiles ordered q05 < q50 < q95, printed beside
+              the true 1e-2 with the shape-PPC p-value
 
 The last three lines are the kernel summary (JSON: time, launches, bound,
 plain time of each kernel), the nvidia-smi line, and
@@ -584,6 +617,25 @@ K2_SD_GATE = 0.10  # relative posterior-sd difference
 K2_ACC_GATE = 0.02  # accept-rate difference
 
 
+def _posterior_z(x, ref):
+    """Two runs' kept samples (T, C, d): their posterior means and sds, the
+    mean difference in Monte-Carlo standard errors (sd over the root of each
+    run's bulk ESS), the relative sd difference and each run's largest
+    split-R-hat."""
+    from bayesianinferencedl_tpu_torch.infer.diagnostics import ess_bulk, split_rhat
+
+    means, sds, ses, rhats = [], [], [], []
+    for s in (x, ref):
+        flat = s.reshape(-1, s.shape[-1]).double()
+        means.append(flat.mean(0))
+        sds.append(flat.std(0))
+        ses.append(sds[-1] / ess_bulk(s).double().sqrt())
+        rhats.append(float(split_rhat(s).max()))
+    z = ((means[0] - means[1]).abs() / (ses[0] ** 2 + ses[1] ** 2).sqrt()).cpu().numpy()
+    sd_rel = ((sds[0] - sds[1]).abs() / sds[1]).cpu().numpy()
+    return [m.cpu().numpy() for m in means], [v.cpu().numpy() for v in sds], z, sd_rel, rhats
+
+
 def _corr(a, b) -> float:
     a, b = a.flatten().double(), b.flatten().double()
     a, b = a - a.mean(), b - b.mean()
@@ -636,7 +688,6 @@ def phase_k2(cfg, pipe, inv):
     import torch
 
     from bayesianinferencedl_tpu_torch.experimental import pcn_fused as K2
-    from bayesianinferencedl_tpu_torch.infer.diagnostics import ess_bulk, split_rhat
     from bayesianinferencedl_tpu_torch.ops import _build
 
     mc = cfg.mcmc
@@ -718,22 +769,13 @@ def phase_k2(cfg, pipe, inv):
         fail("K2r: non-finite samples")
     if tuple(res.samples.shape) != (T - NB, C, ops.d):
         fail(f"K2r samples shape {tuple(res.samples.shape)}")
-    ref = inv.result.samples
-    means, sds, ses, rhats = [], [], [], []
-    for x in (res.samples, ref):
-        flat = x.reshape(-1, x.shape[-1]).double()
-        means.append(flat.mean(0))
-        sds.append(flat.std(0))
-        ses.append(sds[-1] / ess_bulk(x).double().sqrt())
-        rhats.append(float(split_rhat(x).max()))
-    z = ((means[0] - means[1]).abs() / (ses[0] ** 2 + ses[1] ** 2).sqrt()).cpu().numpy()
-    sd_rel = ((sds[0] - sds[1]).abs() / sds[1]).cpu().numpy()
+    means, sds, z, sd_rel, rhats = _posterior_z(res.samples, inv.result.samples)
     acc_k, acc_p = float(res.accept_rate.mean()), float(inv.result.accept_rate.mean())
-    say("K2", f"posterior mean K2r {np.round(means[0].cpu().numpy(), 4).tolist()} vs pcn "
-        f"{np.round(means[1].cpu().numpy(), 4).tolist()}; |diff| / MCSE "
+    say("K2", f"posterior mean K2r {np.round(means[0], 4).tolist()} vs pcn "
+        f"{np.round(means[1], 4).tolist()}; |diff| / MCSE "
         f"{np.round(z, 2).tolist()}")
-    say("K2", f"posterior sd K2r {np.round(sds[0].cpu().numpy(), 4).tolist()} vs pcn "
-        f"{np.round(sds[1].cpu().numpy(), 4).tolist()}; accept {acc_k:.4f} vs {acc_p:.4f}; "
+    say("K2", f"posterior sd K2r {np.round(sds[0], 4).tolist()} vs pcn "
+        f"{np.round(sds[1], 4).tolist()}; accept {acc_k:.4f} vs {acc_p:.4f}; "
         f"split-rhat max {rhats[0]:.4f} vs {rhats[1]:.4f}")
     if z.max() > K2_MEAN_GATE:
         fail(f"K2r: posterior means {z.max():.2f} Monte-Carlo errors from pcn's")
@@ -1214,7 +1256,7 @@ def phase_da():
     k3r_ms = _time_ms(lambda: K.pcg_stencil_tile(vals4, fin.op.F_root, None, offsets=fin.op.offsets[4:],
                                                  tol=TOL, maxiter=MAXITER, Wt=defl.Wt_bf16, Binv=Binv), 3)
     say("DA", f"  the same states: coarse inverses {inv_ms:.3f} ms, K3r alone {k3r_ms:.3f} ms")
-    return k3_all
+    return k3_all, pipe, inv
 
 
 K4_RES = 32
@@ -1983,6 +2025,234 @@ def phase_k5(k3):
                         bound=bound))
 
 
+PT_TEMPS, PT_LAMBDA_MIN = 4, 0.05  # (a) and (c): a 4-level geometric start from 0.05
+PT_HEAD = dict(n_chains=4096, n_temps=5, lambda_min=0.05, noise_sigma=1e-3, n_steps=5000,
+               n_burn=1000)  # (b): bench.py's headline, cut from 15,000 / 2,000 steps
+PT_DA = dict(n_chains=256, n_steps=64, n_burn=20, subchain=64)  # (c): 256 x 4 = 1,024 fine solves
+PT_DA_SEGMENT = 32  # run_inversion's segment for pt_da_pcn on fom
+FOM_PCN = dict(n_chains=1024, n_steps=128, n_burn=64)  # (d)
+FOM_PCN_SEGMENT = 64  # run_inversion's segment for pcn on fom
+NOISE_RUN = dict(n_steps=2000, n_burn=500)  # (e)
+PT_PARTS_REPS = 50  # timed repetitions of each part of a PT step
+
+
+def _with_mcmc(pipe, **mcmc):
+    """pipe with its MCMCConfig fields replaced (the build is shared)."""
+    import dataclasses
+
+    cfg = pipe.config
+    return dataclasses.replace(pipe, config=dataclasses.replace(
+        cfg, mcmc=dataclasses.replace(cfg.mcmc, **mcmc)))
+
+
+def _pt_gates(tag, inv):
+    """The gates every tempered run holds: finite outputs, every swap rate in
+    (0, 1), a ladder rising strictly and ending at exactly 1 in every chain
+    group, a finite log Z and std. Returns the mean ladder and swap rates."""
+    import torch
+
+    res = inv.result
+    for name, t in (("samples", res.samples), ("phi", res.phi_trace), ("ess", inv.ess),
+                    ("rhat", inv.rhat), ("lambdas", res.lambdas), ("swap_rate", res.swap_rate)):
+        if not torch.isfinite(t).all():
+            fail(f"{tag}: non-finite {name}")
+    swap = res.swap_rate.double().cpu().numpy()
+    if not (np.all(swap > 0) and np.all(swap < 1)):
+        fail(f"{tag}: swap rates {swap.tolist()} not all in (0, 1)")
+    lam = res.lambdas
+    if not (bool((torch.diff(lam, dim=0) > 0).all()) and bool((lam[-1] == 1).all())):
+        fail(f"{tag}: the ladder does not rise strictly to exactly 1 in every chain group")
+    if not (np.isfinite(inv.log_evidence) and np.isfinite(inv.log_evidence_std)):
+        fail(f"{tag}: log Z {inv.log_evidence} +- {inv.log_evidence_std}")
+    return lam.mean(1).double().cpu().numpy(), swap
+
+
+def _pt_step_parts(pipe, inv):
+    """Where the time of a pt_pcn step goes, at the run's shapes and final
+    state: each part timed alone by CUDA events over PT_PARTS_REPS calls
+    (host-bound parts included): the within-level move (pcn_step over K*G
+    states) and its batched misfit alone, the exchange pass, the ladder's
+    update and rebuild, and the level accumulators. Returns us per call."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.infer import tempering as T
+    from bayesianinferencedl_tpu_torch.infer.pcn import PCNState, gaussian_misfit, pcn_step
+
+    mc, res = pipe.config.mcmc, inv.result
+    K, G, d = res.theta.shape
+    dev = res.theta.device
+    misfit = gaussian_misfit(pipe.batched_forward_fn("rom_nn"), inv.data, mc.noise_sigma)
+    phi_all = lambda th: misfit(th.reshape(K * G, d)).reshape(K, G)
+    lam, beta = res.lambdas, res.beta
+    state = PCNState(theta=res.theta, phi=phi_all(res.theta),
+                     n_accept=torch.zeros((K, G), dtype=torch.int32, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(mc.seed + 5)
+    plans = [T._exchange_plan(K, p, dev) for p in (0, 1)]
+    n_swap = torch.zeros((K - 1,), dtype=lam.dtype, device=dev)
+    log_gap = torch.log(torch.diff(torch.log(lam), dim=0))
+    stats = (lam, torch.ones((K, 1), dtype=lam.dtype, device=dev))
+    acc = T._Accumulators(state.phi)
+    u_sw = torch.rand((K, G), generator=gen, dtype=lam.dtype, device=dev)
+    us = lambda fn: _time_ms(fn, PT_PARTS_REPS) * 1e3
+    return {
+        "move": us(lambda: pcn_step(phi_all, pipe.prior, beta, state, gen, lam=lam)),
+        "misfit": us(lambda: phi_all(state.theta)),
+        "exchange": us(lambda: T._replica_exchange(
+            7.0, lam, state.phi, (state.theta, state.phi), u_sw, n_swap, True, plans)),
+        "ladder": us(lambda: T._lam_from_gaps(T._ladder_update(log_gap, stats, 0, 7.0, 1))),
+        "accumulators": us(lambda: acc.add(lam, state.phi)),
+    }
+
+
+def phase_pt(pipe4, inv4, pipe8, inv8):
+    """Phase 11: the tempered samplers, pcn on the fom likelihood and the
+    unknown-noise potential, each through run_inversion on the card, on the
+    builds and data of phases 3 (res4) and 6 (res8). Returns K3r's launches
+    over the phase."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.api import run_inversion
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+
+    def counted(pipe, ref, **mcmc):
+        """run_inversion on ref's data (or, with ref = None, data simulated
+        at phase 3's truth) with every FOM kernel's count set to 0 just
+        before and read just after."""
+        data, truth = (None, inv4.theta_true) if ref is None else (ref.data, ref.theta_true)
+        K.launches = K.tile_launches = K.tile_mma_launches = 0
+        out = run_inversion(_with_mcmc(pipe, **mcmc), data=data, theta_true=truth)
+        torch.cuda.synchronize()
+        return out, {"K3r": K.tile_mma_launches, "K3": K.tile_launches, "K1": K.launches}
+
+    def fom_gates(tag, inv, n, steps, segment):
+        """K3r carries every fom solve (>= one a step and one a segment's
+        start), K3 and K1 none; no audited state at the iteration cap."""
+        n_seg = -(-steps // segment)
+        say("PT", f"{tag}: launches K3r {n['K3r']} (outer steps + segments = {steps + n_seg}), K3 "
+            f"{n['K3']}, K1 {n['K1']}; iteration audit cap {inv.fom_iter_cap}, max "
+            f"{inv.fom_iter_max}, at cap {inv.fom_hit_cap_frac}")
+        if n["K3r"] < steps + n_seg or n["K3"] or n["K1"]:
+            fail(f"{tag}: K3r did not carry every fom solve alone")
+        if inv.fom_hit_cap_frac != 0:
+            fail(f"{tag}: {inv.fom_hit_cap_frac:.2%} of audited states hit the FOM iteration cap")
+
+    k3r = 0
+    # (a) pt_pcn against phase 3's pcn on its data: the unimodal posterior
+    inv_a, n_a = counted(pipe4, inv4, sampler="pt_pcn", n_temps=PT_TEMPS, lambda_min=PT_LAMBDA_MIN,
+                         adapt_ladder=True)
+    lam_a, swap_a = _pt_gates("(a)", inv_a)
+    means, sds, z, sd_rel, rhats = _posterior_z(inv_a.result.samples, inv4.result.samples)
+    say("PT", f"(a) pt_pcn rom_nn, {inv_a.result.samples.shape[1]} chains x {PT_TEMPS} levels, "
+        f"{pipe4.config.mcmc.n_steps} "
+        f"steps ({pipe4.config.mcmc.n_burn} burn-in): {inv_a.wall_seconds:.3f} s, "
+        f"{inv_a.wall_seconds / pipe4.config.mcmc.n_steps * 1e6:.1f} us/step, "
+        f"{inv_a.samples_per_sec:.1f} cold samples/s; launches {n_a}")
+    say("PT", f"(a) cold-level mean {np.round(means[0], 4).tolist()} vs pcn "
+        f"{np.round(means[1], 4).tolist()}; |diff| / MCSE {np.round(z, 2).tolist()}; sd "
+        f"{np.round(sds[0], 4).tolist()} vs {np.round(sds[1], 4).tolist()}; split-rhat max "
+        f"{rhats[0]:.4f} vs {rhats[1]:.4f}")
+    say("PT", f"(a) mean ladder {np.round(lam_a, 5).tolist()}; swap rates "
+        f"{np.round(swap_a, 4).tolist()}; log Z {inv_a.log_evidence:.4f} +- "
+        f"{inv_a.log_evidence_std:.4f}; accept by level "
+        f"{np.round(inv_a.result.accept_rate.mean(1).double().cpu().numpy(), 4).tolist()}")
+    if z.max() > K2_MEAN_GATE:
+        fail(f"(a): cold-level means {z.max():.2f} Monte-Carlo errors from pcn's")
+    if sd_rel.max() > K2_SD_GATE:
+        fail(f"(a): cold-level sd {100 * sd_rel.max():.1f}% from pcn's")
+
+    # (b) the headline's configuration (bench.py b_pt_headline), its steps cut
+    inv_b, n_b = counted(pipe4, None, sampler="pt_pcn", adapt_ladder=True, **PT_HEAD)
+    k3r += n_b["K3r"]
+    lam_b, swap_b = _pt_gates("(b)", inv_b)
+    step_us = inv_b.wall_seconds / PT_HEAD["n_steps"] * 1e6
+    rhat_b = float(inv_b.rhat.max())
+    say("PT", f"(b) headline pt_pcn rom_nn noise {PT_HEAD['noise_sigma']:g}: {PT_HEAD['n_chains']} "
+        f"chains x {PT_HEAD['n_temps']} levels, {PT_HEAD['n_steps']} steps ({PT_HEAD['n_burn']} "
+        f"burn-in): {inv_b.wall_seconds:.3f} s, {step_us:.1f} us/step, {inv_b.samples_per_sec:.1f} "
+        f"cold samples/s, min bulk ESS/s {inv_b.ess_per_sec:.2f} (bulk ESS min "
+        f"{inv_b.ess.min().item():.1f}); split-rhat max {rhat_b:.4f} against the reference's "
+        f"{RHAT_GATE}: {'pass' if rhat_b <= RHAT_GATE else 'fail'} (printed, not gated); launches "
+        f"{n_b}")
+    say("PT", f"(b) mean ladder {np.round(lam_b, 5).tolist()}; swap rates "
+        f"{np.round(swap_b, 4).tolist()}; log Z {inv_b.log_evidence:.4f} +- "
+        f"{inv_b.log_evidence_std:.4f}; cold accept "
+        f"{float(inv_b.result.accept_rate[-1].mean()):.4f}; posterior mean "
+        f"{np.round(inv_b.result.samples.mean(dim=(0, 1)).double().cpu().numpy(), 4).tolist()} vs "
+        f"truth {np.round(inv_b.theta_true.double().cpu().numpy(), 4).tolist()}")
+    parts = _pt_step_parts(_with_mcmc(pipe4, **PT_HEAD), inv_b)
+    say("PT", f"(b) a step's parts, each alone over {PT_PARTS_REPS} calls at these shapes (us): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+        + f"; as shares of the run's {step_us:.1f} us/step: move "
+        f"{100 * parts['move'] / step_us:.1f}% (its misfit {100 * parts['misfit'] / step_us:.1f}%), "
+        f"exchange {100 * parts['exchange'] / step_us:.1f}%, ladder "
+        f"{100 * parts['ladder'] / step_us:.1f}%, accumulators "
+        f"{100 * parts['accumulators'] / step_us:.1f}%")
+
+    # (c) pt_da_pcn on fom at res8, on phase 6's data
+    inv_c, n_c = counted(pipe8, inv8, sampler="pt_da_pcn", likelihood="fom", n_temps=PT_TEMPS,
+                         lambda_min=PT_LAMBDA_MIN, **PT_DA)
+    k3r += n_c["K3r"]
+    lam_c, swap_c = _pt_gates("(c)", inv_c)
+    res_c = inv_c.result
+    outer, inner = float(res_c.accept_rate[-1].mean()), float(res_c.inner_accept_rate[-1].mean())
+    say("PT", f"(c) pt_da_pcn fom res8, {PT_DA['n_chains']} chains x {PT_TEMPS} levels (fine batch "
+        f"{PT_DA['n_chains'] * PT_TEMPS}), subchain {PT_DA['subchain']}, {PT_DA['n_steps']} outer "
+        f"steps ({PT_DA['n_burn']} burn-in), segment {PT_DA_SEGMENT}: {inv_c.wall_seconds:.3f} s, "
+        f"{inv_c.wall_seconds / PT_DA['n_steps'] * 1e3:.1f} ms per outer step; cold outer accept "
+        f"{outer:.4f}, inner {inner:.4f}; swap rates {np.round(swap_c, 4).tolist()}; mean ladder "
+        f"{np.round(lam_c, 5).tolist()}; log Z {inv_c.log_evidence:.4f} +- "
+        f"{inv_c.log_evidence_std:.4f}; fine evaluations {res_c.n_fine_evals}")
+    fom_gates("(c)", inv_c, n_c, PT_DA["n_steps"], PT_DA_SEGMENT)
+    if not outer > 0.6:
+        fail(f"(c): cold outer accept {outer:.4f} not above 0.6")
+    if not 0.05 < inner < 0.9:
+        fail(f"(c): cold inner accept {inner:.4f} outside (0.05, 0.9)")
+
+    # (d) pcn on fom at res8, on phase 6's data
+    inv_d, n_d = counted(pipe8, inv8, sampler="pcn", likelihood="fom", **FOM_PCN)
+    k3r += n_d["K3r"]
+    res_d = inv_d.result
+    for name, t in (("samples", res_d.samples), ("phi", res_d.phi_trace), ("ess", inv_d.ess),
+                    ("rhat", inv_d.rhat)):
+        if not torch.isfinite(t).all():
+            fail(f"(d): non-finite {name}")
+    acc_d = float(res_d.accept_rate.mean())
+    say("PT", f"(d) pcn fom res8, {FOM_PCN['n_chains']} chains, {FOM_PCN['n_steps']} steps "
+        f"({FOM_PCN['n_burn']} burn-in), segment {FOM_PCN_SEGMENT}: {inv_d.wall_seconds:.3f} s, "
+        f"{inv_d.wall_seconds / FOM_PCN['n_steps'] * 1e3:.1f} ms/step; accept {acc_d:.4f}; split-rhat "
+        f"max {float(inv_d.rhat.max()):.4f}")
+    fom_gates("(d)", inv_d, n_d, FOM_PCN["n_steps"], FOM_PCN_SEGMENT)
+    if not 0.05 < acc_d < 0.9:
+        fail(f"(d): accept rate {acc_d:.4f} outside (0.05, 0.9)")
+    means, _, z, _, _ = _posterior_z(res_d.samples, inv8.result.samples)
+    say("PT", f"(d) posterior mean pcn fom {np.round(means[0], 4).tolist()} vs phase 6's da_pcn "
+        f"{np.round(means[1], 4).tolist()}: |diff| / MCSE {np.round(z, 2).tolist()} (printed, not "
+        f"gated: {FOM_PCN['n_steps'] - FOM_PCN['n_burn']} kept steps); (c)'s cold level "
+        f"{np.round(res_c.samples.mean(dim=(0, 1)).double().cpu().numpy(), 4).tolist()} with log Z "
+        f"{inv_c.log_evidence:.4f}")
+
+    # (e) infer_noise: pcn on phase 3's data with the noise integrated out
+    inv_e, n_e = counted(pipe4, inv4, sampler="pcn", infer_noise=True, **NOISE_RUN)
+    res_e, post = inv_e.result, inv_e.noise_sigma_post
+    for name, t in (("samples", res_e.samples), ("phi", res_e.phi_trace), ("ess", inv_e.ess),
+                    ("rhat", inv_e.rhat)):
+        if not torch.isfinite(t).all():
+            fail(f"(e): non-finite {name}")
+    q = (post["sigma_q05"], post["sigma_q50"], post["sigma_q95"])
+    say("PT", f"(e) pcn rom_nn infer_noise, {res_e.samples.shape[1]} chains, {NOISE_RUN['n_steps']} "
+        f"steps ({NOISE_RUN['n_burn']} burn-in): {inv_e.wall_seconds:.3f} s; accept "
+        f"{float(res_e.accept_rate.mean()):.4f}; sigma q05/q50/q95 "
+        f"{' / '.join(f'{v:.5f}' for v in q)} (mean {post['sigma_mean']:.5f}) beside the true "
+        f"{pipe4.config.mcmc.noise_sigma:g}; shape-PPC p {inv_e.ppc['p_value']:.3f}; launches {n_e}")
+    if not all(np.isfinite(v) for v in post.values() if isinstance(v, float)):
+        fail(f"(e): non-finite noise posterior {post}")
+    if not q[0] < q[1] < q[2]:
+        fail(f"(e): sigma quantiles {q} not ordered")
+    say("PT", f"K3r launches over phase 11: {k3r} ((b)'s truth solve {n_b['K3r']}, (c) {n_c['K3r']}, "
+        f"(d) {n_d['K3r']})")
+    return k3r
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
                   ms: float, plain_ms: float, bound: tuple) -> dict:
     return {"name": name, "route": "cuda", "source": f"bayesianinferencedl_tpu_torch/csrc/{source}",
@@ -1999,11 +2269,12 @@ def main() -> None:
     slice_launches, cfg, pipe, inv = phase_slice()
     k2 = phase_k2(cfg, pipe, inv)
     k3 = phase_k3()
-    k3_launches = phase_da()
+    k3_launches, pipe8, inv8 = phase_da()
     k4 = phase_k4()
     k4_launches = phase_fom_cli(k4)
     k4c = phase_k4c(k4)
     k5 = phase_k5(k3)
+    pt_launches = phase_pt(pipe, inv, pipe8, inv8)
     t1 = lanes["times"][B_CHECK]
     t3 = k3["times"][1024]
     t4r = k4["times"][K4_BATCHES[0]]
@@ -2024,10 +2295,11 @@ def main() -> None:
                       k2["K2"]["launches"], k2["K2"]["max_abs_err"], k2["K2"]["ms"],
                       k2["K2"]["plain_ms"], k2["K2"]["bound"]),
         # K3r: res8, B = 1,024; its launches are the res4 slice's (the lanes
-        # route) and the res8 DA slice's
+        # route), the res8 DA slice's and phase 11's (its fom samplers at res8,
+        # the headline's truth solve at res4)
         _kernel_entry("pcg_stencil_tile_mma", "pcg_stencil_tile_mma.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385",
-                      slice_launches["K3r"] + k3_launches,
+                      slice_launches["K3r"] + k3_launches + pt_launches,
                       max(k3["max_abs_err"], lanes["max_abs"]["K3r"]), t3["ms"], t3["plain_ms"],
                       t3["bound"]),
         # K3, off the main path since K3r: timed on the same inputs, for the record

@@ -7,7 +7,10 @@ refusal of the greedy ROM basis, which is not ported. Both CLIs run on the
 same argv with their pipeline stubbed (what each hands ``build_pipeline``
 and ``run_inversion``, and how each prints the same inversion result), and
 the float64 FOM solve that makes the synthetic truth is held against the
-JAX package's."""
+JAX package's. The tempered samplers, pcn on the fom likelihood and
+``--infer-noise`` run end to end and print their keys (``log_evidence``,
+``log_evidence_std``, ``noise_sigma_post``); pt_pcn on fom is refused as
+the reference refuses it."""
 
 import json
 from types import SimpleNamespace
@@ -155,3 +158,45 @@ def test_float64_truth_solve_matches_reference():
     assert np.linalg.norm(u_t - u_j) <= 1e-8 * np.linalg.norm(u_j)
     np.testing.assert_allclose(tf.forward(torch.tensor(k)).numpy(), np.asarray(jf.forward(jnp.asarray(k))),
                                rtol=1e-10)
+
+
+def test_invert_pt_pcn_prints_log_evidence(spy, capsys):
+    main(["invert", *SMALL, "--sampler", "pt_pcn", "--n-temps", "3", "--lambda-min", "0.1",
+          "--adapt-ladder"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    mc = spy["cfg"].mcmc
+    assert (mc.sampler, mc.n_temps, mc.lambda_min, mc.adapt_ladder) == ("pt_pcn", 3, 0.1, True)
+    assert np.isfinite(out["log_evidence"]) and np.isfinite(out["log_evidence_std"])
+    assert out["log_evidence_std"] >= 0 and "noise_sigma_post" not in out
+    assert np.all(np.isfinite(out["posterior_mean_log_k"]))
+
+
+def test_invert_infer_noise_prints_noise_posterior(spy, capsys):
+    main(["invert", *SMALL, "--infer-noise"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert spy["cfg"].mcmc.infer_noise is True and spy["cfg"].mcmc.adapt_ladder is False
+    post = out["noise_sigma_post"]
+    assert set(post) == {"sigma_mean", "sigma_sd", "sigma_q05", "sigma_q50", "sigma_q95", "n_draws",
+                         "n_obs"}
+    assert 0 < post["sigma_q05"] < post["sigma_q50"] < post["sigma_q95"] and post["n_obs"] == 5
+    assert 0.0 <= out["ppc_p_value"] <= 1.0 and "log_evidence" not in out
+
+
+@pytest.mark.parametrize("sampler", ["pcn", "pt_da_pcn"])
+def test_invert_fom_samplers_run(sampler, capsys):
+    main(["invert", *SMALL, "--sampler", sampler, "--likelihood", "fom", "--subchain", "4"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["sampler"] == sampler and out["likelihood"] == "fom"
+    audit = out["fom_iter_audit"]
+    assert audit["cap"] == 480 and 0 < audit["max_iters"] < 480 and audit["hit_cap_frac"] == 0.0
+    assert np.all(np.isfinite(out["posterior_mean_log_k"]))
+    if sampler == "pt_da_pcn":
+        assert out["outer_accept"] == out["accept_rate"] and 0.0 <= out["inner_accept"] <= 1.0
+        assert np.isfinite(out["log_evidence"])
+    else:
+        assert "outer_accept" not in out and "log_evidence" not in out
+
+
+def test_invert_pt_pcn_on_fom_is_refused():
+    with pytest.raises(NotImplementedError, match="pt_da_pcn"):
+        main(["invert", *SMALL, "--sampler", "pt_pcn", "--likelihood", "fom"])
