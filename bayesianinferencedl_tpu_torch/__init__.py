@@ -20,10 +20,12 @@ Layer map (the offline build, single-temperature pCN and the fused sampler):
     rom/     snapshots, host-f64 POD, Galerkin ROM, batched reduced PCG
     models/  the 5-parameter fin, MLP error surrogate, corrected forward
     data/    ROM-error dataset generation
-    infer/   Gaussian prior, pCN, rank-normalised diagnostics
-    utils/   metrics logger, posterior predictive check
+    infer/   Gaussian prior, pCN, delayed acceptance, tempering and the
+             evidence, BFGS MAP and Laplace, Laplace MH / gpCN, MALA, HMC,
+             diagnostics
+    utils/   metrics logger, posterior predictive check, per-call fp32 pins
     api.py   build_pipeline / run_inversion;  cli.py  ``fom``, ``snapshots``,
-             ``rom``, ``invert``
+             ``rom``, ``invert``, ``map``
 """
 
 __version__ = "0.1.0"

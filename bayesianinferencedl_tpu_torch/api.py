@@ -5,23 +5,27 @@ FOM snapshots through K1, K3r or K4r / K4c -> host-f64 POD and Galerkin projecti
 reduced preconditioner P0 -> ROM-error dataset -> tanh MLP trained with
 Adam) on one device. ``run_inversion`` runs single-temperature pCN (on the
 ``fom`` likelihood in segments of 64 steps, one batched FOM solve a step),
-parallel-tempered pCN (``pt_pcn``) on ``rom`` or ``rom_nn``, and delayed
-acceptance, plain (``da_pcn``) or tempered (``pt_da_pcn``): subchains on the
-``da_coarse`` surrogate corrected against the ``fom`` likelihood (or
-``rom``), one batched FOM solve per outer step. With ``infer_noise`` every
-sampler runs on the noise-marginalised potential. Tempered runs also return
-the log evidence. Nothing moves between devices on its own: asking for
-``device="cuda"`` without a card raises.
+parallel-tempered pCN (``pt_pcn``) or MALA (``pt_mala``) on ``rom`` or
+``rom_nn``, delayed acceptance, plain (``da_pcn``) or tempered
+(``pt_da_pcn``), with pCN or MALA subchains on the ``da_coarse`` surrogate
+corrected against the ``fom`` likelihood (or ``rom``), one batched FOM solve
+per outer step, the Laplace-seeded samplers (``laplace_mh``, ``gpcn``,
+``mala_lap``, ``hmc_lap``: the MAP and its Laplace approximation first) and
+the gradient samplers ``mala`` and ``hmc``, which take the differentiable
+forward (``Pipeline.batched_forward_fn(..., differentiable=True)``). With
+``infer_noise`` every sampler runs on the noise-marginalised potential.
+Tempered runs also return the log evidence. Nothing moves between devices
+on its own: asking for ``device="cuda"`` without a card raises.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: the other samplers, the MALA inner kernel of the DA
-samplers, the ``high``/``fast`` online precision tiers and box priors.
-Chains start from prior draws; the other initialisations are ROADMAP.md
-queue 1, item 20.
+ROADMAP.md item: ``mlda_pcn``, the ``high``/``fast`` online precision tiers
+and box priors. Chains start from prior draws (or the Laplace
+approximation's); the other initialisations are ROADMAP.md queue 1, item 20.
 """
 
 from __future__ import annotations
 
+import math
 import time
 import warnings
 from dataclasses import dataclass
@@ -36,6 +40,9 @@ from bayesianinferencedl_tpu_torch.fem.solve import pcg_fom
 from bayesianinferencedl_tpu_torch.infer.delayed_acceptance import DAResult, run_da_pcn_segmented
 from bayesianinferencedl_tpu_torch.infer.diagnostics import ess_bulk, ess_tail, split_rhat
 from bayesianinferencedl_tpu_torch.infer.evidence import log_evidence_from_pt
+from bayesianinferencedl_tpu_torch.infer.hmc import run_hmc, run_hmc_chees, run_hmc_segmented
+from bayesianinferencedl_tpu_torch.infer.mala import MALAResult, run_mala, run_mala_segmented
+from bayesianinferencedl_tpu_torch.infer.map import find_map_multistart, laplace_approximation
 from bayesianinferencedl_tpu_torch.infer.pcn import (
     PCNResult,
     gaussian_misfit,
@@ -44,7 +51,15 @@ from bayesianinferencedl_tpu_torch.infer.pcn import (
     run_pcn_segmented,
 )
 from bayesianinferencedl_tpu_torch.infer.priors import BoxPrior, GaussianPrior
-from bayesianinferencedl_tpu_torch.infer.tempering import PTDAResult, PTResult, run_pt_da_segmented, run_pt_pcn
+from bayesianinferencedl_tpu_torch.infer.samplers import MHResult, run_gpcn, run_laplace_mh
+from bayesianinferencedl_tpu_torch.infer.tempering import (
+    PTDAResult,
+    PTMALAResult,
+    PTResult,
+    run_pt_da_segmented,
+    run_pt_mala,
+    run_pt_pcn,
+)
 from bayesianinferencedl_tpu_torch.models.corrected import CorrectedForward
 from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
 from bayesianinferencedl_tpu_torch.models.surrogate import TrainedSurrogate, train_surrogate
@@ -59,14 +74,17 @@ from bayesianinferencedl_tpu_torch.utils.ppc import noise_posterior, ppc_chi2_pv
 # the untimed warm-up run that precedes the timed one: pcn and pt_pcn run
 # 2 * _WARMUP_STEPS steps (_WARMUP_STEPS burn-in); the samplers with a
 # batched FOM solve in every step (pcn on fom, da_pcn, pt_da_pcn) run
-# _WARMUP_DA (steps, burn-in), enough to build the kernels and allocate
+# _WARMUP_DA (steps, burn-in), enough to build the kernels and allocate;
+# the others, the Laplace and gradient samplers included, run pcn's
 _WARMUP_STEPS = 20
 _WARMUP_DA = (2, 1)
 _AUDIT_MAX = 1024  # kept states re-solved by the FOM iteration audit
-_PORTED = ("pcn", "da_pcn", "pt_pcn", "pt_da_pcn")
+_PORTED = ("pcn", "da_pcn", "pt_pcn", "pt_da_pcn", "laplace_mh", "gpcn", "mala", "mala_lap", "hmc",
+           "hmc_lap", "pt_mala")
+_LAPLACE = ("laplace_mh", "gpcn", "mala_lap", "hmc_lap")  # seeded by the MAP's Laplace approximation
+_TEMPERED = ("pt_pcn", "pt_mala", "pt_da_pcn")
 # the unported samplers and their ROADMAP.md queue 1 items
-_UNPORTED = {"laplace_mh": 17, "gpcn": 17, "mala": 18, "mala_lap": 18, "hmc": 18, "hmc_lap": 18,
-             "pt_mala": 18, "mlda_pcn": 19}
+_UNPORTED = {"mlda_pcn": 19}
 
 
 def _sync(dev: torch.device) -> None:
@@ -75,16 +93,15 @@ def _sync(dev: torch.device) -> None:
 
 
 def _set_online_precision(kind: str) -> None:
-    """ROMConfig.online_precision. "highest" = full fp32 matmuls, with TF32
-    off explicitly. The other tiers are TPU MXU pass counts (bf16x3, bf16)
-    with no faithful torch counterpart yet."""
+    """ROMConfig.online_precision. "highest" = full fp32 matmuls, which every
+    pinned contraction sets for itself (``utils.precision.fp32_matmul``);
+    nothing here touches the process's settings. The other tiers are TPU
+    MXU pass counts (bf16x3, bf16) with no faithful torch counterpart yet."""
     if kind != "highest":
         raise NotImplementedError(
             f"online_precision={kind!r} (TPU bf16x3 / bf16 MXU passes) is not ported; "
-            "it does not map onto TF32 — see ROADMAP.md §3 (precision tiers)"
+            "it does not map onto TF32 — see ROADMAP.md §3 (precision tiers), item 26"
         )
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 @dataclass
@@ -105,20 +122,30 @@ class Pipeline:
     def device(self) -> torch.device:
         return self.rom.Ahat.device
 
-    def batched_forward_fn(self, likelihood: str) -> Callable:
+    def batched_forward_fn(self, likelihood: str, *, differentiable: bool = False) -> Callable:
         """(C, d) log-conductivities -> (C, n_obs) observables for the chain
         hot loop: ``fom`` observes one batched FOM solve (tol ``fin.cg_tol``,
         cap ``fin.cg_maxiter``, ``make_fom_solver``); ``rom`` and ``rom_nn``
-        go through the factorisation-free reduced PCG."""
+        go through the factorisation-free reduced PCG.
+
+        differentiable=True (the MAP, the Laplace Jacobian and the gradient
+        samplers) routes around the solvers without a backward: ``fom``
+        through ``fin.solve`` (the plain PCG of ``fem/solve.py``, whose
+        backward is one adjoint solve), ``rom`` and ``rom_nn`` through
+        ``ReducedOperator.solve_pcg_diff``. Its values agree with the
+        default route's to the solver's tolerance."""
+        if likelihood not in ("fom", "rom", "rom_nn"):
+            raise ValueError(f"unknown likelihood {likelihood!r}")
         if likelihood == "fom":
+            if differentiable:
+                return lambda thetas: self.fin.op.observe(self.fin.solve(torch.exp(thetas)))
             solve = make_fom_solver(self.fin, tol=self.fin.cg_tol, maxiter=self.fin.cg_maxiter)
             return lambda thetas: self.fin.op.observe(solve(torch.exp(thetas)))
-        if likelihood not in ("rom", "rom_nn"):
-            raise ValueError(f"unknown likelihood {likelihood!r}")
-        ff = self.rom.fast_forward(self.P0, self.rom_pcg_iters)
+        ff = self.rom.fast_forward(self.P0, self.rom_pcg_iters, differentiable=differentiable)
         if likelihood == "rom":
             return lambda thetas: ff(torch.exp(thetas))
-        return lambda thetas: ff(torch.exp(thetas)) + self.surrogate.predict(thetas)
+        return lambda thetas: (ff(torch.exp(thetas))
+                               + self.surrogate.predict(thetas, differentiable=differentiable))
 
     def forward_fn(self, likelihood: str) -> Callable:
         """theta (d,) -> observables (n_obs,)."""
@@ -282,7 +309,7 @@ def build_pipeline(
 
 @dataclass
 class InversionResult:
-    result: Union[PCNResult, DAResult, PTResult, PTDAResult]
+    result: Union[PCNResult, DAResult, PTResult, PTDAResult, MHResult, MALAResult, PTMALAResult]
     theta_true: torch.Tensor
     data: torch.Tensor
     ess: torch.Tensor  # bulk ESS per dimension (rank-normalised, split)
@@ -314,6 +341,79 @@ def _child(gen: torch.Generator) -> torch.Generator:
     return torch.Generator(device=gen.device).manual_seed(seed)
 
 
+def _map_laplace(pipe: Pipeline, like: str, mk_misfit: Callable, data: torch.Tensor, b0: float,
+                 gen: torch.Generator, log: MetricsLogger):
+    """The offline step of the Laplace-seeded samplers: the MAP by 8-start
+    BFGS on the differentiable forward, and the Gauss-Newton Laplace
+    approximation at it, timed as "map_laplace" and logged as the "map"
+    event. With infer_noise the MAP is the marginal potential's; its GN
+    curvature ((a0 + m/2) / (b0 + S/2)) J^T J is the Gaussian one at the
+    plug-in scale sigma_hat^2 = (b0 + S/2) / (a0 + m/2), the conditional
+    posterior mode of sigma^2 at the MAP, so the Laplace factors are built
+    there."""
+    cfg = pipe.config.mcmc
+    fwd_d = pipe.batched_forward_fn(like, differentiable=True)
+    with log.timer("map_laplace"):
+        theta_map, nlp = find_map_multistart(mk_misfit(fwd_d), pipe.prior, gen, n_starts=8)
+        sig_lap = cfg.noise_sigma
+        if cfg.infer_noise:
+            with torch.no_grad():
+                r_map = fwd_d(theta_map[None])[0] - data
+            s_map = float(torch.sum(r_map * r_map))
+            sig_lap = math.sqrt((b0 + 0.5 * s_map) / (2.0 + 0.5 * r_map.shape[-1]))
+        lap = laplace_approximation(fwd_d, data, sig_lap, pipe.prior, theta_map)
+        _sync(pipe.device)
+    log.log("map", nlp=float(nlp), theta_map=theta_map.cpu().tolist())
+    return lap
+
+
+def _gradient_sampler_runner(kind: str, like: str, misfit_b: Callable, prior, theta0, *,
+                             step: float, thin: int, n_leap: int, jitter: float,
+                             ref: Optional[tuple] = None, log: Optional[MetricsLogger] = None):
+    """(run, warm_run), each (gen, n_steps, n_burn) -> result, for a gradient
+    sampler (kind "mala" or "hmc"), shared by the prior- and the Laplace-
+    preconditioned entries of ``run_inversion``: on fom in segments (32
+    MALA steps, or max(1, 32 // n_leap) HMC trajectories, a segment), else
+    in one run. n_leap=0 (hmc only) chooses the trajectory length by the
+    cross-chain ChEES criterion (``run_hmc_chees``, rom/rom_nn only) and
+    logs the probe table as the "chees" event; its warm-up runs
+    fixed-length HMC at the median candidate, which builds and allocates
+    what the probes use without running them twice."""
+    if kind == "hmc" and n_leap == 0:
+        if like == "fom":
+            raise ValueError(
+                "hmc_leap=0 (ChEES auto trajectory tuning) requires a cheap likelihood "
+                "(rom/rom_nn): the probes run unsegmented, a full-order solve and its adjoint "
+                "in every leapfrog step; pick a fixed n_leap for the fom likelihood"
+            )
+
+        def run_auto(g, n_steps, n_burn):
+            res, info = run_hmc_chees(misfit_b, prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
+                                      step=step, jitter=jitter, thin=thin, ref=ref)
+            if log is not None:
+                log.log("chees", **info)
+            return res
+
+        warm = lambda g, n_steps, n_burn: run_hmc(
+            misfit_b, prior, theta0, g, n_steps=n_steps, n_burn=n_burn, step=step, n_leap=8,
+            jitter=jitter, thin=thin, ref=ref)
+        return run_auto, warm
+    if kind == "mala":
+        plain, seg_fn, kw, segment = run_mala, run_mala_segmented, {}, 32
+    else:
+        plain, seg_fn = run_hmc, run_hmc_segmented
+        kw, segment = dict(n_leap=n_leap, jitter=jitter), max(1, 32 // n_leap)
+    if like == "fom":
+        run = lambda g, n_steps, n_burn: seg_fn(
+            misfit_b, prior, theta0, g, n_steps=n_steps, n_burn=n_burn, step=step,
+            segment=segment, ref=ref, **kw)
+    else:
+        run = lambda g, n_steps, n_burn: plain(
+            misfit_b, prior, theta0, g, n_steps=n_steps, n_burn=n_burn, step=step, thin=thin,
+            ref=ref, **kw)
+    return run, run
+
+
 def run_inversion(
     pipe: Pipeline,
     *,
@@ -329,10 +429,19 @@ def run_inversion(
     - ``pt_pcn``: ``cfg.n_chains`` cold chains x ``cfg.n_temps`` levels from
       ``cfg.lambda_min``, the ladder adapted in burn-in if
       ``cfg.adapt_ladder``, on rom/rom_nn;
-    - ``da_pcn`` / ``pt_da_pcn``: subchains of ``cfg.subchain`` pCN steps on
-      the ``cfg.da_coarse`` surrogate, Metropolis-corrected against
-      ``likelihood``, in segments of 64 (da_pcn) or 32 (pt_da_pcn) outer
-      steps for fom and 512 otherwise; n_steps and n_burn count outer steps.
+    - ``da_pcn`` / ``pt_da_pcn``: subchains of ``cfg.subchain`` pCN (or,
+      with ``cfg.da_inner = "mala"``, MALA) steps on the ``cfg.da_coarse``
+      surrogate, Metropolis-corrected against ``likelihood``, in segments of
+      64 (da_pcn) or 32 (pt_da_pcn) outer steps for fom and 512 otherwise;
+      n_steps and n_burn count outer steps;
+    - ``laplace_mh`` / ``gpcn``: the MAP (8-start BFGS) and its Laplace
+      approximation, then independence MH or generalised pCN with it, on
+      the ordinary batched misfit (the stencil kernels on fom);
+    - ``mala`` / ``hmc``, prior-preconditioned, and ``mala_lap`` /
+      ``hmc_lap``, Laplace-preconditioned: gradient samplers on the
+      differentiable forward, segmented on fom; ``cfg.hmc_leap = 0`` picks
+      the trajectory length by ChEES (rom/rom_nn);
+    - ``pt_mala``: tempered MALA with replica exchange, on rom/rom_nn.
     Every misfit is Gaussian at ``cfg.noise_sigma``, or with
     ``cfg.infer_noise`` the noise-marginalised potential under the prior
     sigma^2 ~ InvGamma(2, noise_sigma^2).
@@ -348,15 +457,22 @@ def run_inversion(
     cfg = pipe.config.mcmc
     like = likelihood or cfg.likelihood
     smp = sampler or cfg.sampler
-    if smp not in _PORTED:
+    if smp in _UNPORTED:
         raise NotImplementedError(
-            f"sampler {smp!r} is not ported yet: ROADMAP.md queue 1, item {_UNPORTED.get(smp, '17-21')}"
+            f"sampler {smp!r} is not ported yet: ROADMAP.md queue 1, item {_UNPORTED[smp]}"
         )
+    if smp not in _PORTED:
+        raise ValueError(f"unknown sampler {smp!r}")
     if smp == "pt_pcn" and like == "fom":
         raise NotImplementedError(
             "pt_pcn with the fom likelihood puts a full-order solve in every step; use "
             "sampler='pt_da_pcn' (tempered delayed acceptance: the exact FOM posterior, "
             "segmented, one batched FOM solve per outer step) instead"
+        )
+    if smp == "pt_mala" and like == "fom":
+        raise NotImplementedError(
+            "pt_mala with the fom likelihood puts a full-order solve and its adjoint in every "
+            "step; use sampler='pt_da_pcn' with da_inner subchains instead"
         )
     if smp in ("da_pcn", "pt_da_pcn") and like == cfg.da_coarse:
         raise ValueError(
@@ -392,9 +508,40 @@ def run_inversion(
     else:
         mk_misfit = lambda f: gaussian_misfit(f, data, cfg.noise_sigma)
     misfit_b = mk_misfit(fwd_b)
-    theta0 = pipe.prior.sample(gen, (cfg.n_chains,))
+    # the differentiable route (the MAP, the Laplace factors, the gradient
+    # samplers, MALA subchains): adjoint solves, never a backward through
+    # solver iterations
+    misfit_d = lambda lk=like: mk_misfit(pipe.batched_forward_fn(lk, differentiable=True))
     warm = (2 * _WARMUP_STEPS, _WARMUP_STEPS)
-    if smp == "pcn" and like == "fom":
+    grad_kw = dict(step=cfg.mala_step, thin=cfg.thin, n_leap=cfg.hmc_leap, jitter=cfg.hmc_jitter,
+                   log=log)
+    run_warm = None
+    if smp in _LAPLACE:
+        lap = _map_laplace(pipe, like, mk_misfit, data, b0, _child(gen), log)
+        theta0 = lap.sample(gen, (cfg.n_chains,))
+    else:
+        theta0 = pipe.prior.sample(gen, (cfg.n_chains,))
+    if smp == "laplace_mh":
+        run = lambda g, n_steps, n_burn: run_laplace_mh(
+            misfit_b, pipe.prior, lap, theta0, g, n_steps=n_steps, n_burn=n_burn)
+    elif smp == "gpcn":
+        run = lambda g, n_steps, n_burn: run_gpcn(
+            misfit_b, pipe.prior, lap, theta0, g, n_steps=n_steps, n_burn=n_burn, beta=cfg.beta)
+    elif smp in ("mala_lap", "hmc_lap"):
+        # Laplace-preconditioned: posterior-covariance steps that stay exact
+        # where the posterior is not Gaussian
+        run, run_warm = _gradient_sampler_runner(
+            smp.replace("_lap", ""), like, misfit_d(), pipe.prior, theta0, ref=(lap.mean, lap.chol),
+            **grad_kw)
+    elif smp in ("mala", "hmc"):
+        run, run_warm = _gradient_sampler_runner(smp, like, misfit_d(), pipe.prior, theta0, **grad_kw)
+    elif smp == "pt_mala":
+        misfit_pt = misfit_d()
+        run = lambda g, n_steps, n_burn: run_pt_mala(
+            misfit_pt, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn, step=cfg.mala_step,
+            n_temps=cfg.n_temps, lambda_min=cfg.lambda_min, adapt_ladder=cfg.adapt_ladder,
+        )
+    elif smp == "pcn" and like == "fom":
         warm = _WARMUP_DA
         run = lambda g, n_steps, n_burn: run_pcn_segmented(
             misfit_b, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn, beta=cfg.beta,
@@ -412,22 +559,25 @@ def run_inversion(
         )
     else:
         warm = _WARMUP_DA
-        misfit_c = mk_misfit(pipe.batched_forward_fn(cfg.da_coarse))
+        # MALA subchains need the coarse gradient; their beta is the initial h
+        mala = cfg.da_inner == "mala"
+        misfit_c = misfit_d(cfg.da_coarse) if mala else mk_misfit(pipe.batched_forward_fn(cfg.da_coarse))
+        da_beta = cfg.mala_step if mala else cfg.beta
         fom = like == "fom"
         if smp == "da_pcn":
             run = lambda g, n_steps, n_burn: run_da_pcn_segmented(
                 misfit_b, misfit_c, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
-                beta=cfg.beta, subchain=cfg.subchain, segment=64 if fom else 512, inner=cfg.da_inner,
+                beta=da_beta, subchain=cfg.subchain, segment=64 if fom else 512, inner=cfg.da_inner,
             )
         else:
             run = lambda g, n_steps, n_burn: run_pt_da_segmented(
                 misfit_b, misfit_c, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
-                beta=cfg.beta, subchain=cfg.subchain, n_temps=cfg.n_temps,
+                beta=da_beta, subchain=cfg.subchain, n_temps=cfg.n_temps,
                 lambda_min=cfg.lambda_min, segment=32 if fom else 512, inner=cfg.da_inner,
                 adapt_ladder=cfg.adapt_ladder,
             )
 
-    run(_child(gen), min(cfg.n_steps, warm[0]), min(cfg.n_burn, warm[1]))
+    (run_warm or run)(_child(gen), min(cfg.n_steps, warm[0]), min(cfg.n_burn, warm[1]))
     _sync(dev)
     g_run = _child(gen)
     if dev.type == "cuda":
@@ -478,7 +628,7 @@ def run_inversion(
     # tempered runs: one batch of prior draws turns the stepping-stone
     # accumulators into the log evidence
     log_z = log_z_std = None
-    if smp in ("pt_pcn", "pt_da_pcn"):
+    if smp in _TEMPERED:
         est = log_evidence_from_pt(res, misfit_b, pipe.prior, _child(gen))
         log_z, log_z_std = est.log_z, est.log_z_std
         log.log("log_evidence", log_z=log_z, log_z_std=log_z_std, method="ss")
@@ -495,7 +645,7 @@ def run_inversion(
     if smp in ("da_pcn", "pt_da_pcn"):
         extra = dict(inner_accept_rate=float(torch.mean(res.inner_accept_rate)),
                      n_fine_evals=res.n_fine_evals, subchain=cfg.subchain)
-    if smp in ("pt_pcn", "pt_da_pcn"):
+    if smp in _TEMPERED:
         extra["swap_rate"] = res.swap_rate.cpu().tolist()
     log.log(
         "inversion", likelihood=like, sampler=smp, wall_seconds=wall,

@@ -31,9 +31,19 @@ and ``log_evidence_std``; ``--infer-noise`` integrates the noise out and
 adds ``noise_sigma_post``. ``invert --data obs.npz`` inverts
 the observations ``fom --save-obs`` wrote (``theta_true`` is then null);
 ``--dtype float64`` builds the pipeline in float64, with FOM solves at tol
-1e-10 under a cap of 4,000 (the plain PCG).
-Flags the port does not support yet (other samplers, box priors, the bf16
-precision tiers, the MALA inner kernel, the greedy ROM basis) raise
+1e-10 under a cap of 4,000 (the plain PCG). The Laplace-seeded samplers
+(``laplace_mh``, ``gpcn``, ``mala_lap``, ``hmc_lap``), the gradient samplers
+(``mala``, ``hmc``: ``--mala-step`` is the initial step size, ``--hmc-leap``
+the trajectory length, 0 for ChEES) and ``pt_mala`` run as well;
+``--da-inner mala`` gives the DA samplers MALA subchains.
+
+    python -m bayesianinferencedl_tpu_torch.cli map --resolution 4 --noise 1e-3
+
+builds the pipeline and prints the MAP (8-start BFGS on the differentiable
+forward) with the Laplace approximation's standard deviations, as the
+reference's ``map`` does.
+Flags the port does not support yet (``mlda_pcn``, box priors, the bf16
+precision tiers, the greedy ROM basis, ``map --psis``) raise
 NotImplementedError naming their ROADMAP.md item.
 """
 
@@ -156,15 +166,13 @@ def cmd_rom(args) -> None:
     print(json.dumps({"r": args.r, "method": args.method, "rel_err_vs_fom": rel}))
 
 
-def cmd_invert(args) -> None:
+def _pipeline_config(args, mcmc):
+    """The PipelineConfig of ``invert`` and ``map`` from their flags."""
     from bayesianinferencedl_tpu_torch.config import (
-        FEMConfig, MCMCConfig, MeshConfig, PipelineConfig, PriorConfig, ROMConfig, SurrogateConfig,
+        FEMConfig, MeshConfig, PipelineConfig, PriorConfig, ROMConfig, SurrogateConfig,
     )
-    from bayesianinferencedl_tpu_torch.api import build_pipeline, run_inversion
-    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
 
-    log = MetricsLogger(args.metrics)
-    cfg = PipelineConfig(
+    return PipelineConfig(
         mesh=MeshConfig(resolution=args.resolution),
         fem=FEMConfig(biot=args.biot, cg_tol=1e-10 if args.dtype == "float64" else 1e-7,
                       cg_maxiter=_cg_maxiter(args) if args.cg_maxiter is None else args.cg_maxiter),
@@ -173,15 +181,25 @@ def cmd_invert(args) -> None:
             online_precision=args.online_precision,
         ),
         surrogate=SurrogateConfig(n_train=args.n_train, epochs=args.epochs, seed=args.seed),
-        mcmc=MCMCConfig(
+        mcmc=mcmc,
+        prior=PriorConfig(mean=args.prior_mean, sigma=args.prior_sigma, dim=5, kind=args.prior),
+    )
+
+
+def cmd_invert(args) -> None:
+    from bayesianinferencedl_tpu_torch.config import MCMCConfig
+    from bayesianinferencedl_tpu_torch.api import build_pipeline, run_inversion
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    log = MetricsLogger(args.metrics)
+    cfg = _pipeline_config(args, MCMCConfig(
             n_chains=args.chains, n_steps=args.steps, n_burn=args.burn, beta=args.beta,
             noise_sigma=args.noise, likelihood=args.likelihood, sampler=args.sampler,
             seed=args.seed, n_temps=args.n_temps, lambda_min=args.lambda_min,
             adapt_ladder=args.adapt_ladder, subchain=args.subchain, da_coarse=args.da_coarse,
-            da_inner=args.da_inner, infer_noise=args.infer_noise,
-        ),
-        prior=PriorConfig(mean=args.prior_mean, sigma=args.prior_sigma, dim=5, kind=args.prior),
-    )
+            da_inner=args.da_inner, infer_noise=args.infer_noise, hmc_leap=args.hmc_leap,
+            mala_step=args.mala_step,
+        ))
     pipe = build_pipeline(cfg, device=args.device, dtype=_dtype(args), metrics=log)
     obs = None
     if args.data:
@@ -221,6 +239,79 @@ def cmd_invert(args) -> None:
     print(json.dumps(out))
 
 
+def cmd_map(args) -> None:
+    """Deterministic inversion: the MAP point and the Laplace approximation's
+    standard deviations (the reference's ``map``)."""
+    from bayesianinferencedl_tpu_torch.api import _child, build_pipeline
+    from bayesianinferencedl_tpu_torch.config import MCMCConfig
+    from bayesianinferencedl_tpu_torch.infer.map import find_map_multistart, laplace_approximation
+    from bayesianinferencedl_tpu_torch.infer.pcn import gaussian_misfit, marginal_misfit
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    if args.psis:
+        raise NotImplementedError(
+            "map --psis (the PSIS certificate of the Laplace fit, infer/psis.py) is not ported "
+            "yet: ROADMAP.md queue 1, item 20"
+        )
+    log = MetricsLogger(args.metrics)
+    pipe = build_pipeline(_pipeline_config(args, MCMCConfig(noise_sigma=args.noise)),
+                          device=args.device, dtype=_dtype(args), metrics=log)
+    dev, dt = pipe.device, _dtype(args)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    # working coordinates: log k under the gaussian prior (to_theta is the
+    # identity), as in run_inversion
+    x_true = pipe.prior.sample(gen)
+    data = pipe.fin.forward(torch.exp(pipe.prior.to_theta(x_true)))
+    data = data + args.noise * torch.randn(data.shape, generator=gen, dtype=dt, device=dev)
+    fwd = pipe.batched_forward_fn(args.likelihood, differentiable=True)
+    b0 = float(args.noise) ** 2
+    if args.infer_noise:  # the MAP of the sigma-marginal potential
+        misfit = marginal_misfit(fwd, data, a0=2.0, b0=b0)
+    else:
+        misfit = gaussian_misfit(fwd, data, args.noise)
+    x_map, nlp = find_map_multistart(misfit, pipe.prior, _child(gen), n_starts=8)
+    sig_lap = args.noise
+    if args.infer_noise:  # Laplace at the plug-in conditional-mode scale (run_inversion's rule)
+        with torch.no_grad():
+            r_map = fwd(x_map[None])[0] - data
+        sig_lap = float(np.sqrt((b0 + 0.5 * float(torch.sum(r_map * r_map)))
+                                / (2.0 + 0.5 * r_map.shape[-1])))
+    lap = laplace_approximation(fwd, data, sig_lap, pipe.prior, x_map)
+    theta_map = pipe.prior.to_theta(x_map).detach().cpu().numpy()
+    rec = {
+        "theta_map": theta_map.tolist(),
+        "theta_true": pipe.prior.to_theta(x_true).cpu().numpy().tolist(),
+        "laplace_sd_working": np.sqrt(np.diag(lap.cov.cpu().numpy())).tolist(),
+        "k_map": np.exp(theta_map).tolist(),
+        "nlp": float(nlp),
+        "prior": args.prior,
+        **({"noise_sigma_plugin": sig_lap} if args.infer_noise else {}),
+    }
+    print(json.dumps(rec))
+
+
+def _add_build(p: argparse.ArgumentParser) -> None:
+    """The offline build's flags, shared by ``invert`` and ``map``."""
+    p.add_argument("--device", default="cuda", help="torch device; cpu runs the plain kernel versions")
+    p.add_argument("--resolution", type=int, default=4)
+    p.add_argument("--biot", type=float, default=0.1)
+    p.add_argument("--dtype", choices=["float32", "float64"], default="float32",
+                   help="the pipeline's dtype; float64 solves the FOM at tol 1e-10")
+    p.add_argument("--cg-maxiter", type=int, default=None,
+                   help="iteration cap per FOM solve (default: the reference's max(480, 120 * "
+                        "resolution) in float32, 4,000 in float64)")
+    p.add_argument("--metrics", type=str, default=None, help="JSONL metrics path")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--prior", choices=["gaussian", "uniform", "log_uniform"], default="gaussian")
+    p.add_argument("--prior-mean", type=float, default=0.0, help="gaussian prior mean of log k")
+    p.add_argument("--prior-sigma", type=float, default=0.6, help="gaussian prior sd of log k")
+    p.add_argument("--n-snapshots", type=int, default=256)
+    p.add_argument("--r", type=int, default=40)
+    p.add_argument("--n-train", type=int, default=1024)
+    p.add_argument("--epochs", type=int, default=300)
+    p.add_argument("--online-precision", choices=["highest", "high", "fast"], default="highest")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="bayesianinferencedl_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -247,24 +338,7 @@ def main(argv=None) -> None:
     p.set_defaults(fn=cmd_rom)
 
     p = sub.add_parser("invert", help="offline build + pCN inversion")
-    p.add_argument("--device", default="cuda", help="torch device; cpu runs the plain kernel versions")
-    p.add_argument("--resolution", type=int, default=4)
-    p.add_argument("--biot", type=float, default=0.1)
-    p.add_argument("--dtype", choices=["float32", "float64"], default="float32",
-                   help="the pipeline's dtype; float64 solves the FOM at tol 1e-10")
-    p.add_argument("--cg-maxiter", type=int, default=None,
-                   help="iteration cap per FOM solve (default: the reference's max(480, 120 * "
-                        "resolution) in float32, 4,000 in float64)")
-    p.add_argument("--metrics", type=str, default=None, help="JSONL metrics path")
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--prior", choices=["gaussian", "uniform", "log_uniform"], default="gaussian")
-    p.add_argument("--prior-mean", type=float, default=0.0, help="gaussian prior mean of log k")
-    p.add_argument("--prior-sigma", type=float, default=0.6, help="gaussian prior sd of log k")
-    p.add_argument("--n-snapshots", type=int, default=256)
-    p.add_argument("--r", type=int, default=40)
-    p.add_argument("--n-train", type=int, default=1024)
-    p.add_argument("--epochs", type=int, default=300)
-    p.add_argument("--online-precision", choices=["highest", "high", "fast"], default="highest")
+    _add_build(p)
     p.add_argument("--chains", type=int, default=1024)
     p.add_argument("--steps", type=int, default=10_000)
     p.add_argument("--burn", type=int, default=1_000)
@@ -284,7 +358,12 @@ def main(argv=None) -> None:
     p.add_argument("--subchain", type=int, default=64, help="da_pcn inner steps per fine correction")
     p.add_argument("--da-coarse", choices=["rom", "rom_nn"], default="rom_nn")
     p.add_argument("--da-inner", choices=["pcn", "mala"], default="pcn",
-                   help="da_pcn subchain kernel (mala is not ported yet)")
+                   help="da_pcn subchain kernel (mala = gradient-informed)")
+    p.add_argument("--hmc-leap", type=int, default=8,
+                   help="hmc leapfrog steps per trajectory; 0 = auto (cross-chain ChEES "
+                        "trajectory tuning, rom/rom_nn likelihoods)")
+    p.add_argument("--mala-step", type=float, default=0.1,
+                   help="initial MALA/HMC step size (adapted per chain in burn-in)")
     p.add_argument("--data", type=str, default=None,
                    help="observation npz (key 'data', as `fom --save-obs` writes) to invert "
                         "instead of synthetic data")
@@ -293,6 +372,17 @@ def main(argv=None) -> None:
                         "conjugate InvGamma(2, noise^2) prior; --noise becomes the prior's scale "
                         "and the sigma posterior is reported")
     p.set_defaults(fn=cmd_invert)
+
+    p = sub.add_parser("map", help="MAP point + Laplace credible intervals")
+    _add_build(p)
+    p.add_argument("--noise", type=float, default=1e-3)
+    p.add_argument("--likelihood", choices=["fom", "rom", "rom_nn"], default="rom_nn")
+    p.add_argument("--infer-noise", action="store_true",
+                   help="MAP under the sigma-marginalised potential (InvGamma(2, noise^2) prior); "
+                        "Laplace intervals at the plug-in conditional-mode noise scale")
+    p.add_argument("--psis", type=int, default=0, metavar="K",
+                   help="certify the Laplace fit by PSIS with K draws (not ported yet)")
+    p.set_defaults(fn=cmd_map)
 
     args = ap.parse_args(argv)
     args.fn(args)

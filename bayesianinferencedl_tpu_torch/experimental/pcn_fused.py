@@ -46,6 +46,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from bayesianinferencedl_tpu_torch.utils.precision import fp32_matmul
+
 STATE_COLS = 8  # [theta_0..theta_4 | phi | log_beta | accept]
 TARGET_ACCEPT = 0.234
 MAX_DIM = 5
@@ -214,6 +216,7 @@ def stacked_amat(astack: torch.Tensor, k_aug: torch.Tensor, p: torch.Tensor) -> 
     return acc
 
 
+@fp32_matmul()
 def _misfit(ops: FusedOperands, theta: torch.Tensor, cg_iters: int) -> torch.Tensor:
     """phi (C,) at theta (C, 8) with columns d:8 zero: the reference's
     likelihood_phi, operation for operation."""

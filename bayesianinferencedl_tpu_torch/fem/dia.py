@@ -24,6 +24,7 @@ from bayesianinferencedl_tpu_torch.geometry.fin import N_REGIONS
 from bayesianinferencedl_tpu_torch.geometry.mesh import FinMesh
 from bayesianinferencedl_tpu_torch.fem import p1
 from bayesianinferencedl_tpu_torch.utils.device import resolve_device
+from bayesianinferencedl_tpu_torch.utils.precision import fp32_matmul
 
 
 @dataclass
@@ -242,9 +243,9 @@ class StencilOperator:
         return vals[..., self.offsets.index(0)]
 
     def observe(self, u: torch.Tensor) -> torch.Tensor:
-        """QoI map y = B u, (..., n) -> (..., n_obs), in full fp32 (the
-        callers keep TF32 off)."""
-        return torch.matmul(u, self.qoi.T)
+        """QoI map y = B u, (..., n) -> (..., n_obs), in full fp32."""
+        with fp32_matmul():
+            return torch.matmul(u, self.qoi.T)
 
     # --- 2-D grid view (the single-sample stencil kernel K4) ---------------
     # The shapes are the JAX package's: the grid padded to (8, 128) tiles,

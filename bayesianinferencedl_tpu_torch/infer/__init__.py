@@ -1,2 +1,3 @@
-"""Bayesian inversion layer: Gaussian prior, batched pCN, rank-normalised
-diagnostics."""
+"""Bayesian inversion layer: Gaussian prior, pCN, delayed acceptance, parallel
+tempering and the evidence, the MAP and Laplace approximation with the
+samplers it seeds, MALA and HMC, and the diagnostics."""

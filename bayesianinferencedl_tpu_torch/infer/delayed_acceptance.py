@@ -29,8 +29,19 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from bayesianinferencedl_tpu_torch.infer.mala import (
+    LOG_H,
+    TARGET_ACCEPT_MALA,
+    _make_nlp,
+    frame,
+    init_state,
+    mala_step,
+    misfit_grad_fn,
+    tempered_mala_step,
+)
 from bayesianinferencedl_tpu_torch.infer.pcn import TARGET_ACCEPT, PCNState, pcn_step
 from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior
+from bayesianinferencedl_tpu_torch.infer.samplers import draws
 from bayesianinferencedl_tpu_torch.infer.segmented import (
     accept_rate_spec,
     drive_segments,
@@ -77,16 +88,77 @@ def pcn_inner_kernel(misfit_coarse: Callable, prior: GaussianPrior, lam=None) ->
     )
 
 
+class _TemperedMALAState(NamedTuple):
+    y: torch.Tensor  # (..., d) in the prior's frame
+    phi: torch.Tensor  # (...) untempered coarse misfit
+    gphi: torch.Tensor  # (..., d) its gradient in y
+    n_accept: torch.Tensor
+
+
+def mala_inner_kernel(misfit_coarse: Callable, prior: GaussianPrior, lam=None) -> InnerKernel:
+    """Gradient-informed subchains: drift-clipped whitened MALA steps on the
+    coarse posterior in the prior's frame, beta being the per-chain step
+    size h. The coarse misfit must be differentiable
+    (``batched_forward_fn(..., differentiable=True)``); init pays one
+    forward and reverse pass for the starting gradient (and recomputes the
+    coarse misfit, which that pass gives anyway). lam: per-chain inverse
+    temperatures of tempered DA's levels, whose subchains target
+    exp(-lam Phi_c) x prior with the prior term taken in y
+    (``mala.tempered_mala_step``, as the reference's tempered DA does), or
+    None for the untempered target of ``mala.mala_step``."""
+    to_theta, to_y = frame(prior.mean, prior.chol)
+    if lam is None:
+        _, eval_fn = _make_nlp(misfit_coarse, prior, prior.mean, prior.chol)
+        return InnerKernel(
+            init=lambda theta, phi_c: init_state(eval_fn, to_y, theta),
+            step=lambda h, s, gen, **draws: mala_step(eval_fn, h, s, gen, **draws),
+            theta=lambda s: to_theta(s.y), phi=lambda s: s.phi, target=TARGET_ACCEPT_MALA,
+        )
+    phi_grad = misfit_grad_fn(misfit_coarse, prior)
+
+    def init(theta, phi_c):
+        y = to_y(theta)
+        phi, gphi = phi_grad(y)  # the coarse misfit recomputed: the pass needs it anyway
+        return _TemperedMALAState(y=y, phi=phi, gphi=gphi,
+                                  n_accept=torch.zeros_like(phi, dtype=torch.int32))
+
+    def step(h, s, gen, *, normals=None, uniforms=None):
+        xi, u = draws(gen, s.y.shape, s.y.dtype, s.y.device, normals, uniforms)
+        y, phi, gphi, acc = tempered_mala_step(phi_grad, lam, h, s.y, s.phi, s.gphi, xi, u)
+        return _TemperedMALAState(y, phi, gphi, s.n_accept + acc.to(torch.int32)), acc
+
+    return InnerKernel(init=init, step=step, theta=lambda s: to_theta(s.y), phi=lambda s: s.phi,
+                       target=TARGET_ACCEPT_MALA)
+
+
 def make_inner_kernel(inner: str, misfit_coarse: Callable, prior: GaussianPrior,
                       lam=None) -> InnerKernel:
     if inner == "pcn":
         return pcn_inner_kernel(misfit_coarse, prior, lam)
     if inner == "mala":
-        raise NotImplementedError(
-            "the MALA inner kernel of delayed acceptance is not ported yet: ROADMAP.md "
-            "queue 1, item 18"
-        )
+        return mala_inner_kernel(misfit_coarse, prior, lam)
     raise ValueError(f"unknown DA inner kernel {inner!r} (use 'pcn' or 'mala')")
+
+
+def adapt_inner(inner: str, log_beta, ema, frac, acc_out, eta: float, target: float):
+    """One Robbins-Monro step on the inner kernel's per-chain log step size
+    from an outer step's inner accept fraction and outer accepts. pcn drives
+    the effective acceptance, inner fraction x outer survival, toward the
+    target: with an accurate surrogate that is the inner rate, and with a
+    biased one it shrinks the step until the subchain's (Phi_f - Phi_c)
+    drift stops killing the correction. That product cannot reach MALA's
+    0.574 whenever the outer acceptance sits below it (it rails h to the
+    floor), so mala tunes the inner rate to its target and subtracts a
+    penalty only when ``ema``, a running estimate of the outer acceptance,
+    falls below 0.25. Returns (log_beta, ema), log beta clipped to pCN's
+    (1e-4, 0.9999) or MALA's [1e-8, 10]."""
+    dtype = log_beta.dtype
+    if inner == "mala":
+        ema = ema + 0.05 * (acc_out.to(dtype) - ema)
+        drive = (frac - target) - 2.0 * torch.clamp(0.25 - ema, min=0.0)
+        return torch.clamp(log_beta + eta * drive, *LOG_H), ema
+    drive = frac * acc_out.to(dtype) - target
+    return torch.clamp(log_beta + eta * drive, math.log(1e-4), math.log(0.9999)), ema
 
 
 class DAResult(NamedTuple):
@@ -174,9 +246,11 @@ def run_da_pcn(
     outer_uniforms: Optional[torch.Tensor] = None,
 ) -> DAResult:
     """Delayed-acceptance pCN from theta0 (C, d); n_steps and n_burn count
-    outer steps. During burn-in the inner step size of each chain adapts
-    toward 0.234 effective acceptance (inner fraction x outer accept); the
-    sampling phase runs the frozen kernel. beta: scalar or per-chain (C,).
+    outer steps. inner: "pcn" subchains, or "mala" (gradient-informed; the
+    coarse misfit must be differentiable, and beta is then the initial step
+    size h). During burn-in the inner step size of each chain adapts
+    (``adapt_inner``); the sampling phase runs the frozen kernel. beta:
+    scalar or per-chain (C,).
 
     normals (n_steps, subchain, C, d), uniforms (n_steps, subchain, C) and
     outer_uniforms (n_steps, C): optional pre-drawn draws for every outer
@@ -185,7 +259,7 @@ def run_da_pcn(
     kernel = make_inner_kernel(inner, misfit_coarse, prior)
     state = da_init(misfit_fine, misfit_coarse, theta0)
     log_beta = torch.log(torch.as_tensor(beta, dtype=dtype, device=dev)).expand(state.phi_f.shape)
-    lo, hi = math.log(1e-4), math.log(0.9999)  # pCN's beta lives in (0, 1)
+    ema = torch.full_like(state.phi_f, 0.5)  # the outer-acceptance estimate of adapt_inner
     draws = lambda t: dict(
         normals=None if normals is None else normals[t],
         uniforms=None if uniforms is None else uniforms[t],
@@ -195,15 +269,9 @@ def run_da_pcn(
     for t in range(n_burn):
         state, acc_out, acc_inner = da_step(
             misfit_fine, kernel, torch.exp(log_beta), subchain, state, gen, **draws(t))
-        # Robbins-Monro on the effective acceptance, inner fraction x outer
-        # survival: with an accurate surrogate the outer factor is ~1 and
-        # this is the usual inner-rate tuning; with a biased one it shrinks
-        # the step until the subchain's accumulated (Phi_f - Phi_c) drift
-        # stops killing the outer correction
         eta = 0.5 / (1.0 + t + adapt_t0) ** 0.6
-        frac = acc_inner.to(dtype) / subchain
-        drive = frac * acc_out.to(dtype) - kernel.target
-        log_beta = torch.clamp(log_beta + eta * drive, lo, hi)
+        log_beta, ema = adapt_inner(inner, log_beta, ema, acc_inner.to(dtype) / subchain, acc_out,
+                                    eta, kernel.target)
     if n_burn > 0:
         state = state._replace(n_accept=torch.zeros_like(state.n_accept))
 

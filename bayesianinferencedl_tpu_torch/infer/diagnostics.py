@@ -1,5 +1,7 @@
-"""Rank-normalised split MCMC diagnostics (Vehtari, Gelman, Simpson,
-Carpenter, Bürkner 2021): split-R-hat, bulk ESS and tail ESS.
+"""MCMC diagnostics: the rank-normalised split estimators (Vehtari, Gelman,
+Simpson, Carpenter, Bürkner 2021) split-R-hat, bulk ESS and tail ESS, the
+production gates; the reference's plain per-chain ESS and Gelman-Rubin
+R-hat; and the two-sample KS distance.
 
 Like the JAX reference, the rank normalisation and the autocorrelation
 work in float32 (these are diagnostics), and one parameter dimension is
@@ -22,6 +24,62 @@ def _autocorr_fft(x: torch.Tensor) -> torch.Tensor:
     f = torch.fft.rfft(x, n=2 * n, dim=0)
     acf = torch.fft.irfft(f * f.conj(), n=2 * n, dim=0)[:n]
     return acf / torch.clamp(acf[0], min=_TINY32)
+
+
+def effective_sample_size(chains: torch.Tensor) -> torch.Tensor:
+    """Per-chain ESS summed over chains, Geyer's truncated positive-pair
+    rule on each chain's own autocorrelation (no splitting, no rank
+    normalisation: ``ess_bulk`` is the production gate; this is the
+    reference's older estimator, which a multimodal posterior flatters).
+    chains (n, c, d) -> (d,); (n, c) -> (1,). The autocorrelation is taken
+    in float32, the sums in the chains' dtype, as the reference does."""
+    if chains.dim() == 2:
+        chains = chains[..., None]
+    n, c, d = chains.shape
+    n_pairs = (n - 1) // 2
+    out = []
+    for j in range(d):  # one dimension's spectra at a time
+        rho = _autocorr_fft(chains[:, :, j])  # (n, c)
+        pair = rho[1 : 1 + 2 * n_pairs].reshape(n_pairs, 2, c).sum(1)
+        keep = torch.cumprod((pair > 0).to(chains.dtype), 0)
+        tau = 1.0 + 2.0 * torch.sum(pair * keep, 0)
+        out.append(torch.sum(n / torch.clamp(tau, min=1.0)))
+    return torch.stack(out)
+
+
+def ks_distance(samples_a: torch.Tensor, samples_b: torch.Tensor) -> torch.Tensor:
+    """Two-sample Kolmogorov-Smirnov distance per marginal: the largest
+    difference of the two empirical CDFs over the pooled sample points.
+    samples (..., d), flattened to (N, d). Returns (d,) in float32, the
+    reference's dtype for the count ratios."""
+    a = samples_a.reshape(-1, samples_a.shape[-1])
+    b = samples_b.reshape(-1, samples_b.shape[-1])
+    out = []
+    for j in range(a.shape[1]):
+        xs, ys = torch.sort(a[:, j]).values, torch.sort(b[:, j]).values
+        grid = torch.cat([xs, ys])
+        Fa = torch.searchsorted(xs, grid, right=True).to(torch.float32) / xs.shape[0]
+        Fb = torch.searchsorted(ys, grid, right=True).to(torch.float32) / ys.shape[0]
+        out.append(torch.max(torch.abs(Fa - Fb)))
+    return torch.stack(out)
+
+
+def rhat(chains: torch.Tensor) -> torch.Tensor:
+    """Plain Gelman-Rubin potential scale reduction (unsplit, not rank
+    normalised: ``split_rhat`` is the production gate). chains (n, c, d)
+    -> (d,)."""
+    if chains.dim() == 2:
+        chains = chains[..., None]
+    if chains.shape[1] < 2:
+        raise ValueError(
+            f"rhat needs >= 2 chains (cross-chain variance is undefined for one); got shape "
+            f"{tuple(chains.shape)}"
+        )
+    n = chains.shape[0]
+    W = torch.mean(torch.var(chains, 0, correction=1), 0)
+    B = n * torch.var(torch.mean(chains, 0), 0, correction=1)
+    var_plus = (n - 1) / n * W + B / n
+    return torch.sqrt(var_plus / torch.clamp(W, min=torch.finfo(chains.dtype).tiny))
 
 
 def _quantile(x: torch.Tensor, q: float) -> torch.Tensor:

@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior
+from bayesianinferencedl_tpu_torch.utils.precision import fp32_matmul
 
 
 class EvidenceEstimate(NamedTuple):
@@ -50,7 +51,9 @@ def _prior_phi(misfit_fn: Callable, prior: GaussianPrior, gen, n: int,
     standard normals."""
     if normals is None:
         return misfit_fn(prior.sample(gen, (n,)))
-    return misfit_fn(prior.mean + normals @ prior.chol.T)
+    with fp32_matmul():
+        theta = prior.mean + normals @ prior.chol.T
+    return misfit_fn(theta)
 
 
 def prior_phi_moments(

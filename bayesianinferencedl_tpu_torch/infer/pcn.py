@@ -23,6 +23,7 @@ import torch
 
 from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior
 from bayesianinferencedl_tpu_torch.infer.segmented import accept_rate_spec, drive_segments
+from bayesianinferencedl_tpu_torch.utils.precision import fp32_matmul
 
 TARGET_ACCEPT = 0.234
 
@@ -69,7 +70,8 @@ def pcn_step(
         uniforms = torch.rand(phi.shape, generator=gen, dtype=dtype, device=dev)
     beta = torch.as_tensor(beta, dtype=dtype, device=dev)
     b = beta[..., None] if beta.dim() == theta.dim() - 1 else beta
-    xi = normals @ prior.chol.T
+    with fp32_matmul():
+        xi = normals @ prior.chol.T
     mean = prior.mean
     prop = mean + torch.sqrt(1.0 - b**2) * (theta - mean) + b * xi
     phi_prop = misfit_fn(prop)

@@ -7,6 +7,7 @@ from typing import NamedTuple
 import torch
 
 from bayesianinferencedl_tpu_torch.utils.device import resolve_device
+from bayesianinferencedl_tpu_torch.utils.precision import fp32_matmul
 
 
 class GaussianPrior(NamedTuple):
@@ -31,7 +32,13 @@ class GaussianPrior(NamedTuple):
 
     def sample(self, gen: torch.Generator, shape: tuple = ()) -> torch.Tensor:
         z = torch.randn((*shape, self.dim), generator=gen, dtype=self.mean.dtype, device=self.mean.device)
-        return self.mean + z @ self.chol.T
+        with fp32_matmul():
+            return self.mean + z @ self.chol.T
+
+    def whiten(self, theta: torch.Tensor) -> torch.Tensor:
+        """L^-1 (theta - mean) over the last axis, by a triangular solve."""
+        v = (theta - self.mean)[..., None]
+        return torch.linalg.solve_triangular(self.chol, v, upper=False)[..., 0]
 
     def to_theta(self, theta: torch.Tensor) -> torch.Tensor:
         """Working coordinates ARE theta = log k for the Gaussian prior."""

@@ -12,9 +12,11 @@ the exact posterior; hot levels see a flatter likelihood, hop between basins
 and pass the hops down the ladder.
 
 States are (K, G, d) tensors, temperature levels x chain groups. A step is
-one batched misfit over all K*G proposals (pCN), or one DA outer step per
-level with one batched fine misfit (tempered delayed acceptance), then an
-alternating-parity exchange pass written as a where-shuffle along K. The
+one batched misfit over all K*G proposals (pCN), one forward and reverse
+pass over them (MALA, ``run_pt_mala``), or one DA outer step per level with
+one batched fine misfit (tempered delayed acceptance, with pCN or MALA
+subchains), then an alternating-parity exchange pass written as a
+where-shuffle along K. The
 loop is a Python loop with no host synchronisation inside it. Every sampler
 takes optional pre-drawn draws so a test can replay another implementation's
 stream; without them they come from a ``torch.Generator`` in step order:
@@ -32,9 +34,22 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from bayesianinferencedl_tpu_torch.infer.delayed_acceptance import DAState, da_step, make_inner_kernel
+from bayesianinferencedl_tpu_torch.infer.delayed_acceptance import (
+    DAState,
+    adapt_inner,
+    da_step,
+    make_inner_kernel,
+)
+from bayesianinferencedl_tpu_torch.infer.mala import (
+    LOG_H,
+    TARGET_ACCEPT_MALA,
+    frame,
+    misfit_grad_fn,
+    tempered_mala_step,
+)
 from bayesianinferencedl_tpu_torch.infer.pcn import TARGET_ACCEPT, PCNState, pcn_step
 from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior
+from bayesianinferencedl_tpu_torch.infer.samplers import draws
 from bayesianinferencedl_tpu_torch.infer.segmented import (
     accept_rate_spec,
     drive_segments,
@@ -63,6 +78,19 @@ class PTResult(NamedTuple):
     phi_level_mean: torch.Tensor  # (K, G) post-burn E_lambda[Phi] per level
     phi2_level_mean: torch.Tensor  # (K, G) post-burn E_lambda[Phi^2] per level
     ss_level_mean: torch.Tensor  # (K-1, G) E_{lambda_j}[exp(-(lambda_{j+1} - lambda_j) Phi)], float64
+
+
+class PTMALAResult(NamedTuple):
+    samples: torch.Tensor  # (n_kept, G, d) cold-level samples, working coordinates
+    phi_trace: torch.Tensor  # (n_kept, G) cold-level misfits
+    accept_rate: torch.Tensor  # (K, G) within-level post-burn acceptance
+    swap_rate: torch.Tensor  # (K-1,) mean swap acceptance per adjacent pair
+    step: torch.Tensor  # (K, G) final adapted MALA step sizes h
+    theta: torch.Tensor  # (K, G, d) final states, working coordinates (resume)
+    lambdas: torch.Tensor  # (K, G) final ladder (resume)
+    phi_level_mean: torch.Tensor  # (K, G) post-burn E_lambda[Phi] per level
+    phi2_level_mean: torch.Tensor  # (K, G) post-burn E_lambda[Phi^2] per level
+    ss_level_mean: torch.Tensor  # (K-1, G) stepping-stone ratios, float64
 
 
 class PTDAResult(NamedTuple):
@@ -300,6 +328,97 @@ def run_pt_pcn(
     )
 
 
+def run_pt_mala(
+    misfit_fn: Callable,
+    prior: GaussianPrior,
+    theta0: torch.Tensor,
+    gen: Optional[torch.Generator] = None,
+    *,
+    n_steps: int,
+    n_burn: int = 0,
+    step=0.1,
+    n_temps: int = 4,
+    lambda_min: float = 0.05,
+    adapt: bool = True,
+    adapt_t0: float = 0.0,
+    adapt_ladder: bool = False,
+    ladder=None,
+    normals: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None,
+    swap_uniforms: Optional[torch.Tensor] = None,
+) -> PTMALAResult:
+    """Gradient-informed parallel tempering: MALA within-level moves and
+    replica exchange. Level j runs drift-clipped whitened MALA on its
+    tempered target -log pi_j(y) = lambda_j Phi(theta(y)) + ||y||^2 / 2 in
+    the prior's frame (``mala.tempered_mala_step``), at one forward and
+    reverse pass over the whole (K*G, d) batch a step; the misfit and its
+    gradient in y are carried per level and swap with the state, so a swap
+    costs no evaluation. Swaps follow ``run_pt_pcn``'s rule on the carried
+    untempered misfits, so the cold level samples the exact posterior.
+
+    misfit_fn: batched and differentiable. theta0 (G, d) cold inits or
+    (K, G, d) resume states, in working coordinates. step: scalar or (K, G);
+    every level adapts per-chain log h toward 57.4% acceptance in burn-in
+    (adapt=True). adapt_ladder / ladder / adapt_t0 as in ``run_pt_pcn``.
+    normals (n_steps, K, G, d), uniforms and swap_uniforms (n_steps, K, G):
+    optional pre-drawn draws, burn-in first."""
+    K = n_temps
+    theta = _levels(theta0, K, "PTMALAResult")
+    _, G, d = theta.shape
+    dtype, dev = theta.dtype, theta.device
+    lam0, log_gap = _ladder_init(ladder, K, lambda_min, G, dtype, dev)
+    to_theta, to_y = frame(prior.mean, prior.chol)
+    phi_grad = misfit_grad_fn(misfit_fn, prior)
+
+    y = to_y(theta)
+    phi, gphi = phi_grad(y)
+    log_h = torch.log(torch.as_tensor(step, dtype=dtype, device=dev).expand(K, G))
+    n_accept = torch.zeros((K, G), dtype=torch.int32, device=dev)
+    n_swap = torch.zeros((max(K - 1, 0),), dtype=dtype, device=dev)
+    plans = [_exchange_plan(K, p, dev) for p in (0, 1)]
+    acc_sums = _Accumulators(phi)
+    pick = lambda a, t: None if a is None else a[t]
+    samples, phis = [], []
+    for t in range(n_steps):
+        lambdas = _lam_from_gaps(log_gap) if adapt_ladder else lam0
+        xi, u = draws(gen, y.shape, dtype, dev, pick(normals, t), pick(uniforms, t))
+        y, phi, gphi, acc = tempered_mala_step(phi_grad, lambdas, torch.exp(log_h), y, phi, gphi,
+                                               xi, u)
+        n_accept = n_accept + acc.to(torch.int32)
+        t_global = t + adapt_t0
+        if adapt:
+            eta = 0.5 / (1.0 + t_global) ** 0.6 if t < n_burn else 0.0
+            log_h = torch.clamp(log_h + eta * (acc.to(dtype) - TARGET_ACCEPT_MALA), *LOG_H)
+        if K > 1:
+            u_sw = pick(swap_uniforms, t)
+            if u_sw is None:
+                u_sw = torch.rand((K, G), generator=gen, dtype=dtype, device=dev)
+            (y, phi, gphi), n_swap, stats = _replica_exchange(
+                t_global, lambdas, phi, (y, phi, gphi), u_sw, n_swap, t >= n_burn, plans)
+            if adapt_ladder:
+                log_gap = _ladder_update(log_gap, stats, t, t_global, n_burn)
+        if t >= n_burn:
+            acc_sums.add(lambdas, phi)
+            samples.append(to_theta(y[-1]))
+            phis.append(phi[-1])
+        if t + 1 == n_burn:  # the post-burn counters start from 0
+            n_accept, n_swap = torch.zeros_like(n_accept), torch.zeros_like(n_swap)
+    n_keep = n_steps - n_burn
+    phi_mean, phi2_mean, ss_mean = acc_sums.means(n_keep)
+    return PTMALAResult(
+        samples=_stack(samples, (G, d), theta),
+        phi_trace=_stack(phis, (G,), theta),
+        accept_rate=n_accept.to(torch.float32) / max(n_keep, 1),
+        swap_rate=n_swap / max(n_keep / 2, 1),
+        step=torch.exp(log_h),
+        theta=to_theta(y),
+        lambdas=_lam_from_gaps(log_gap) if adapt_ladder else lam0,
+        phi_level_mean=phi_mean,
+        phi2_level_mean=phi2_mean,
+        ss_level_mean=ss_mean,
+    )
+
+
 def run_pt_da(
     misfit_fine: Callable,
     misfit_coarse: Callable,
@@ -333,15 +452,18 @@ def run_pt_da(
     misfits, so the cold level samples the exact fine posterior. n_steps and
     n_burn count outer steps; beta: scalar or (K, G); during burn-in each
     chain's inner step size adapts toward 0.234 effective acceptance (inner
-    fraction x outer accept). adapt_ladder / ladder / adapt_t0 as in
-    ``run_pt_pcn``. normals (n_steps, subchain, K, G, d), uniforms
+    fraction x outer accept; ``delayed_acceptance.adapt_inner``). inner:
+    "pcn", or "mala" (tempered drift-clipped MALA subchains on
+    lambda_j Phi_c(theta(y)) + ||y||^2 / 2 in the prior's frame; the coarse
+    misfit must be differentiable and beta is the initial step size h).
+    adapt_ladder / ladder / adapt_t0 as in ``run_pt_pcn``. normals (n_steps, subchain, K, G, d), uniforms
     (n_steps, subchain, K, G), outer_uniforms and swap_uniforms
     (n_steps, K, G): optional pre-drawn draws, burn-in first."""
     K = n_temps
     theta = _levels(theta0, K, "PTDAResult")
     _, G, d = theta.shape
     dtype, dev = theta.dtype, theta.device
-    make_inner_kernel(inner, misfit_coarse, prior)  # refuses an unported kernel before any solve
+    make_inner_kernel(inner, misfit_coarse, prior)  # refuses an unknown kernel before any solve
     lam0, log_gap = _ladder_init(ladder, K, lambda_min, G, dtype, dev)
     flat = lambda fn: lambda th: fn(th.reshape(K * G, d)).reshape(K, G)
     fine_all, coarse_all = flat(misfit_fine), flat(misfit_coarse)
@@ -349,6 +471,7 @@ def run_pt_da(
     zeros_i = torch.zeros((K, G), dtype=torch.int32, device=dev)
     state = DAState(theta=theta, phi_f=fine_all(theta), phi_c=coarse_all(theta), n_accept=zeros_i)
     log_beta = torch.log(torch.as_tensor(beta, dtype=dtype, device=dev).expand(K, G))
+    ema = torch.full((K, G), 0.5, dtype=dtype, device=dev)  # adapt_inner's outer-accept estimate
     n_in = zeros_i
     n_swap = torch.zeros((max(K - 1, 0),), dtype=dtype, device=dev)
     plans = [_exchange_plan(K, p, dev) for p in (0, 1)]
@@ -364,9 +487,8 @@ def run_pt_da(
         n_in = n_in + n_in_step
         t_global = t + adapt_t0
         eta = 0.5 / (1.0 + t_global) ** 0.6 if t < n_burn else 0.0
-        # effective acceptance = inner fraction x outer survival (run_da_pcn)
-        drive = n_in_step.to(dtype) / subchain * acc.to(dtype) - kernel.target
-        log_beta = torch.clamp(log_beta + eta * drive, *_LOG_BETA)
+        log_beta, ema = adapt_inner(inner, log_beta, ema, n_in_step.to(dtype) / subchain, acc, eta,
+                                    kernel.target)
         if K > 1:
             u_sw = pick(swap_uniforms, t)
             if u_sw is None:

@@ -10,6 +10,7 @@ snapshot selection, and autograd for the gradients.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import NamedTuple, Sequence
@@ -18,6 +19,7 @@ import torch
 from torch import nn
 
 from bayesianinferencedl_tpu_torch.utils.device import resolve_device
+from bayesianinferencedl_tpu_torch.utils.precision import fp32_matmul
 
 _ACTIVATIONS = {
     "tanh": torch.tanh,
@@ -71,6 +73,7 @@ class MLP(nn.Module):
             out += [W, b]
         return out
 
+    @fp32_matmul()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x
         for W, b in zip(self.weights[:-1], self.biases[:-1]):
@@ -132,12 +135,13 @@ class TrainedSurrogate(NamedTuple):
         reference's ``surrogate.params`` layout."""
         return [(W.detach(), b.detach()) for W, b in zip(self.mlp.weights, self.mlp.biases)]
 
-    @torch.no_grad()
-    def predict(self, log_k: torch.Tensor) -> torch.Tensor:
+    def predict(self, log_k: torch.Tensor, *, differentiable: bool = False) -> torch.Tensor:
         """NN error prediction e_hat(k) from log-conductivity, (..., 5) ->
-        (..., m)."""
-        x = (log_k - self.norm.x_mean) / self.norm.x_std
-        return self.mlp(x) * self.norm.y_std + self.norm.y_mean
+        (..., m); differentiable=True keeps the graph to log_k (the
+        gradient samplers), else no graph is recorded."""
+        with contextlib.nullcontext() if differentiable else torch.no_grad():
+            x = (log_k - self.norm.x_mean) / self.norm.x_std
+            return self.mlp(x) * self.norm.y_std + self.norm.y_mean
 
 
 def _train_loop(mlp: MLP, norm: Normalizer, x, y, gen: torch.Generator, lr,
@@ -171,8 +175,9 @@ def _train_loop(mlp: MLP, norm: Normalizer, x, y, gen: torch.Generator, lr,
     for t in range(steps):
         rows = idx[t] if idx is not None else torch.randint(
             0, n, (batch_size,), generator=gen, device=gen.device)
-        loss = loss_fn(x_tr[rows], y_tr[rows])
-        grads = torch.autograd.grad(loss, params)
+        with fp32_matmul():  # the backward's contractions too
+            loss = loss_fn(x_tr[rows], y_tr[rows])
+            grads = torch.autograd.grad(loss, params)
         opt = adam_update(params, grads, opt, lr)
         with torch.no_grad():
             val = loss_fn(x_val, y_val)

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from bayesianinferencedl_tpu_torch.utils.device import resolve_device
+from bayesianinferencedl_tpu_torch.utils.precision import fp32_matmul
 
 
 @dataclass(frozen=True)
@@ -78,7 +79,8 @@ class DeflationBasis:
     def coarse_matrices(self, ks: torch.Tensor, biot: float) -> torch.Tensor:
         """(B, 5) conductivities -> (B, m, m) coarse Galerkin matrices."""
         ks = torch.as_tensor(ks, dtype=self.C.dtype, device=self.C.device)
-        return torch.einsum("bi,imk->bmk", ks, self.C[:5]) + biot * self.C[5][None]
+        with fp32_matmul():
+            return torch.einsum("bi,imk->bmk", ks, self.C[:5]) + biot * self.C[5][None]
 
     def coarse_inverses(self, ks: torch.Tensor, biot: float) -> torch.Tensor:
         """(B, 5) -> (B, m, m) inverses of the SPD coarse matrices by a

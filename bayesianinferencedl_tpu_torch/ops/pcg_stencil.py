@@ -63,6 +63,7 @@ import functools
 import torch
 
 from bayesianinferencedl_tpu_torch.fem.solve import pcg
+from bayesianinferencedl_tpu_torch.utils.precision import fp32_matmul
 
 DIAG_SLOT = 3  # index of offset 0 in the ascending 7-offset DIA layout
 
@@ -100,6 +101,7 @@ def upper_planes(vals: torch.Tensor) -> torch.Tensor:
     return vals[..., DIAG_SLOT:].transpose(-1, -2).contiguous()
 
 
+@fp32_matmul()
 def pcg_stencil_reference(
     vals4: torch.Tensor,
     F: torch.Tensor,

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from bayesianinferencedl_tpu_torch.utils.device import resolve_device
+from bayesianinferencedl_tpu_torch.utils.precision import fp32_matmul
 
 
 @dataclass(frozen=True)
@@ -68,7 +69,9 @@ class ReducedOperator:
     def forward(self, ks: torch.Tensor) -> torch.Tensor:
         """G_ROM: (C, 5) -> (C, n_obs), the QoI of the lifted reduced
         solution, y_r = (B V) u_r."""
-        return self.solve(ks) @ self.Bhat.T
+        x = self.solve(ks)
+        with fp32_matmul():
+            return x @ self.Bhat.T
 
     def preconditioner(self, k_ref=None) -> torch.Tensor:
         """Dense P0 = Ahat(k_ref)^{-1} (default k_ref = 1), the fixed
@@ -80,13 +83,11 @@ class ReducedOperator:
         A = np.tensordot(k_ref, Ahat, axes=1) + self.biot * Mhat
         return torch.as_tensor(np.linalg.inv(A), dtype=self.Ahat.dtype, device=self.Ahat.device)
 
-    def solve_pcg(self, ks: torch.Tensor, P0: torch.Tensor, n_iters: int = 25) -> torch.Tensor:
-        """Reduced solves by preconditioned CG with a FIXED iteration count:
-        (C, 5) -> (C, r). No factorisation: A(k) p for the whole batch is one
-        (C, r) @ (r, 6r) matmul against [Ahat_1^T .. Ahat_5^T | Mhat^T] plus
-        a weighted sum, and the preconditioner is one (C, r) @ (r, r)
-        matmul."""
-        ks = self._k(ks)
+    def _pcg_operands(self, ks: torch.Tensor):
+        """The reduced operator at ks (C, 5) as the PCG applies it:
+        (amat, AT, w) with amat(p) = A(k) p for the whole batch, one
+        (C, r) @ (r, 6r) matmul against AT = [Ahat_1^T .. Ahat_5^T | Mhat^T]
+        plus a weighted sum with the weights w (C, 6) = [k | biot]."""
         C, r = ks.shape[0], self.r
         stack = torch.cat([self.Ahat, self.Mhat[None]], 0)  # (6, r, r)
         AT = stack.transpose(1, 2).permute(1, 0, 2).reshape(r, -1)  # (r, 6r)
@@ -95,33 +96,98 @@ class ReducedOperator:
         def amat(p):
             return torch.sum(w[:, :, None] * (p @ AT).view(C, -1, r), 1)
 
-        def prec(v):
-            return v @ P0.T
+        return amat, AT
 
-        b = self.Fhat.expand(C, r)
-        x = prec(b)  # warm start: P0 b is already close
-        res = b - amat(x)
-        z = prec(res)
-        p = z
-        rz = torch.sum(res * z, -1)
-        for _ in range(n_iters):
-            Ap = amat(p)
-            pAp = torch.sum(p * Ap, -1)
-            alpha = rz / torch.where(pAp != 0, pAp, 1.0)
-            x = x + alpha[:, None] * p
-            res = res - alpha[:, None] * Ap
-            z = prec(res)
-            rz_new = torch.sum(res * z, -1)
-            beta = rz_new / torch.where(rz != 0, rz, 1.0)
-            p = z + beta[:, None] * p
-            rz = rz_new
-        return x
+    def solve_pcg(self, ks: torch.Tensor, P0: torch.Tensor, n_iters: int = 25) -> torch.Tensor:
+        """Reduced solves by preconditioned CG with a FIXED iteration count:
+        (C, 5) -> (C, r). No factorisation: A(k) p for the whole batch is one
+        (C, r) @ (r, 6r) matmul against [Ahat_1^T .. Ahat_5^T | Mhat^T] plus
+        a weighted sum, and the preconditioner is one (C, r) @ (r, r)
+        matmul. Not differentiable through the solve: ``solve_pcg_diff``
+        is."""
+        ks = self._k(ks)
+        amat, _ = self._pcg_operands(ks)
+        with fp32_matmul():
+            return _fixed_pcg(amat, P0, self.Fhat.expand(ks.shape[0], self.r), n_iters)
 
-    def fast_forward(self, P0: torch.Tensor, n_iters: int = 25):
+    def solve_pcg_diff(self, ks: torch.Tensor, P0: torch.Tensor, n_iters: int = 25) -> torch.Tensor:
+        """``solve_pcg``, differentiable in ks by implicit differentiation
+        (``_ReducedSolve``): the same forward values, and every derivative,
+        of any order, a further run of the same fixed-iteration PCG."""
+        ks = self._k(ks)
+        return _ReducedSolve.apply(ks, self.Fhat.expand(ks.shape[0], self.r), self, P0, n_iters)
+
+    def fast_forward(self, P0: torch.Tensor, n_iters: int = 25, *, differentiable: bool = False):
         """(C, 5) -> (C, n_obs) via :meth:`solve_pcg`; the likelihood kernel
-        of the chain hot loop."""
+        of the chain hot loop. differentiable=True goes through
+        :meth:`solve_pcg_diff` (the gradient samplers, the MAP and the
+        Laplace Jacobian)."""
+        solve = self.solve_pcg_diff if differentiable else self.solve_pcg
 
         def f(ks):
-            return self.solve_pcg(ks, P0, n_iters) @ self.Bhat.T
+            x = solve(ks, P0, n_iters)
+            with fp32_matmul():
+                return x @ self.Bhat.T
 
         return f
+
+
+def _fixed_pcg(amat, P0: torch.Tensor, b: torch.Tensor, n_iters: int) -> torch.Tensor:
+    """x ~ A^-1 b for a batch b (C, r) by preconditioned CG with the fixed
+    preconditioner P0, warm-started at P0 b, ``n_iters`` iterations; the
+    loop of the reference's ``pcg_solve``, with its zero guards."""
+
+    def prec(v):
+        return v @ P0.T
+
+    x = prec(b)  # warm start: P0 b is already close
+    res = b - amat(x)
+    z = prec(res)
+    p = z
+    rz = torch.sum(res * z, -1)
+    for _ in range(n_iters):
+        Ap = amat(p)
+        pAp = torch.sum(p * Ap, -1)
+        alpha = rz / torch.where(pAp != 0, pAp, 1.0)
+        x = x + alpha[:, None] * p
+        res = res - alpha[:, None] * Ap
+        z = prec(res)
+        rz_new = torch.sum(res * z, -1)
+        beta = rz_new / torch.where(rz != 0, rz, 1.0)
+        p = z + beta[:, None] * p
+        rz = rz_new
+    return x
+
+
+class _ReducedSolve(torch.autograd.Function):
+    """x = A(k)^-1 b by ``_fixed_pcg``, differentiable in k and b the way
+    ``lax.custom_linear_solve(symmetric=True)`` is: the backward solves
+    A(k) lam = g with the same PCG (A is symmetric) and returns grad_b = lam
+    and grad_k_i = -lam . (Ahat_i x); it never backpropagates through the
+    iterations, whose reverse pass gives other gradients, and 0/0 once the
+    residuals go denormal. The backward is written in differentiable ops
+    and calls the Function again, so a second backward works (the full
+    Hessian of ``infer.map.laplace_approximation``)."""
+
+    @staticmethod
+    def forward(ctx, ks, b, rom, P0, n_iters):
+        amat, _ = rom._pcg_operands(ks)
+        with fp32_matmul():
+            x = _fixed_pcg(amat, P0, b, n_iters)
+        ctx.save_for_backward(ks, x)
+        ctx.rom, ctx.P0, ctx.n_iters = rom, P0, n_iters
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        ks, x = ctx.saved_tensors
+        rom = ctx.rom
+        lam = _ReducedSolve.apply(ks, g, rom, ctx.P0, ctx.n_iters)
+        grad_k = None
+        if ctx.needs_input_grad[0]:
+            _, AT = rom._pcg_operands(ks)
+            C, r = x.shape
+            with fp32_matmul():
+                Ax = (x @ AT).view(C, -1, r)[:, : ks.shape[1]]  # (C, 5, r): Ahat_i x
+            grad_k = -torch.sum(lam[:, None, :] * Ax, -1)
+        return grad_k, lam, None, None, None

@@ -93,10 +93,10 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               K3r's output there under the per-case gates
   6. DA       build_pipeline at res8 with phase 3's widths, then
               run_inversion(da_pcn, fom): 1,024 chains, subchains of 64
-              rom_nn pCN steps, noise 1e-2, 100 outer steps (30 burn-in; the
+              rom_nn pCN steps, noise 1e-2, 60 outer steps (20 burn-in; the
               reference bench runs 500 / 150). K3r must carry every FOM solve
-              (>= 3 launches in the build, >= 101 in the run), K3 and K1 none;
-              outputs finite, samples (70, 1024, 5), outer accept > 0.6, inner
+              (>= 3 launches in the build, >= 61 in the run), K3 and K1 none;
+              outputs finite, samples (40, 1024, 5), outer accept > 0.6, inner
               accept in (0.05, 0.9), no audited state at the iteration cap.
               Prints stage seconds, ESS/s, outer steps/s, split-R-hat against
               the reference's 1.05 gate, the posterior mean against the truth
@@ -199,7 +199,7 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               ladder rising strictly to exactly 1 in every chain group, log Z
               and its std finite. (b) the reference bench's headline
               (bench.py:401-445): 4,096 chains x 5 levels, adapted ladder,
-              noise 1e-3, data simulated at phase 3's truth, 5,000 steps
+              noise 1e-3, data simulated at phase 3's truth, 2,500 steps
               (1,000 burn-in; the bench runs 15,000 / 2,000): samples/s,
               min bulk ESS/s, split-R-hat beside the reference's 1.05, the
               mean ladder, swap rates, log Z and us per step printed; gated
@@ -208,7 +208,7 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               (and its misfit), the exchange, the ladder, the accumulators.
               (c) pt_da_pcn on the fom likelihood on phase 6's build and
               data: 256 chains x 4 levels (a fine batch of 1,024), subchains
-              of 64, segments of 32, 64 outer steps (20 burn-in): K3r carries
+              of 64, segments of 32, 32 outer steps (10 burn-in): K3r carries
               every fine solve (>= outer steps + segments launches), K3 and
               K1 none; on the cold level outer accept > 0.6 and inner in
               (0.05, 0.9); no audited state at the cap; the PT gates of (a)
@@ -218,9 +218,44 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               0.9), no audited state at the cap; its posterior mean against
               phase 6's da_pcn in MCSE units and beside (c)'s, printed, not
               gated. (e) pcn with infer_noise on phase 3's data, 1,024
-              chains, 2,000 steps (500 burn-in): finite outputs, the noise
+              chains, 1,000 steps (300 burn-in): finite outputs, the noise
               posterior's quantiles ordered q05 < q50 < q95, printed beside
               the true 1e-2 with the shape-PPC p-value
+ 12. P12      the Laplace and gradient-sampler layer, each cell through
+              run_inversion with every FOM kernel's count set to 0 just
+              before it and read just after. (h) first: with the caller's
+              torch.set_float32_matmul_precision("high") (TF32), the pinned
+              values (fin.forward, batched_forward_fn("rom_nn"), the
+              differentiable forward and its gradient, the Laplace J and
+              covariance) equal those at "highest" bit for bit, while an
+              unpinned product differs; the cells then run under "high", and
+              after each run_inversion the setting must still read "high". On
+              phase 3's build and data (the rom_nn posterior at noise 1e-2
+              that its pcn sampled), each cell's means within 5 combined MCSE
+              of that pcn's and its sds within 10%: (a) laplace_mh, 4,096
+              chains, 1,000 steps (300 burn-in; the bench runs 15,000 /
+              2,000), accept in (0.05, 1], the MAP's nlp and point printed; (b)
+              mala_lap, 4,096 chains, 600 steps (200 burn-in), accept in
+              (0.3, 0.85]; (c) at 1,024 chains gpcn and mala, 600 steps (200 burn-in), hmc (n_leap 8), 120
+              steps (40 burn-in), and hmc_lap (ChEES, its pick printed), 200
+              steps (100 burn-in); the four Laplace-seeded cells each take an
+              8-start MAP (~26 s on an H100, its BFGS at the 200-iteration
+              cap in float32, as the reference's); (d) pt_mala,
+              1,024 chains x 4 levels, 600 steps (200 burn-in), the PT gates
+              of phase 11 and log Z within 4 combined sds of phase 11 (a)'s
+              pt_pcn. On phase
+              6's build and data: (e) da_pcn with MALA subchains on fom at
+              res8, 1,024 chains, subchains of 64, 20 outer steps (6
+              burn-in): phase 6's gates (outer accept > 0.6, inner in (0.05,
+              0.9), K3r carrying every fine solve, no audited state at the cap)
+              and its mean within 5 MCSE of phase 6's da_pcn. (f) gpcn on fom
+              at res4 (run_gpcn, the reference measure the Gauss-Newton
+              Laplace approximation of the rom_nn posterior at phase 3's pcn
+              mean), 256 chains, 200 steps: K3r exactly one launch a step and
+              one for the initial misfit, K3 and K1 none. (g)
+              the differentiable rom_nn and fom forwards in float64 on the
+              card: misfit gradients against central differences, relative
+              error <= 1e-6 (rom_nn) and <= 1e-5 (fom at tol 1e-10)
 
 The last three lines are the kernel summary (JSON: time, launches, bound,
 plain time of each kernel), the nvidia-smi line, and
@@ -1159,7 +1194,7 @@ def phase_k3_res16():
     return dict(max_abs_err=max(abs_err, abs_t), times=times, n=op.n)
 
 
-DA_OUTER, DA_BURN = 100, 30  # cut from the reference bench's 500 / 150 outer steps
+DA_OUTER, DA_BURN = 60, 20  # cut from the reference bench's 500 / 150 outer steps
 RHAT_GATE = 1.05  # the reference bench's split-R-hat gate
 
 
@@ -2026,13 +2061,13 @@ def phase_k5(k3):
 
 
 PT_TEMPS, PT_LAMBDA_MIN = 4, 0.05  # (a) and (c): a 4-level geometric start from 0.05
-PT_HEAD = dict(n_chains=4096, n_temps=5, lambda_min=0.05, noise_sigma=1e-3, n_steps=5000,
+PT_HEAD = dict(n_chains=4096, n_temps=5, lambda_min=0.05, noise_sigma=1e-3, n_steps=2500,
                n_burn=1000)  # (b): bench.py's headline, cut from 15,000 / 2,000 steps
-PT_DA = dict(n_chains=256, n_steps=64, n_burn=20, subchain=64)  # (c): 256 x 4 = 1,024 fine solves
+PT_DA = dict(n_chains=256, n_steps=32, n_burn=10, subchain=64)  # (c): 256 x 4 = 1,024 fine solves
 PT_DA_SEGMENT = 32  # run_inversion's segment for pt_da_pcn on fom
 FOM_PCN = dict(n_chains=1024, n_steps=128, n_burn=64)  # (d)
 FOM_PCN_SEGMENT = 64  # run_inversion's segment for pcn on fom
-NOISE_RUN = dict(n_steps=2000, n_burn=500)  # (e)
+NOISE_RUN = dict(n_steps=1000, n_burn=300)  # (e)
 PT_PARTS_REPS = 50  # timed repetitions of each part of a PT step
 
 
@@ -2108,7 +2143,7 @@ def phase_pt(pipe4, inv4, pipe8, inv8):
     """Phase 11: the tempered samplers, pcn on the fom likelihood and the
     unknown-noise potential, each through run_inversion on the card, on the
     builds and data of phases 3 (res4) and 6 (res8). Returns K3r's launches
-    over the phase."""
+    over the phase and (a)'s result."""
     import torch
 
     from bayesianinferencedl_tpu_torch.api import run_inversion
@@ -2250,6 +2285,290 @@ def phase_pt(pipe4, inv4, pipe8, inv8):
         fail(f"(e): sigma quantiles {q} not ordered")
     say("PT", f"K3r launches over phase 11: {k3r} ((b)'s truth solve {n_b['K3r']}, (c) {n_c['K3r']}, "
         f"(d) {n_d['K3r']})")
+    return k3r, inv_a
+
+
+# phase 12: the Laplace and gradient-sampler layer (its steps cut for the time limit)
+# (a) bench.py's cfg_mh (bench.py:766) runs 15,000 / 2,000 steps
+P12_LAP_MH = dict(n_chains=4096, n_steps=1000, n_burn=300)
+P12_MALA_LAP = dict(n_chains=4096, n_steps=600, n_burn=200)  # (b): bench.py's mala_lap block
+P12_GPCN = dict(n_chains=1024, n_steps=600, n_burn=200)  # (c)
+P12_MALA = dict(n_chains=1024, n_steps=600, n_burn=200)  # (c)
+P12_HMC = dict(n_chains=1024, n_steps=120, n_burn=40, hmc_leap=8)  # (c): 8 gradients a step
+P12_CHEES = dict(n_chains=1024, n_steps=200, n_burn=100, hmc_leap=0)  # (c): hmc_lap, ChEES
+P12_PT = dict(n_chains=1024, n_temps=4, lambda_min=0.05, n_steps=600, n_burn=200)  # (d)
+P12_DA = dict(n_chains=1024, subchain=64, n_steps=20, n_burn=6)  # (e)
+P12_DA_SEGMENT = 64  # run_inversion's segment for da_pcn on fom
+P12_GPCN_FOM = dict(n_chains=256, n_steps=200, n_burn=50)  # (f)
+P12_LOGZ_GATE = 4.0  # (d): |log Z - phase 11 (a)'s| in combined standard deviations
+P12_FD = dict(rom_nn=(1e-5, 1e-6), fom=(1e-4, 1e-5))  # (g): central-difference step, relative gate
+
+
+def _p12_moments(tag, inv, ref, acc_range=None):
+    """A cell's gates against phase 3's pcn posterior (phase 4's): finite
+    outputs, the means within K2_MEAN_GATE combined MCSE, the sds within
+    K2_SD_GATE, and the accept rate in acc_range = (lo, hi], if given.
+    Prints the run's time, samples/s, bulk ESS/s and split-R-hat."""
+    import torch
+
+    res = inv.result
+    for name, t in (("samples", res.samples), ("ess", inv.ess), ("rhat", inv.rhat),
+                    ("accept", res.accept_rate)):
+        if not torch.isfinite(t).all():
+            fail(f"{tag}: non-finite {name}")
+    means, sds, z, sd_rel, rhats = _posterior_z(res.samples, ref.result.samples)
+    acc = float(res.accept_rate.mean())
+    T, C, _ = res.samples.shape
+    say("P12", f"{tag}: {C} chains, {T} kept: {inv.wall_seconds:.3f} s, {inv.samples_per_sec:.1f} "
+        f"samples/s, bulk ESS/s {inv.ess_per_sec:.2f} (bulk ESS min {inv.ess.min().item():.1f}), "
+        f"split-rhat max {rhats[0]:.4f} (pcn's {rhats[1]:.4f}); accept {acc:.4f}")
+    say("P12", f"{tag}: mean {np.round(means[0], 4).tolist()} vs pcn {np.round(means[1], 4).tolist()}; "
+        f"|diff| / MCSE {np.round(z, 2).tolist()}; sd {np.round(sds[0], 4).tolist()} vs "
+        f"{np.round(sds[1], 4).tolist()}")
+    if z.max() > K2_MEAN_GATE:
+        fail(f"{tag}: means {z.max():.2f} Monte-Carlo errors from pcn's")
+    if sd_rel.max() > K2_SD_GATE:
+        fail(f"{tag}: sd {100 * sd_rel.max():.1f}% from pcn's")
+    if acc_range is not None and not acc_range[0] < acc <= acc_range[1]:
+        fail(f"{tag}: accept {acc:.4f} outside ({acc_range[0]}, {acc_range[1]}]")
+
+
+def _p12_fd_check(pipe4):
+    """(g): the differentiable rom_nn and fom forwards in float64 on the
+    card, their misfit gradients against central differences. rom_nn on a
+    float64 copy of phase 3's reduced model and surrogate with the reduced
+    PCG at r iterations, where the fixed-iteration solve is exact to
+    rounding (at fewer, the forward is not the exact solve whose implicit
+    derivative the backward takes); fom on a float64 res4 fin at tol 1e-10,
+    one solve and its adjoint. Returns the relative errors."""
+    import dataclasses
+
+    import torch
+
+    from bayesianinferencedl_tpu_torch.convert import pipeline_from_arrays
+    from bayesianinferencedl_tpu_torch.infer.optimize import value_and_grad
+    from bayesianinferencedl_tpu_torch.infer.pcn import gaussian_misfit
+
+    rom, sur = pipe4.rom, pipe4.surrogate
+    arrays = {f: getattr(rom, f).double().cpu().numpy() for f in ("Ahat", "Mhat", "Fhat", "Bhat", "V")}
+    arrays["P0"] = pipe4.P0.double().cpu().numpy()
+    arrays["rom_pcg_iters"] = rom.r
+    for i, (W, b) in enumerate(sur.params):
+        arrays[f"W{i}"], arrays[f"b{i}"] = W.double().cpu().numpy(), b.double().cpu().numpy()
+    arrays.update({f: getattr(sur.norm, f).double().cpu().numpy()
+                   for f in ("x_mean", "x_std", "y_mean", "y_std")})
+    cfg = pipe4.config
+    cfg64 = dataclasses.replace(cfg, fem=dataclasses.replace(cfg.fem, cg_tol=1e-10, cg_maxiter=4000))
+    p64 = pipeline_from_arrays(cfg64, arrays, device="cuda", dtype=torch.float64)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    theta = p64.prior.sample(gen)
+    data = p64.batched_forward_fn("rom_nn")(p64.prior.sample(gen)[None])[0]
+    errs = {}
+    for like, (h, gate) in P12_FD.items():
+        misfit = gaussian_misfit(p64.batched_forward_fn(like, differentiable=True), data, 1e-2)
+        _, g = value_and_grad(misfit, theta[None])
+        eye = torch.eye(5, dtype=torch.float64, device="cuda")
+        with torch.no_grad():
+            fd = (misfit(theta + h * eye) - misfit(theta - h * eye)) / (2 * h)
+        err = float(torch.linalg.norm(g[0] - fd) / torch.linalg.norm(fd))
+        errs[like] = err
+        say("P12", f"(g) {like} float64 gradient vs central differences (h {h:g}): relative error "
+            f"{err:.3e} (gate {gate:g}); |grad| {float(torch.linalg.norm(fd)):.4e}")
+        if not err <= gate:
+            fail(f"(g): the {like} gradient is {err:.3e} from central differences")
+    return errs
+
+
+def _p12_f7(pipe4, inv4):
+    """(h): with the caller's setting "high" (TF32 in every matmul it does
+    not pin), the pinned values must equal those at "highest" bit for bit:
+    pipe.fin.forward, batched_forward_fn("rom_nn"), the differentiable
+    forward and its gradient, and the Laplace approximation built on J^T J.
+    An unpinned product is computed too, to show that TF32 is on. Leaves
+    the setting at "high" for the cells that follow."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.infer.map import _jacobian, laplace_approximation
+    from bayesianinferencedl_tpu_torch.infer.optimize import value_and_grad
+    from bayesianinferencedl_tpu_torch.infer.pcn import gaussian_misfit
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    ths = pipe4.prior.sample(gen, (1024,))
+    fd = pipe4.batched_forward_fn("rom_nn", differentiable=True)
+    misfit = gaussian_misfit(fd, inv4.data, 1e-2)
+    x, w = torch.randn(1024, 40, device="cuda", generator=gen), torch.randn(40, 40, device="cuda",
+                                                                             generator=gen)
+
+    def values():
+        lap = laplace_approximation(fd, inv4.data, 1e-2, pipe4.prior, ths[0])
+        return {
+            "fin.forward": pipe4.fin.forward(torch.exp(inv4.theta_true)),
+            "batched_forward_fn(rom_nn)": pipe4.batched_forward_fn("rom_nn")(ths),
+            "differentiable forward": fd(ths).detach(),
+            "its gradient": value_and_grad(misfit, ths)[1],
+            "Laplace J": _jacobian(fd, ths[0], 5),
+            "Laplace cov": lap.cov,
+            "unpinned x @ w": x @ w,
+        }
+
+    torch.set_float32_matmul_precision("highest")
+    ref = values()
+    torch.set_float32_matmul_precision("high")
+    got = values()
+    same = {k: bool(torch.equal(ref[k], got[k])) for k in ref}
+    say("P12", "(h) under set_float32_matmul_precision('high'), bit-identical to 'highest': "
+        + ", ".join(f"{k} {v}" for k, v in same.items()))
+    if same["unpinned x @ w"]:
+        fail("(h): an unpinned matmul is bit-identical under 'high': TF32 is not on, the check is void")
+    bad = [k for k, v in same.items() if not v and k != "unpinned x @ w"]
+    if bad:
+        fail(f"(h): {bad} changed under the caller's TF32 setting")
+
+
+def phase_gradient(pipe4, inv4, pipe8, inv8, inv_pt):
+    """Phase 12: the Laplace and gradient-sampler layer through run_inversion
+    on the card, on phase 3's res4 build and data (the rom_nn posterior at
+    noise 1e-2 that its pcn sampled) and phase 6's res8 build and data.
+    Runs (h) first and keeps the caller's setting at "high" for the cells.
+    Returns K3r's launches over the phase."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.api import run_inversion
+    from bayesianinferencedl_tpu_torch.infer.map import laplace_approximation
+    from bayesianinferencedl_tpu_torch.infer.pcn import gaussian_misfit
+    from bayesianinferencedl_tpu_torch.infer.samplers import run_gpcn
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    t_phase = time.perf_counter()
+    _p12_f7(pipe4, inv4)
+
+    def counted(pipe, ref, **mcmc):
+        """run_inversion on ref's data and truth, every FOM kernel's count
+        set to 0 just before and read just after; the caller's "high" must
+        survive it."""
+        K.launches = K.tile_launches = K.tile_mma_launches = 0
+        log = MetricsLogger()
+        t0 = time.perf_counter()
+        out = run_inversion(_with_mcmc(pipe, **mcmc), data=ref.data, theta_true=ref.theta_true,
+                            metrics=log)
+        torch.cuda.synchronize()
+        n = {"K3r": K.tile_mma_launches, "K3": K.tile_launches, "K1": K.launches}
+        if torch.get_float32_matmul_precision() != "high":
+            fail(f"run_inversion({mcmc.get('sampler')}) reset the caller's matmul precision to "
+                 f"{torch.get_float32_matmul_precision()!r}")
+        return out, n, log.summary(), time.perf_counter() - t0
+
+    def laplace_line(tag, s, total):
+        m = s["map"]
+        say("P12", f"{tag}: MAP nlp {m['nlp']:.4f} at {np.round(m['theta_map'], 4).tolist()}; "
+            f"map_laplace {s['map_laplace']['seconds']:.2f} s of the call's {total:.2f} s")
+
+    k3r = 0
+    # (a) laplace_mh at the bench's width
+    inv, n, s, total = counted(pipe4, inv4, sampler="laplace_mh", **P12_LAP_MH)
+    k3r += n["K3r"]
+    laplace_line("(a) laplace_mh", s, total)
+    _p12_moments("(a) laplace_mh", inv, inv4, (0.05, 1.0))
+    # (b) mala_lap at the same width
+    inv, n, s, total = counted(pipe4, inv4, sampler="mala_lap", **P12_MALA_LAP)
+    k3r += n["K3r"]
+    laplace_line("(b) mala_lap", s, total)
+    _p12_moments("(b) mala_lap", inv, inv4, (0.3, 0.85))
+    say("P12", f"(b) adapted step sizes h: median {float(inv.result.step.median()):.4f}")
+    # (c) the other gradient samplers at 1,024 chains
+    for smp, kw in (("gpcn", P12_GPCN), ("mala", P12_MALA), ("hmc", P12_HMC),
+                    ("hmc_lap", P12_CHEES)):
+        inv, n, s, total = counted(pipe4, inv4, sampler=smp, **kw)
+        k3r += n["K3r"]
+        tag = f"(c) {smp}" + (f" n_leap {P12_HMC['hmc_leap']}" if smp == "hmc" else "")
+        if "map" in s:
+            laplace_line(tag, s, total)
+        if smp == "hmc_lap":
+            c = s["chees"]
+            say("P12", f"(c) hmc_lap ChEES picks n_leap {c['n_leap']} of {c['candidates']}; chees "
+                f"per gradient {np.round(c['chees_per_grad'], 4).tolist()}; accept "
+                f"{np.round(c['accept'], 3).tolist()}")
+        _p12_moments(tag, inv, inv4)
+        say("P12", f"{tag}: the call took {total:.2f} s")
+
+    # (d) pt_mala against pcn, and its log Z against phase 11 (a)'s pt_pcn
+    inv, n, s, total = counted(pipe4, inv4, sampler="pt_mala", adapt_ladder=True, **P12_PT)
+    lam, swap = _pt_gates("(d) pt_mala", inv)
+    _p12_moments("(d) pt_mala cold level", inv, inv4)
+    dz = abs(inv.log_evidence - inv_pt.log_evidence)
+    sz = float(np.hypot(inv.log_evidence_std, inv_pt.log_evidence_std))
+    say("P12", f"(d) pt_mala {P12_PT['n_chains']} x {P12_PT['n_temps']}: swap rates "
+        f"{np.round(swap, 4).tolist()}; mean ladder {np.round(lam, 5).tolist()}; log Z "
+        f"{inv.log_evidence:.4f} +- {inv.log_evidence_std:.4f} vs phase 11 (a)'s pt_pcn "
+        f"{inv_pt.log_evidence:.4f} +- {inv_pt.log_evidence_std:.4f}: {dz / sz:.2f} combined sds; "
+        f"{inv.wall_seconds / P12_PT['n_steps'] * 1e3:.2f} ms a step")
+    if not dz <= P12_LOGZ_GATE * sz:
+        fail(f"(d): log Z {dz / sz:.2f} combined sds from phase 11 (a)'s")
+
+    # (e) da_pcn with MALA subchains on fom at res8, phase 6's data
+    inv, n, s, total = counted(pipe8, inv8, sampler="da_pcn", likelihood="fom", da_inner="mala",
+                               **P12_DA)
+    k3r += n["K3r"]
+    res = inv.result
+    outer, inner = float(res.accept_rate.mean()), float(res.inner_accept_rate.mean())
+    n_seg = -(-P12_DA["n_steps"] // P12_DA_SEGMENT)
+    say("P12", f"(e) da_pcn --da-inner mala fom res8, {P12_DA['n_chains']} chains, subchain "
+        f"{P12_DA['subchain']}, {P12_DA['n_steps']} outer steps ({P12_DA['n_burn']} burn-in): "
+        f"{inv.wall_seconds:.3f} s, {inv.wall_seconds / P12_DA['n_steps'] * 1e3:.1f} ms an outer step; "
+        f"outer accept {outer:.4f}, inner {inner:.4f}; adapted h median "
+        f"{float(res.beta.median()):.4f}; launches K3r {n['K3r']} (outer steps + segments = "
+        f"{P12_DA['n_steps'] + n_seg}), K3 {n['K3']}, K1 {n['K1']}; audit cap {inv.fom_iter_cap}, max "
+        f"{inv.fom_iter_max}, at cap {inv.fom_hit_cap_frac}")
+    if n["K3r"] < P12_DA["n_steps"] + n_seg or n["K3"] or n["K1"]:
+        fail("(e): K3r did not carry every fine solve alone")
+    if not outer > 0.6:
+        fail(f"(e): outer accept {outer:.4f} not above 0.6")
+    if not 0.05 < inner < 0.9:
+        fail(f"(e): inner accept {inner:.4f} outside (0.05, 0.9)")
+    if inv.fom_hit_cap_frac != 0:
+        fail(f"(e): {inv.fom_hit_cap_frac:.2%} of audited states hit the FOM iteration cap")
+    means, _, z, _, _ = _posterior_z(res.samples, inv8.result.samples)
+    say("P12", f"(e) mean {np.round(means[0], 4).tolist()} vs phase 6's da_pcn "
+        f"{np.round(means[1], 4).tolist()}: |diff| / MCSE {np.round(z, 2).tolist()}")
+    if z.max() > K2_MEAN_GATE:
+        fail(f"(e): mean {z.max():.2f} Monte-Carlo errors from phase 6's da_pcn")
+
+    # (f) gpcn on fom at res4: one K3r launch a step. Through the entry
+    # points, with the Gauss-Newton Laplace approximation of the rom_nn
+    # posterior at phase 3's pcn mean as the reference measure (any Gaussian
+    # one keeps gpCN exact): run_inversion would take the fom MAP on the
+    # differentiable plain PCG, ~600 s on an H100 (PERF.md)
+    fd = pipe4.batched_forward_fn("rom_nn", differentiable=True)
+    sigma = pipe4.config.mcmc.noise_sigma
+    lap = laplace_approximation(fd, inv4.data, sigma, pipe4.prior, inv4.result.samples.mean(dim=(0, 1)))
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    theta0 = lap.sample(gen, (P12_GPCN_FOM["n_chains"],))
+    misfit_fom = gaussian_misfit(pipe4.batched_forward_fn("fom"), inv4.data, sigma)
+    steps = P12_GPCN_FOM["n_steps"]
+    K.launches = K.tile_launches = K.tile_mma_launches = 0
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    res = run_gpcn(misfit_fom, pipe4.prior, lap, theta0, gen, n_steps=steps,
+                   n_burn=P12_GPCN_FOM["n_burn"], beta=pipe4.config.mcmc.beta)
+    t1.record()
+    t1.synchronize()
+    n = {"K3r": K.tile_mma_launches, "K3": K.tile_launches, "K1": K.launches}
+    k3r += n["K3r"]
+    ms = t0.elapsed_time(t1)
+    say("P12", f"(f) gpcn fom res4, {P12_GPCN_FOM['n_chains']} chains, {steps} steps "
+        f"({P12_GPCN_FOM['n_burn']} burn-in): {ms / 1e3:.3f} s, {ms / steps:.2f} ms a step; accept "
+        f"{float(res.accept_rate.mean()):.4f}; launches K3r {n['K3r']} (one a step and the initial "
+        f"misfit: {steps + 1}), K3 {n['K3']}, K1 {n['K1']}; mean "
+        f"{np.round(res.samples.mean(dim=(0, 1)).double().cpu().numpy(), 4).tolist()}")
+    if n["K3r"] != steps + 1 or n["K3"] or n["K1"]:
+        fail(f"(f): {n} launches, where K3r should make one a step and one for the initial misfit")
+    if not torch.isfinite(res.samples).all() or not 0.05 < float(res.accept_rate.mean()) <= 1.0:
+        fail("(f): non-finite samples or an accept rate outside (0.05, 1]")
+
+    torch.set_float32_matmul_precision("highest")
+    _p12_fd_check(pipe4)
+    say("P12", f"K3r launches over phase 12: {k3r}; the phase took {time.perf_counter() - t_phase:.1f} s")
     return k3r
 
 
@@ -2274,7 +2593,8 @@ def main() -> None:
     k4_launches = phase_fom_cli(k4)
     k4c = phase_k4c(k4)
     k5 = phase_k5(k3)
-    pt_launches = phase_pt(pipe, inv, pipe8, inv8)
+    pt_launches, inv_pt = phase_pt(pipe, inv, pipe8, inv8)
+    p12_launches = phase_gradient(pipe, inv, pipe8, inv8, inv_pt)
     t1 = lanes["times"][B_CHECK]
     t3 = k3["times"][1024]
     t4r = k4["times"][K4_BATCHES[0]]
@@ -2295,11 +2615,12 @@ def main() -> None:
                       k2["K2"]["launches"], k2["K2"]["max_abs_err"], k2["K2"]["ms"],
                       k2["K2"]["plain_ms"], k2["K2"]["bound"]),
         # K3r: res8, B = 1,024; its launches are the res4 slice's (the lanes
-        # route), the res8 DA slice's and phase 11's (its fom samplers at res8,
-        # the headline's truth solve at res4)
+        # route), the res8 DA slice's, phase 11's (its fom samplers at res8,
+        # the headline's truth solve at res4) and phase 12's (DA's fine
+        # solves at res8, gpcn on fom at res4)
         _kernel_entry("pcg_stencil_tile_mma", "pcg_stencil_tile_mma.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385",
-                      slice_launches["K3r"] + k3_launches + pt_launches,
+                      slice_launches["K3r"] + k3_launches + pt_launches + p12_launches,
                       max(k3["max_abs_err"], lanes["max_abs"]["K3r"]), t3["ms"], t3["plain_ms"],
                       t3["bound"]),
         # K3, off the main path since K3r: timed on the same inputs, for the record

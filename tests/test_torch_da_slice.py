@@ -96,10 +96,14 @@ def test_cli_invert_da_pcn_prints_da_keys(capsys):
     assert set(out["fom_iter_audit"]) == {"cap", "max_iters", "hit_cap_frac"}  # the reference's nesting
     assert out["fom_iter_audit"]["cap"] == 400 and out["outer_accept"] == out["accept_rate"]
     assert 0.0 < out["inner_accept"] < 1.0 and len(out["posterior_mean_log_k"]) == D
-    with pytest.raises(NotImplementedError, match="item 18"):
-        main(["invert", "--device", "cpu", "--resolution", "1", "--n-snapshots", "32", "--r", "8",
-              "--n-train", "64", "--epochs", "1", "--chains", "4", "--steps", "2", "--burn", "1",
-              "--sampler", "da_pcn", "--likelihood", "fom", "--da-inner", "mala"])
+    # MALA subchains on the differentiable rom_nn coarse model
+    main(["invert", "--device", "cpu", "--resolution", "1", "--n-snapshots", "32", "--r", "8",
+          "--n-train", "64", "--epochs", "1", "--chains", "8", "--steps", "6", "--burn", "3",
+          "--noise", "1e-2", "--sampler", "da_pcn", "--likelihood", "fom", "--subchain", "4",
+          "--da-inner", "mala", "--cg-maxiter", "400"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["fom_iter_audit"]["hit_cap_frac"] == 0.0 and 0.0 < out["inner_accept"] < 1.0
+    assert np.all(np.isfinite(out["posterior_mean_log_k"]))
 
 
 def test_fin_defaults_to_the_card():

@@ -9,7 +9,10 @@ linear-Gaussian problem (d = 3) like the reference's own tests.
 2. Exactness: with a biased coarse model, the port's DA under a
    torch.Generator lands on the analytic fine posterior, to the tolerances
    of the reference's test_da_corrects_biased_coarse_to_fine_posterior.
-3. The MALA inner kernel and a degenerate likelihood == da_coarse raise."""
+3. MALA subchains (make_inner_kernel("mala")): da_step and
+   run_da_pcn_segmented on JAX's draws, to 1e-10.
+4. An unknown inner kernel and a degenerate likelihood == da_coarse
+   raise."""
 
 from types import SimpleNamespace
 
@@ -178,12 +181,56 @@ def test_da_corrects_biased_coarse_to_fine_posterior():
     assert 0.2 < float(res.accept_rate.mean()) < 0.999
 
 
+def test_mala_inner_da_step_replays_reference():
+    """MALA subchains in da_step, single-level (the tempered kernel is
+    replayed through run_pt_da in test_torch_tempering.py)."""
+    j, t, _, _ = _problem()
+    C, S = 8, 5
+    theta0 = np.random.default_rng(1).normal(0.0, 1.0, (C, D))
+    h = np.linspace(0.1, 0.5, C)
+    key = jax.random.PRNGKey(3)
+    js = jda.da_init(j["fine"], j["coarse"], jnp.asarray(theta0), batched_fine=True, batched_coarse=True)
+    jk = jda.make_inner_kernel("mala", j["coarse"], j["prior"], batched=True)
+    jnew, jacc, jinner = jda.da_step(j["fine"], jk, jnp.asarray(h), S, js, key, batched_fine=True)
+    ts = tda.da_init(t["fine"], t["coarse"], torch.tensor(theta0))
+    tk = tda.make_inner_kernel("mala", t["coarse"], t["prior"])
+    assert tk.target == 0.574
+    nrm, uni, out = _step_draws(key, S, C)
+    tnew, tacc, tinner = tda.da_step(t["fine"], tk, torch.tensor(h), S, ts, normals=torch.tensor(nrm),
+                                     uniforms=torch.tensor(uni), outer_uniform=torch.tensor(out))
+    for f in ("theta", "phi_f", "phi_c"):
+        _close(getattr(tnew, f), getattr(jnew, f), 1e-10)
+    np.testing.assert_array_equal(tnew.n_accept.numpy(), np.asarray(jnew.n_accept))
+    np.testing.assert_array_equal(tacc.numpy(), np.asarray(jacc))
+    np.testing.assert_array_equal(tinner.numpy(), np.asarray(jinner))
+    assert 0 < int(tinner.sum()) < S * C
+
+
+def test_run_da_pcn_mala_inner_replays_reference_over_three_segments():
+    """run_da_pcn_segmented with MALA subchains: burn-in over two segments,
+    each starting the outer-acceptance EMA afresh as the reference's does,
+    the step sizes h adapted by the inner-rate rule with its collapse
+    penalty and clipped to [1e-8, 10]."""
+    j, t, _, _ = _problem()
+    C, S, n_steps, n_burn, segment = 16, 3, 10, 6, 4  # segments of 4 (all burn-in), 4 (2), 2 (0)
+    theta0 = np.random.default_rng(4).normal(0.0, 1.0, (C, D))
+    key = jax.random.PRNGKey(9)
+    kw = dict(n_steps=n_steps, n_burn=n_burn, beta=0.3, subchain=S, segment=segment, inner="mala")
+    rj = jda.run_da_pcn_segmented(j["fine"], j["coarse"], j["prior"], jnp.asarray(theta0), key,
+                                  batched_fine=True, batched_coarse=True, **kw)
+    nrm, uni, out = _segmented_draws(key, n_steps, n_burn, segment, S, C)
+    rt = tda.run_da_pcn_segmented(t["fine"], t["coarse"], t["prior"], torch.tensor(theta0), normals=nrm,
+                                  uniforms=uni, outer_uniforms=out, **kw)
+    assert rt.samples.shape == (n_steps - n_burn, C, D)
+    for f in ("samples", "phi_trace", "beta"):
+        _close(getattr(rt, f), getattr(rj, f), 1e-10)
+    _same_rate(rt.accept_rate, rj.accept_rate)
+    _same_rate(rt.inner_accept_rate, rj.inner_accept_rate)
+    assert not np.allclose(rt.beta.numpy(), 0.3)  # burn-in adapted the step sizes
+
+
 def test_unported_and_degenerate_options_raise():
     _, t, _, _ = _problem()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tda.make_inner_kernel("mala", t["coarse"], t["prior"])
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tda.run_da_pcn(t["fine"], t["coarse"], t["prior"], torch.zeros(4, D), n_steps=2, inner="mala")
     with pytest.raises(ValueError, match="unknown"):
         tda.make_inner_kernel("hmc", t["coarse"], t["prior"])
     # likelihood == da_coarse: rejected before anything is built or solved

@@ -122,9 +122,7 @@ def test_port_build_and_inversion_on_cpu():
 def test_unported_options_raise(converted):
     _, tpipe = converted
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.run_inversion(tpipe, sampler="pt_mala")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.run_inversion(tpipe, sampler="laplace_mh")
+        api.run_inversion(tpipe, sampler="mlda_pcn", likelihood="fom")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.build_pipeline(
             tcfg.PipelineConfig(rom=tcfg.ROMConfig(online_precision="high")), device="cpu")

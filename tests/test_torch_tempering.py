@@ -7,7 +7,8 @@ reference, in float64 at small sizes unless a case says otherwise.
    a resumed ladder) and run_pt_da_segmented (three segments, adaptive
    ladder) are fed the draws of JAX's key schedule, regenerated here from
    the reference's splits, and must give every field of JAX's result.
-3. The odd-segment, K-mismatch and MALA-inner refusals.
+3. The odd-segment, K-mismatch and unknown-inner-kernel refusals (MALA
+   subchains run: test_torch_pt_mala.py).
 4. The analytic cases of tests/test_tempering.py on the port's own
    torch.Generator, at that file's tolerances: the unimodal linear-Gaussian
    posterior and the bimodal mode masses, for PT-pCN and tempered DA.
@@ -243,8 +244,8 @@ def test_refusals():
         tt.run_pt_pcn(t["misfit"], t["prior"], theta, n_steps=2, n_temps=4)
     with pytest.raises(ValueError, match="n_temps=2"):
         tt.run_pt_da(t["misfit"], t["coarse"], t["prior"], theta, n_steps=2, n_temps=2)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tt.run_pt_da(t["misfit"], t["coarse"], t["prior"], theta[0], n_steps=2, n_temps=3, inner="mala")
+    with pytest.raises(ValueError, match="unknown DA inner kernel"):
+        tt.run_pt_da(t["misfit"], t["coarse"], t["prior"], theta[0], n_steps=2, n_temps=3, inner="hmc")
 
 
 # --- 4. analytic cases on the port's own generator ---------------------------
