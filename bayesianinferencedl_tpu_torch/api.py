@@ -17,10 +17,21 @@ forward (``Pipeline.batched_forward_fn(..., differentiable=True)``). With
 Tempered runs also return the log evidence. Nothing moves between devices
 on its own: asking for ``device="cuda"`` without a card raises.
 
+Chains start from prior draws (the Laplace-seeded samplers from the
+Laplace approximation), or with ``init="eki"`` / ``"vi"`` from an EKI
+ensemble or a short full-rank ADVI fit.
+
+The approximation layer has its own entry points, with ``run_inversion``'s data
+contract: ``run_eki_inversion`` (ensemble Kalman inversion, one batched
+forward an iteration), ``run_vi_inversion`` (ADVI), ``run_svgd_inversion``
+(Stein variational gradient descent), ``psis_certify`` (Pareto-smoothed
+importance sampling of any Gaussian fit: one batched forward) and
+``run_smc_evidence`` (the log evidence by adaptive tempered SMC, its groups
+one batch).
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP.md item: ``mlda_pcn``, the ``high``/``fast`` online precision tiers
-and box priors. Chains start from prior draws (or the Laplace
-approximation's); the other initialisations are ROADMAP.md queue 1, item 20.
+and box priors.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from bayesianinferencedl_tpu_torch.data.datasets import ErrorDataset, generate_e
 from bayesianinferencedl_tpu_torch.fem.solve import pcg_fom
 from bayesianinferencedl_tpu_torch.infer.delayed_acceptance import DAResult, run_da_pcn_segmented
 from bayesianinferencedl_tpu_torch.infer.diagnostics import ess_bulk, ess_tail, split_rhat
+from bayesianinferencedl_tpu_torch.infer.eki import EKIResult, run_eki
 from bayesianinferencedl_tpu_torch.infer.evidence import log_evidence_from_pt
 from bayesianinferencedl_tpu_torch.infer.hmc import run_hmc, run_hmc_chees, run_hmc_segmented
 from bayesianinferencedl_tpu_torch.infer.mala import MALAResult, run_mala, run_mala_segmented
@@ -51,7 +63,10 @@ from bayesianinferencedl_tpu_torch.infer.pcn import (
     run_pcn_segmented,
 )
 from bayesianinferencedl_tpu_torch.infer.priors import BoxPrior, GaussianPrior
+from bayesianinferencedl_tpu_torch.infer.psis import PSISResult, psis_correct
 from bayesianinferencedl_tpu_torch.infer.samplers import MHResult, run_gpcn, run_laplace_mh
+from bayesianinferencedl_tpu_torch.infer.smc import run_smc
+from bayesianinferencedl_tpu_torch.infer.svgd import SVGDResult, run_svgd
 from bayesianinferencedl_tpu_torch.infer.tempering import (
     PTDAResult,
     PTMALAResult,
@@ -60,6 +75,7 @@ from bayesianinferencedl_tpu_torch.infer.tempering import (
     run_pt_mala,
     run_pt_pcn,
 )
+from bayesianinferencedl_tpu_torch.infer.vi import VIResult, run_advi, vi_sample
 from bayesianinferencedl_tpu_torch.models.corrected import CorrectedForward
 from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
 from bayesianinferencedl_tpu_torch.models.surrogate import TrainedSurrogate, train_surrogate
@@ -341,6 +357,27 @@ def _child(gen: torch.Generator) -> torch.Generator:
     return torch.Generator(device=gen.device).manual_seed(seed)
 
 
+def _observations(pipe: Pipeline, gen: torch.Generator, theta_true: Optional[torch.Tensor],
+                  data: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """(theta_true, data), the data contract of every entry point here.
+    data=(n_obs,): those observations as they are, with theta_true (default
+    the prior mean) for reporting only. data=None: theta_true (default a
+    prior draw from gen), then one FOM solve and noise from gen, in that
+    order, so one seed gives the same observations to every one of them."""
+    dtype, dev = pipe.prior.mean.dtype, pipe.device
+    if data is not None:
+        data = torch.as_tensor(data, dtype=dtype, device=dev)
+        n_obs = pipe.fin.op.n_obs
+        if tuple(data.shape) != (n_obs,):
+            raise ValueError(f"external data must have shape ({n_obs},), got {tuple(data.shape)}")
+        return (pipe.prior.mean if theta_true is None else theta_true), data
+    if theta_true is None:
+        theta_true = pipe.prior.sample(gen)
+    y_true = pipe.fin.forward(torch.exp(pipe.prior.to_theta(theta_true)))
+    noise = pipe.config.mcmc.noise_sigma * torch.randn(y_true.shape, generator=gen, dtype=dtype, device=dev)
+    return theta_true, y_true + noise
+
+
 def _map_laplace(pipe: Pipeline, like: str, mk_misfit: Callable, data: torch.Tensor, b0: float,
                  gen: torch.Generator, log: MetricsLogger):
     """The offline step of the Laplace-seeded samplers: the MAP by 8-start
@@ -419,6 +456,7 @@ def run_inversion(
     *,
     likelihood: Optional[str] = None,
     sampler: Optional[str] = None,
+    init: str = "prior",
     theta_true: Optional[torch.Tensor] = None,
     data: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
@@ -445,6 +483,13 @@ def run_inversion(
     Every misfit is Gaussian at ``cfg.noise_sigma``, or with
     ``cfg.infer_noise`` the noise-marginalised potential under the prior
     sigma^2 ~ InvGamma(2, noise_sigma^2).
+
+    init: "prior" draws the chains' starts from the prior; "eki" takes the
+    final ensemble of an EKI run (``cfg.n_chains`` members, logged as the
+    "eki_init" event), "vi" draws them from an 800-step full-rank ADVI fit
+    ("vi_init"). Exactness is unaffected, only the burn-in it takes; not
+    for multimodal targets, where the Gaussian-ansatz transport can
+    collapse toward one basin. The Laplace-seeded samplers ignore it.
 
     data=None: theta_true is drawn from the prior (or given) and the noisy
     observations are simulated with one FOM solve. data=(n_obs,): invert
@@ -482,22 +527,9 @@ def run_inversion(
         )
     fwd_b = pipe.batched_forward_fn(like)
     dev = pipe.device
-    dtype = pipe.prior.mean.dtype
     _set_online_precision(pipe.config.rom.online_precision)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(cfg.seed)
-
-    if data is not None:
-        data = torch.as_tensor(data, dtype=dtype, device=dev)
-        n_obs = pipe.fin.op.n_obs
-        if tuple(data.shape) != (n_obs,):
-            raise ValueError(f"external data must have shape ({n_obs},), got {tuple(data.shape)}")
-        if theta_true is None:
-            theta_true = pipe.prior.mean
-    else:
-        if theta_true is None:
-            theta_true = pipe.prior.sample(gen)
-        y_true = pipe.fin.forward(torch.exp(pipe.prior.to_theta(theta_true)))
-        data = y_true + cfg.noise_sigma * torch.randn(y_true.shape, generator=gen, dtype=dtype, device=dev)
+    theta_true, data = _observations(pipe, gen, theta_true, data)
 
     # every misfit below: conditioned on noise_sigma, or with sigma integrated
     # out under the proper prior InvGamma(2, noise_sigma^2), whose mean is
@@ -516,11 +548,29 @@ def run_inversion(
     grad_kw = dict(step=cfg.mala_step, thin=cfg.thin, n_leap=cfg.hmc_leap, jitter=cfg.hmc_jitter,
                    log=log)
     run_warm = None
-    if smp in _LAPLACE:
+    if smp in _LAPLACE:  # init is ignored: the Laplace approximation seeds the chains
         lap = _map_laplace(pipe, like, mk_misfit, data, b0, _child(gen), log)
         theta0 = lap.sample(gen, (cfg.n_chains,))
-    else:
+    elif init == "eki":
+        # a derivative-free warm start: chains start inside the posterior
+        # bulk instead of diffusing there through burn-in
+        with log.timer("eki_init"):
+            eki0 = run_eki(fwd_b, pipe.prior, data, cfg.noise_sigma, _child(gen),
+                           n_ensemble=cfg.n_chains)
+        theta0 = eki0.ensemble
+        log.log("eki_init", n_iters=len(eki0.ts) - 1, n_forward=eki0.n_forward)
+    elif init == "vi":
+        # the gradient-based warm start: a short full-rank ADVI fit, chains drawn from q
+        g_vi = _child(gen)
+        with log.timer("vi_init"):
+            vi0 = run_advi(misfit_d(), pipe.prior, g_vi, n_steps=800, n_mc=32, rank="full")
+            _sync(dev)
+        theta0 = vi_sample(vi0, g_vi, (cfg.n_chains,))
+        log.log("vi_init", n_forward=vi0.n_forward, elbo_final=float(torch.mean(vi0.elbo_trace[-50:])))
+    elif init == "prior":
         theta0 = pipe.prior.sample(gen, (cfg.n_chains,))
+    else:
+        raise ValueError(f"init must be 'prior', 'eki', or 'vi', got {init!r}")
     if smp == "laplace_mh":
         run = lambda g, n_steps, n_burn: run_laplace_mh(
             misfit_b, pipe.prior, lap, theta0, g, n_steps=n_steps, n_burn=n_burn)
@@ -654,3 +704,232 @@ def run_inversion(
         accept_rate=float(torch.mean(res.accept_rate)), rhat_max=float(torch.max(r)), **extra,
     )
     return out
+
+
+def _approx_setup(pipe: Pipeline, generator, theta_true, data):
+    """The approximation entry points' shared start: (gen, theta_true, data) by the data
+    contract of ``_observations``, from ``generator`` or cfg.seed."""
+    cfg = pipe.config.mcmc
+    gen = generator if generator is not None else torch.Generator(device=pipe.device).manual_seed(cfg.seed)
+    _set_online_precision(pipe.config.rom.online_precision)
+    theta_true, data = _observations(pipe, gen, theta_true, data)
+    return gen, theta_true, data
+
+
+def _timed(dev: torch.device, fn):
+    """(fn(), host seconds), synchronised before the clock is read."""
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def run_eki_inversion(
+    pipe: Pipeline,
+    likelihood: str = "rom_nn",
+    *,
+    n_ensemble: int = 1024,
+    ess_target: float = 0.5,
+    theta_true: Optional[torch.Tensor] = None,
+    data: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    metrics: Optional[MetricsLogger] = None,
+) -> tuple[EKIResult, torch.Tensor, torch.Tensor, float]:
+    """Ensemble Kalman inversion (infer/eki.py): a derivative-free posterior
+    approximation in ~10-20 batched forwards, with ``run_inversion``'s data
+    contract. On the fom likelihood each iteration is one batched
+    stencil-kernel solve over the whole ensemble. Exact only in the
+    linear-Gaussian limit. Returns (EKIResult, theta_true, data,
+    wall_seconds) and logs the "eki" event."""
+    gen, theta_true, data = _approx_setup(pipe, generator, theta_true, data)
+    fwd_b = pipe.batched_forward_fn(likelihood)
+    res, wall = _timed(pipe.device, lambda: run_eki(
+        fwd_b, pipe.prior, data, pipe.config.mcmc.noise_sigma, _child(gen),
+        n_ensemble=n_ensemble, ess_target=ess_target))
+    if metrics is not None:
+        metrics.log("eki", likelihood=likelihood, n_ensemble=n_ensemble, n_iters=len(res.ts) - 1,
+                    n_forward=res.n_forward, misfit_final=res.misfit_trace[-1], wall_seconds=wall)
+    return res, theta_true, data, wall
+
+
+def run_vi_inversion(
+    pipe: Pipeline,
+    likelihood: str = "rom_nn",
+    *,
+    rank: str = "full",
+    n_steps: int = 1500,
+    n_mc: int = 32,
+    lr: float = 0.05,
+    theta_true: Optional[torch.Tensor] = None,
+    data: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    metrics: Optional[MetricsLogger] = None,
+) -> tuple[VIResult, torch.Tensor, torch.Tensor, float]:
+    """ADVI (infer/vi.py): q = N(mu, L L^T) in the whitened prior frame by
+    stochastic ELBO ascent, each step one forward and reverse pass of the
+    differentiable forward over the n_mc draws; ``run_inversion``'s data
+    contract. Returns (VIResult, theta_true, data, wall_seconds) and logs
+    the "vi" event."""
+    gen, theta_true, data = _approx_setup(pipe, generator, theta_true, data)
+    misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood, differentiable=True), data,
+                               pipe.config.mcmc.noise_sigma)
+    res, wall = _timed(pipe.device, lambda: run_advi(
+        misfit_b, pipe.prior, _child(gen), n_steps=n_steps, n_mc=n_mc, rank=rank, lr=lr))
+    if metrics is not None:
+        metrics.log("vi", likelihood=likelihood, rank=rank, n_steps=n_steps, n_mc=n_mc,
+                    n_forward=res.n_forward, elbo_final=float(torch.mean(res.elbo_trace[-50:])),
+                    wall_seconds=wall)
+    return res, theta_true, data, wall
+
+
+def run_svgd_inversion(
+    pipe: Pipeline,
+    likelihood: str = "rom_nn",
+    *,
+    n_particles: int = 512,
+    n_steps: int = 800,
+    lr: float = 0.05,
+    anneal_steps: Optional[int] = None,
+    theta_true: Optional[torch.Tensor] = None,
+    data: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    metrics: Optional[MetricsLogger] = None,
+) -> tuple[SVGDResult, torch.Tensor, torch.Tensor, float]:
+    """SVGD (infer/svgd.py): n_particles prior-frame draws transported along
+    the kernelised Stein direction, each step one forward and reverse pass
+    of the differentiable forward over all particles and two (J, J) x (J, d)
+    products; ``run_inversion``'s data contract. Biased at finite J and
+    without a density: certify its moment-matched Gaussian if needed.
+    Returns (SVGDResult, theta_true, data, wall_seconds) and logs the
+    "svgd" event."""
+    gen, theta_true, data = _approx_setup(pipe, generator, theta_true, data)
+    misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood, differentiable=True), data,
+                               pipe.config.mcmc.noise_sigma)
+    res, wall = _timed(pipe.device, lambda: run_svgd(
+        misfit_b, pipe.prior, _child(gen), n_particles=n_particles, n_steps=n_steps, lr=lr,
+        anneal_steps=anneal_steps))
+    if metrics is not None:
+        metrics.log("svgd", likelihood=likelihood, n_particles=n_particles, n_steps=n_steps,
+                    n_forward=res.n_forward, misfit_final=float(res.misfit_trace[-1]),
+                    wall_seconds=wall)
+    return res, theta_true, data, wall
+
+
+def psis_certify(
+    pipe: Pipeline,
+    q_mean: torch.Tensor,
+    q_chol: torch.Tensor,
+    data: torch.Tensor,
+    likelihood: str = "rom_nn",
+    *,
+    n_draws: int = 4096,
+    generator: Optional[torch.Generator] = None,
+    metrics: Optional[MetricsLogger] = None,
+) -> PSISResult:
+    """Certify and correct a Gaussian approximation N(q_mean, q_chol
+    q_chol^T) over working coordinates (a VIResult's theta_mean /
+    theta_chol, a Laplace fit, a moment-matched ensemble) by Pareto-smoothed
+    importance sampling (infer/psis.py): n_draws draws, one batched forward
+    through the sampler's route (on fom, one stencil-kernel solve), the
+    k-hat gate and the importance-weighted moments. The draws come from
+    ``generator``, else from cfg.seed + 7. Logs the "psis" event."""
+    cfg = pipe.config.mcmc
+    gen = generator if generator is not None else torch.Generator(device=pipe.device).manual_seed(cfg.seed + 7)
+    data = torch.as_tensor(data, dtype=pipe.prior.mean.dtype, device=pipe.device)
+    misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood), data, cfg.noise_sigma)
+    res = psis_correct(misfit_b, pipe.prior, q_mean, q_chol, gen, n_draws=n_draws)
+    if metrics is not None:
+        metrics.log("psis", likelihood=likelihood, n_draws=n_draws, k_hat=res.k_hat, ess=res.ess,
+                    reliable=res.reliable)
+    return res
+
+
+@dataclass(frozen=True)
+class SMCEvidenceResult:
+    """run_smc_evidence's output: the SMC log evidence with a cross-group
+    Monte-Carlo error bar, and the terminal (equally weighted) particles."""
+
+    particles: torch.Tensor  # (n_particles, d) pooled over the groups, working coordinates
+    log_evidence: float
+    log_evidence_std: float
+    log_z_groups: torch.Tensor  # (n_groups,) the per-group estimates
+    n_stages: torch.Tensor  # (n_groups,) each group's schedule length
+    theta_true: torch.Tensor
+    data: torch.Tensor
+    wall_seconds: float
+
+
+def run_smc_evidence(
+    pipe: Pipeline,
+    *,
+    likelihood: Optional[str] = None,
+    n_particles: int = 4096,
+    n_groups: int = 8,
+    n_mutations: int = 5,
+    ess_target: float = 0.5,
+    max_stages: int = 64,
+    theta_true: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    metrics: Optional[MetricsLogger] = None,
+) -> SMCEvidenceResult:
+    """The log evidence by adaptive tempered SMC (infer/smc.py), unbiased in
+    Z and independent of the stepping-stone estimate of the tempered
+    samplers. The observations are simulated as ``run_inversion`` simulates
+    them (theta_true, then the noise, from the same generator state), so one
+    seed gives the same data to both, and to runs on other likelihoods:
+    their differences are log Bayes factors. cfg.infer_noise switches to
+    the noise-marginalised potential.
+
+    n_groups populations of n_particles / n_groups run as one batch (one
+    batched misfit a mutation sweep); each group's estimate is unbiased, so
+    the combined estimate is their mean in Z and their spread the error
+    bar."""
+    log = metrics or MetricsLogger()
+    cfg = pipe.config.mcmc
+    like = likelihood or cfg.likelihood
+    gen, theta_true, data = _approx_setup(pipe, generator, theta_true, None)
+    fwd_b = pipe.batched_forward_fn(like)
+    if cfg.infer_noise:
+        misfit_b = marginal_misfit(fwd_b, data, a0=2.0, b0=float(cfg.noise_sigma) ** 2)
+    else:
+        misfit_b = gaussian_misfit(fwd_b, data, cfg.noise_sigma)
+    return _smc_evidence_core(
+        misfit_b, pipe.prior, _child(gen), n_particles=n_particles, n_groups=n_groups,
+        n_mutations=n_mutations, ess_target=ess_target, max_stages=max_stages, log=log,
+        likelihood=like, event="smc_evidence", theta_true=theta_true, data=data,
+    )
+
+
+def _smc_evidence_core(
+    misfit_b: Callable,
+    prior: GaussianPrior,
+    gen: torch.Generator,
+    *,
+    n_particles: int,
+    n_groups: int,
+    n_mutations: int,
+    ess_target: float,
+    max_stages: int,
+    log: MetricsLogger,
+    likelihood: str,
+    event: str,
+    theta_true: torch.Tensor,
+    data: torch.Tensor,
+) -> SMCEvidenceResult:
+    """The SMC-evidence engine: the groups as one batch, their unbiased-in-Z
+    combination, the timing (synchronised), the event and the result."""
+    if n_particles % n_groups:
+        raise ValueError(f"n_particles {n_particles} not divisible by n_groups {n_groups}")
+    res, wall = _timed(prior.mean.device, lambda: run_smc(
+        misfit_b, prior, gen, n_particles=n_particles // n_groups, n_groups=n_groups,
+        n_mutations=n_mutations, ess_target=ess_target, max_stages=max_stages))
+    lz = res.log_evidence
+    log_z = float(torch.logsumexp(lz, dim=0) - math.log(lz.shape[0]))
+    log_z_std = float(torch.std(lz, correction=0))
+    log.log(event, likelihood=likelihood, log_z=log_z, log_z_std=log_z_std,
+            n_stages=res.n_stages.cpu().tolist(), wall_seconds=wall, method="smc")
+    return SMCEvidenceResult(
+        particles=res.particles.reshape(n_particles, -1), log_evidence=log_z,
+        log_evidence_std=log_z_std, log_z_groups=lz, n_stages=res.n_stages,
+        theta_true=theta_true, data=data, wall_seconds=wall,
+    )

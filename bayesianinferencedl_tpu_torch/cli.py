@@ -41,10 +41,22 @@ the trajectory length, 0 for ChEES) and ``pt_mala`` run as well;
 
 builds the pipeline and prints the MAP (8-start BFGS on the differentiable
 forward) with the Laplace approximation's standard deviations, as the
-reference's ``map`` does.
+reference's ``map`` does; ``--psis K`` certifies the Laplace fit by
+Pareto-smoothed importance sampling (one batched forward of K draws).
+
+    python -m bayesianinferencedl_tpu_torch.cli eki --resolution 4 --noise 1e-2
+    python -m bayesianinferencedl_tpu_torch.cli vi --resolution 4 --psis 4096
+    python -m bayesianinferencedl_tpu_torch.cli svgd --resolution 4
+    python -m bayesianinferencedl_tpu_torch.cli evidence --resolution 4 --likelihood fom
+
+run the approximation layer on a fresh build: ensemble Kalman inversion,
+ADVI, SVGD (``--psis K`` certifies the fit, for EKI and SVGD its
+moment-matched Gaussian) and the log evidence by tempered SMC, each with
+the reference's flags and JSON keys. ``invert --init eki|vi`` starts the
+chains from an EKI ensemble or an ADVI fit.
 Flags the port does not support yet (``mlda_pcn``, box priors, the bf16
-precision tiers, the greedy ROM basis, ``map --psis``) raise
-NotImplementedError naming their ROADMAP.md item.
+precision tiers, the greedy ROM basis, ``vi --flow/--neutra/--psis-widen``)
+raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -205,7 +217,7 @@ def cmd_invert(args) -> None:
     if args.data:
         obs = torch.as_tensor(np.load(args.data)["data"])
         log.log("external_data", path=args.data, n_obs=int(obs.shape[0]))
-    inv = run_inversion(pipe, data=obs, metrics=log)
+    inv = run_inversion(pipe, init=args.init, data=obs, metrics=log)
     post_mean = pipe.prior.to_theta(inv.result.samples).mean(dim=(0, 1))
     out = {
         "likelihood": args.likelihood,
@@ -248,10 +260,10 @@ def cmd_map(args) -> None:
     from bayesianinferencedl_tpu_torch.infer.pcn import gaussian_misfit, marginal_misfit
     from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
 
-    if args.psis:
-        raise NotImplementedError(
-            "map --psis (the PSIS certificate of the Laplace fit, infer/psis.py) is not ported "
-            "yet: ROADMAP.md queue 1, item 20"
+    if args.psis and args.infer_noise:
+        raise SystemExit(
+            "--psis with --infer-noise is unsupported: the sigma-marginal "
+            "potential needs its own importance target"
         )
     log = MetricsLogger(args.metrics)
     pipe = build_pipeline(_pipeline_config(args, MCMCConfig(noise_sigma=args.noise)),
@@ -287,7 +299,177 @@ def cmd_map(args) -> None:
         "prior": args.prior,
         **({"noise_sigma_plugin": sig_lap} if args.infer_noise else {}),
     }
+    if args.psis:
+        # certify the Laplace fit: does the local quadratic cover the posterior?
+        from bayesianinferencedl_tpu_torch.api import psis_certify
+
+        cert = psis_certify(pipe, lap.mean, lap.chol, data, args.likelihood, n_draws=args.psis,
+                            generator=torch.Generator(device=dev).manual_seed(args.seed + 2),
+                            metrics=log)
+        rec["psis"] = _psis_record(args.psis, cert)
     print(json.dumps(rec))
+
+
+def _psis_record(n_draws: int, cert, corrected_mean=None) -> dict:
+    """The ``psis`` block of the reference's JSON lines: the corrected mean
+    in working coordinates and the evidence, or (``vi``) the corrected mean
+    of log k."""
+    rec = {"n_draws": n_draws, "k_hat": round(cert.k_hat, 3), "reliable": cert.reliable,
+           "ess": round(cert.ess, 1)}
+    if corrected_mean is not None:
+        rec["corrected_mean_log_k"] = corrected_mean
+    else:
+        rec["corrected_mean_working"] = cert.mean.tolist()
+        rec["log_evidence"] = round(cert.log_evidence, 4)
+    return rec
+
+
+def _build_for(args):
+    """The pipeline of an approximation command (its flags: the noise, the
+    likelihood and the seed fill MCMCConfig), the metrics logger and the
+    external data, if any."""
+    from bayesianinferencedl_tpu_torch.api import build_pipeline
+    from bayesianinferencedl_tpu_torch.config import MCMCConfig
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    log = MetricsLogger(args.metrics, run_config=vars(args))
+    mcmc = MCMCConfig(noise_sigma=args.noise, likelihood=args.likelihood, seed=args.seed)
+    pipe = build_pipeline(_pipeline_config(args, mcmc), device=args.device, dtype=_dtype(args),
+                          metrics=log)
+    obs = None
+    if getattr(args, "data", None):
+        obs = torch.as_tensor(np.load(args.data)["data"])
+    return pipe, log, obs
+
+
+def _moment_psis(args, pipe, ens: torch.Tensor, data) -> dict:
+    """eki / svgd --psis: certify the ensemble's moment-matched Gaussian."""
+    from bayesianinferencedl_tpu_torch.api import psis_certify
+
+    e = ens.double().cpu().numpy()
+    cov = np.cov(e.T) + 1e-12 * np.eye(e.shape[1])
+    dt, dev = pipe.prior.mean.dtype, pipe.device
+    cert = psis_certify(
+        pipe, torch.tensor(e.mean(axis=0), dtype=dt, device=dev),
+        torch.tensor(np.linalg.cholesky(cov), dtype=dt, device=dev), data, args.likelihood,
+        n_draws=args.psis, generator=torch.Generator(device=dev).manual_seed(args.seed + 2),
+    )
+    return _psis_record(args.psis, cert)
+
+
+def _summary(pipe, draws: torch.Tensor, theta_true, wall: float) -> dict:
+    """The keys every approximation command prints: the posterior mean and
+    sd of log k over the draws, the truth and the mean absolute error."""
+    th = pipe.prior.to_theta(draws)
+    mean = th.mean(dim=0).double().cpu().numpy()
+    truth = pipe.prior.to_theta(theta_true).double().cpu().numpy()
+    return {
+        "wall_seconds": round(wall, 3),
+        "posterior_mean_log_k": mean.tolist(),
+        "posterior_std_log_k": th.std(dim=0, correction=0).double().cpu().numpy().tolist(),
+        "theta_true": truth.tolist(),
+        "mean_abs_err": round(float(np.abs(mean - truth).mean()), 5),
+    }
+
+
+def cmd_eki(args) -> None:
+    """Derivative-free ensemble Kalman inversion (api.run_eki_inversion): a
+    posterior approximation in ~10-20 batched forwards, exact in the
+    linear-Gaussian limit."""
+    from bayesianinferencedl_tpu_torch.api import run_eki_inversion
+
+    pipe, log, obs = _build_for(args)
+    res, theta_true, data, wall = run_eki_inversion(
+        pipe, args.likelihood, n_ensemble=args.ensemble, ess_target=args.ess_target, data=obs,
+        generator=torch.Generator(device=pipe.device).manual_seed(args.seed), metrics=log,
+    )
+    rec = {"likelihood": args.likelihood, "n_ensemble": args.ensemble, "n_iters": len(res.ts) - 1,
+           "n_forward_evals": res.n_forward, **_summary(pipe, res.ensemble, theta_true, wall),
+           "misfit_trace": [round(x, 2) for x in res.misfit_trace],
+           "tempering_knots": [round(t, 5) for t in res.ts]}
+    if args.psis:
+        rec["psis"] = _moment_psis(args, pipe, res.ensemble, data)
+    print(json.dumps(rec))
+
+
+def cmd_vi(args) -> None:
+    """Gradient-based variational approximation (api.run_vi_inversion,
+    ADVI): q = N(mu, L L^T) by stochastic ELBO ascent, exact where the
+    posterior is Gaussian in the whitened frame. The flow family (--flow,
+    --neutra, --psis-widen) is not ported yet."""
+    from bayesianinferencedl_tpu_torch.api import psis_certify, run_vi_inversion
+    from bayesianinferencedl_tpu_torch.infer.vi import vi_sample
+
+    if args.flow > 0 or args.neutra > 0 or args.psis_widen != 1.0:
+        raise NotImplementedError(
+            "vi --flow/--neutra/--psis-widen (the normalizing flow and NeuTra, infer/flow.py) "
+            "is not ported yet: ROADMAP.md queue 1, item 28"
+        )
+    pipe, log, obs = _build_for(args)
+    dev = pipe.device
+    res, theta_true, data, wall = run_vi_inversion(
+        pipe, args.likelihood, rank=args.rank, n_steps=args.steps, n_mc=args.mc, lr=args.lr,
+        data=obs, generator=torch.Generator(device=dev).manual_seed(args.seed), metrics=log,
+    )
+    draws = vi_sample(res, torch.Generator(device=dev).manual_seed(args.seed + 1), (4096,))
+    elbo = res.elbo_trace.double().cpu().numpy()
+    rec = {"likelihood": args.likelihood, "rank": args.rank, "n_steps": args.steps, "n_mc": args.mc,
+           "n_forward_evals": res.n_forward, **_summary(pipe, draws, theta_true, wall),
+           "elbo_first_last": [round(float(elbo[:50].mean()), 2), round(float(elbo[-50:].mean()), 2)]}
+    if args.psis:
+        cert = psis_certify(pipe, res.theta_mean, res.theta_chol, data, args.likelihood,
+                            n_draws=args.psis,
+                            generator=torch.Generator(device=dev).manual_seed(args.seed + 2),
+                            metrics=log)
+        # the importance-weighted mean of log k: the draws pushed through to_theta
+        w = np.exp(cert.log_weights - cert.log_weights.max())
+        w /= w.sum()
+        th = pipe.prior.to_theta(cert.samples).double().cpu().numpy()
+        rec["psis"] = _psis_record(args.psis, cert, corrected_mean=(w @ th).tolist())
+    print(json.dumps(rec))
+
+
+def cmd_svgd(args) -> None:
+    """Particle-transport approximation (api.run_svgd_inversion, SVGD):
+    gradient-based and nonparametric, biased at finite J."""
+    from bayesianinferencedl_tpu_torch.api import run_svgd_inversion
+
+    pipe, log, obs = _build_for(args)
+    res, theta_true, data, wall = run_svgd_inversion(
+        pipe, args.likelihood, n_particles=args.particles, n_steps=args.steps, lr=args.lr,
+        anneal_steps=args.anneal if args.anneal >= 0 else None, data=obs,
+        generator=torch.Generator(device=pipe.device).manual_seed(args.seed), metrics=log,
+    )
+    tr = res.misfit_trace.double().cpu().numpy()
+    rec = {"likelihood": args.likelihood, "n_particles": args.particles, "n_steps": args.steps,
+           "n_forward_evals": res.n_forward, **_summary(pipe, res.particles, theta_true, wall),
+           "misfit_first_last": [round(float(tr[0]), 2), round(float(tr[-1]), 2)]}
+    if args.psis:
+        # SVGD fits no density: certify the terminal ensemble's moment-matched Gaussian
+        rec["psis"] = _moment_psis(args, pipe, res.particles, data)
+    print(json.dumps(rec))
+
+
+def cmd_evidence(args) -> None:
+    """The model evidence by adaptive tempered SMC (api.run_smc_evidence):
+    run once per --likelihood on the same --seed and difference the
+    outputs for log Bayes factors."""
+    from bayesianinferencedl_tpu_torch.api import run_smc_evidence
+
+    pipe, log, _ = _build_for(args)
+    ev = run_smc_evidence(pipe, n_particles=args.particles, n_groups=args.groups,
+                          n_mutations=args.mutations, ess_target=args.ess_target, metrics=log)
+    print(json.dumps({
+        "likelihood": args.likelihood,
+        "estimator": "smc (adaptive tempered, unbiased in Z)",
+        "log_evidence": ev.log_evidence,
+        "log_evidence_std": ev.log_evidence_std,
+        "n_stages": ev.n_stages.cpu().tolist(),
+        "n_particles": args.particles,
+        "posterior_mean_log_k": pipe.prior.to_theta(ev.particles).mean(dim=0).cpu().tolist(),
+        "theta_true": pipe.prior.to_theta(ev.theta_true).cpu().tolist(),
+        "wall_seconds": ev.wall_seconds,
+    }))
 
 
 def _add_build(p: argparse.ArgumentParser) -> None:
@@ -371,6 +553,9 @@ def main(argv=None) -> None:
                    help="treat the observation noise as unknown: integrate sigma out under a "
                         "conjugate InvGamma(2, noise^2) prior; --noise becomes the prior's scale "
                         "and the sigma posterior is reported")
+    p.add_argument("--init", choices=["prior", "eki", "vi"], default="prior",
+                   help="chain starts: prior draws, an EKI ensemble (~10 batched forwards) or "
+                        "draws from a short full-rank ADVI fit; unimodal posteriors only")
     p.set_defaults(fn=cmd_invert)
 
     p = sub.add_parser("map", help="MAP point + Laplace credible intervals")
@@ -381,8 +566,69 @@ def main(argv=None) -> None:
                    help="MAP under the sigma-marginalised potential (InvGamma(2, noise^2) prior); "
                         "Laplace intervals at the plug-in conditional-mode noise scale")
     p.add_argument("--psis", type=int, default=0, metavar="K",
-                   help="certify the Laplace fit by PSIS with K draws (not ported yet)")
+                   help="certify the Laplace fit by Pareto-smoothed importance sampling with K "
+                        "draws (the k-hat gate and the corrected mean; fixed noise only)")
     p.set_defaults(fn=cmd_map)
+
+    psis_help = ("certify the moment-matched ensemble Gaussian by Pareto-smoothed importance "
+                 "sampling with K draws (the k-hat gate and the corrected mean)")
+    data_help = "observation npz (key 'data'): external measurements"
+    p = sub.add_parser("eki", help="ensemble Kalman inversion: a derivative-free approximation")
+    _add_build(p)
+    p.add_argument("--noise", type=float, default=1e-2)
+    p.add_argument("--likelihood", choices=["fom", "rom", "rom_nn"], default="rom_nn")
+    p.add_argument("--ensemble", type=int, default=1024, help="ensemble size J")
+    p.add_argument("--ess-target", type=float, default=0.5,
+                   help="tempering-increment ESS fraction controlling the adaptive step")
+    p.add_argument("--data", type=str, default=None, help=data_help)
+    p.add_argument("--psis", type=int, default=0, metavar="K", help=psis_help)
+    p.set_defaults(fn=cmd_eki)
+
+    p = sub.add_parser("vi", help="ADVI: a Gaussian variational approximation")
+    _add_build(p)
+    p.add_argument("--noise", type=float, default=1e-2)
+    p.add_argument("--likelihood", choices=["fom", "rom", "rom_nn"], default="rom_nn")
+    p.add_argument("--rank", choices=["full", "meanfield"], default="full",
+                   help="variational family: dense Cholesky or diagonal")
+    p.add_argument("--steps", type=int, default=1500, help="Adam steps on the ELBO")
+    p.add_argument("--mc", type=int, default=32, help="Monte Carlo draws per step")
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--psis", type=int, default=0, metavar="K",
+                   help="certify the fit by Pareto-smoothed importance sampling with K draws: "
+                        "k-hat (< 0.7: the fit covers the posterior) and the corrected mean")
+    p.add_argument("--data", type=str, default=None, help=data_help)
+    p.add_argument("--flow", type=int, default=0, metavar="N",
+                   help="a normalizing flow with N coupling layers (not ported yet)")
+    p.add_argument("--flow-pretrain", choices=["smc", "none"], default="smc",
+                   help="the flow's pretraining (not ported yet)")
+    p.add_argument("--neutra", type=int, default=0, metavar="STEPS",
+                   help="flow-preconditioned pCN after the flow fit (not ported yet)")
+    p.add_argument("--psis-widen", type=float, default=1.0, metavar="S",
+                   help="certify through a base-widened flow proposal (not ported yet)")
+    p.set_defaults(fn=cmd_vi)
+
+    p = sub.add_parser("svgd", help="Stein variational gradient descent: a particle approximation")
+    _add_build(p)
+    p.add_argument("--noise", type=float, default=1e-2)
+    p.add_argument("--likelihood", choices=["fom", "rom", "rom_nn"], default="rom_nn")
+    p.add_argument("--particles", type=int, default=512, help="ensemble size J")
+    p.add_argument("--steps", type=int, default=800, help="Stein/Adam transport steps")
+    p.add_argument("--lr", type=float, default=0.05)
+    p.add_argument("--anneal", type=int, default=-1, metavar="N",
+                   help="likelihood ramp length (default steps // 2; 0 disables it)")
+    p.add_argument("--data", type=str, default=None, help=data_help)
+    p.add_argument("--psis", type=int, default=0, metavar="K", help=psis_help)
+    p.set_defaults(fn=cmd_svgd)
+
+    p = sub.add_parser("evidence", help="the log evidence by adaptive tempered SMC")
+    _add_build(p)
+    p.add_argument("--noise", type=float, default=1e-3)
+    p.add_argument("--likelihood", choices=["fom", "rom", "rom_nn"], default="rom_nn")
+    p.add_argument("--particles", type=int, default=4096, help="total SMC population")
+    p.add_argument("--groups", type=int, default=8, help="independent populations (error bar)")
+    p.add_argument("--mutations", type=int, default=5, help="pCN sweeps per tempering stage")
+    p.add_argument("--ess-target", type=float, default=0.5, help="ESS/N kept per stage")
+    p.set_defaults(fn=cmd_evidence)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -256,6 +256,37 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               the differentiable rom_nn and fom forwards in float64 on the
               card: misfit gradients against central differences, relative
               error <= 1e-6 (rom_nn) and <= 1e-5 (fom at tol 1e-10)
+ 13. approx   the approximation layer through its api entry points on the card, on
+              phase 3's build and data, phase 3's pcn (1,024 chains x 4,000
+              steps) the reference posterior, at the bench's widths: (a) EKI
+              on rom_nn, J = 1,024, an untimed warm run, then a timed one: the
+              knots rise strictly to exactly 1.0, n_iters < 50, n_forward = J
+              (n_iters + 1), the ensemble finite, each mean within one pcn
+              posterior sd of pcn's; (b) full-rank ADVI on rom_nn, 3,000 steps
+              x 32 draws, then psis_certify with 4,096 draws: the ELBO finite
+              and its last-50 mean above its first-50, theta_chol lower
+              triangular with a positive diagonal, the means within one pcn
+              sd, PSIS ess > 0 and k-hat finite; (c) SVGD on rom_nn, 512
+              particles x 800 steps, annealed, then PSIS of its moment-matched
+              Gaussian with 4,096 draws: the misfit trace finite, the means
+              within one pcn sd, k-hat printed, not gated (the reference's
+              0.771 fails its own 0.7); (d) run_smc_evidence on rom_nn with
+              phase 3's seed, 4,096 particles in 8 groups, 5 mutations, ESS
+              target 0.5, at most 64 stages: its data equal phase 3's bit for
+              bit, every group under 64 stages (so at lambda = 1), log Z
+              finite and within 4 combined sds of phase 11 (a)'s pt_pcn, the
+              particle means within half a pcn sd; (e) the fom likelihood
+              through K3r at res4, K3r's launches counted around each call:
+              EKI, J = 1,024, the data passed, exactly n_iters + 1 launches
+              and its means within one pcn sd; run_smc_evidence, 1,024
+              particles in 4 groups, exactly 2 + 5 x (the most stages of a
+              group) (the truth solve, the initial sweep, one a mutation sweep
+              over all groups); psis_certify of (b)'s fit with 4,096 draws,
+              exactly 1; every output finite, the fom log Z printed beside
+              (d)'s; (f) run_inversion(init="eki") and (init="vi"), pcn on
+              rom_nn, 1,024 chains, 1,000 steps (300 burn-in; cut for the time
+              limit): the "eki_init" / "vi_init" events logged and phase 12's
+              moment gates against phase 3's pcn
 
 The last three lines are the kernel summary (JSON: time, launches, bound,
 plain time of each kernel), the nvidia-smi line, and
@@ -2304,7 +2335,7 @@ P12_LOGZ_GATE = 4.0  # (d): |log Z - phase 11 (a)'s| in combined standard deviat
 P12_FD = dict(rom_nn=(1e-5, 1e-6), fom=(1e-4, 1e-5))  # (g): central-difference step, relative gate
 
 
-def _p12_moments(tag, inv, ref, acc_range=None):
+def _p12_moments(tag, inv, ref, acc_range=None, phase="P12"):
     """A cell's gates against phase 3's pcn posterior (phase 4's): finite
     outputs, the means within K2_MEAN_GATE combined MCSE, the sds within
     K2_SD_GATE, and the accept rate in acc_range = (lo, hi], if given.
@@ -2319,10 +2350,10 @@ def _p12_moments(tag, inv, ref, acc_range=None):
     means, sds, z, sd_rel, rhats = _posterior_z(res.samples, ref.result.samples)
     acc = float(res.accept_rate.mean())
     T, C, _ = res.samples.shape
-    say("P12", f"{tag}: {C} chains, {T} kept: {inv.wall_seconds:.3f} s, {inv.samples_per_sec:.1f} "
+    say(phase, f"{tag}: {C} chains, {T} kept: {inv.wall_seconds:.3f} s, {inv.samples_per_sec:.1f} "
         f"samples/s, bulk ESS/s {inv.ess_per_sec:.2f} (bulk ESS min {inv.ess.min().item():.1f}), "
         f"split-rhat max {rhats[0]:.4f} (pcn's {rhats[1]:.4f}); accept {acc:.4f}")
-    say("P12", f"{tag}: mean {np.round(means[0], 4).tolist()} vs pcn {np.round(means[1], 4).tolist()}; "
+    say(phase, f"{tag}: mean {np.round(means[0], 4).tolist()} vs pcn {np.round(means[1], 4).tolist()}; "
         f"|diff| / MCSE {np.round(z, 2).tolist()}; sd {np.round(sds[0], 4).tolist()} vs "
         f"{np.round(sds[1], 4).tolist()}")
     if z.max() > K2_MEAN_GATE:
@@ -2572,6 +2603,183 @@ def phase_gradient(pipe4, inv4, pipe8, inv8, inv_pt):
     return k3r
 
 
+# phase 13: the approximation layer at the bench's widths (bench.py:409-410, 841-954)
+P13_EKI_J = 1024  # (a), (e): bench.py's eki block
+P13_VI = dict(n_steps=3000, n_mc=32)  # (b): bench.py's vi_advi block
+P13_SVGD = dict(n_particles=512, n_steps=800)  # (c): bench.py's svgd block
+P13_SMC = dict(n_particles=4096, n_groups=8, n_mutations=5, ess_target=0.5, max_stages=64)  # (d)
+P13_SMC_FOM = dict(n_particles=1024, n_groups=4, n_mutations=5, ess_target=0.5, max_stages=64)  # (e)
+P13_PSIS = 4096  # draws of every certificate
+P13_INIT = dict(n_steps=1000, n_burn=300)  # (f): cut for the time limit
+P13_LOGZ_GATE = 4.0  # (d): |log Z - phase 11 (a)'s| in combined standard deviations
+
+
+def phase_approx(pipe4, inv4, inv_pt):
+    """Phase 13: the approximation layer through its api entry points on the card,
+    on phase 3's res4 build and data; phase 3's pcn run is the reference
+    posterior. Returns K3r's launches over the phase."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.api import (
+        psis_certify, run_eki_inversion, run_inversion, run_smc_evidence, run_svgd_inversion,
+        run_vi_inversion,
+    )
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    t_phase = time.perf_counter()
+    data, truth = inv4.data, inv4.theta_true
+    ref = inv4.result.samples.double()
+    pcn_mean = ref.mean(dim=(0, 1)).cpu().numpy()
+    pcn_sd = ref.std(dim=(0, 1)).cpu().numpy()
+    k3r = 0
+
+    def counted(fn):
+        """fn() with K3r's count set to 0 just before and read just after."""
+        K.launches = K.tile_launches = K.tile_mma_launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        if K.launches or K.tile_launches:
+            fail(f"K1 {K.launches} / K3 {K.tile_launches} launches where K3r carries the fom solves")
+        return out, K.tile_mma_launches
+
+    def near_pcn(tag, mean, frac=1.0):
+        """|mean - pcn's mean| per coordinate, gated at frac pcn sds."""
+        err = np.abs(np.asarray(mean, np.float64) - pcn_mean)
+        say("P13", f"{tag}: mean {np.round(mean, 4).tolist()} vs pcn {np.round(pcn_mean, 4).tolist()}; "
+            f"|diff| / pcn sd {np.round(err / pcn_sd, 3).tolist()}; mean_abs_err_vs_pcn "
+            f"{err.mean():.4f}")
+        if not np.all(err <= frac * pcn_sd):
+            fail(f"{tag}: mean {np.max(err / pcn_sd):.2f} pcn sds from pcn's (gate {frac})")
+        return float(err.mean())
+
+    def moment_q(ens):
+        e = ens.double()
+        return e.mean(0), torch.linalg.cholesky(torch.cov(e.T) + 1e-12 * torch.eye(e.shape[1], dtype=e.dtype,
+                                                                               device=e.device))
+
+    def eki_gates(tag, res, J):
+        n_iters = len(res.ts) - 1
+        ts = np.asarray(res.ts)
+        if not (np.all(np.diff(ts) > 0) and ts[-1] == 1.0):
+            fail(f"{tag}: the knots {res.ts} do not rise strictly to exactly 1.0")
+        if not n_iters < 50:
+            fail(f"{tag}: {n_iters} iterations")
+        if res.n_forward != J * (n_iters + 1):
+            fail(f"{tag}: n_forward {res.n_forward} != J (n_iters + 1) = {J * (n_iters + 1)}")
+        if not torch.isfinite(res.ensemble).all():
+            fail(f"{tag}: non-finite ensemble")
+        return n_iters
+
+    # (a) EKI on rom_nn: an untimed warm run, then the timed one
+    kw = dict(n_ensemble=P13_EKI_J, data=data, theta_true=truth)
+    run_eki_inversion(pipe4, "rom_nn", **kw)
+    res, _, _, wall = run_eki_inversion(pipe4, "rom_nn", **kw)
+    n_iters = eki_gates("(a)", res, P13_EKI_J)
+    say("P13", f"(a) EKI rom_nn J = {P13_EKI_J}: {n_iters} iterations, {res.n_forward} forwards, "
+        f"{wall:.3f} s; knots {[round(t, 5) for t in res.ts]}")
+    err = near_pcn("(a)", res.mean.double().cpu().numpy())
+    say("P13", f"(a) mean_abs_err_vs_pcn {err:.4f} (the reference's BENCH_r05: 0.0124)")
+
+    # (b) full-rank ADVI, then its PSIS certificate
+    vi, _, _, wall = run_vi_inversion(pipe4, "rom_nn", data=data, theta_true=truth, **P13_VI)
+    elbo = vi.elbo_trace.double().cpu().numpy()
+    L = vi.theta_chol
+    if not (np.isfinite(elbo).all() and elbo[-50:].mean() > elbo[:50].mean()):
+        fail(f"(b): ELBO first-50 {elbo[:50].mean():.3f}, last-50 {elbo[-50:].mean():.3f}")
+    if not (torch.equal(L, torch.tril(L)) and bool((torch.diagonal(L) > 0).all())):
+        fail("(b): theta_chol is not lower triangular with a positive diagonal")
+    say("P13", f"(b) ADVI full rank, {P13_VI['n_steps']} steps x {P13_VI['n_mc']} draws: {wall:.3f} s, "
+        f"{wall / P13_VI['n_steps'] * 1e3:.3f} ms a step; ELBO first-50 {elbo[:50].mean():.3f}, "
+        f"last-50 {elbo[-50:].mean():.3f}")
+    err = near_pcn("(b)", vi.theta_mean.double().cpu().numpy())
+    cert = psis_certify(pipe4, vi.theta_mean, vi.theta_chol, data, n_draws=P13_PSIS)
+    if not (cert.ess > 0 and np.isfinite(cert.k_hat)):
+        fail(f"(b): PSIS ess {cert.ess}, k-hat {cert.k_hat}")
+    say("P13", f"(b) PSIS {P13_PSIS} draws: k-hat {cert.k_hat:.4f} (the reference's 0.523), ESS "
+        f"{cert.ess:.1f}, reliable {cert.reliable}, log Z {cert.log_evidence:.4f}; error vs pcn {err:.4f}")
+
+    # (c) SVGD, annealed, then PSIS of its moment-matched Gaussian
+    sv, _, _, wall = run_svgd_inversion(pipe4, "rom_nn", data=data, theta_true=truth, **P13_SVGD)
+    tr = sv.misfit_trace.double().cpu().numpy()
+    if not np.isfinite(tr).all():
+        fail("(c): non-finite misfit trace")
+    say("P13", f"(c) SVGD {P13_SVGD['n_particles']} particles x {P13_SVGD['n_steps']} steps: {wall:.3f} s, "
+        f"{wall / P13_SVGD['n_steps'] * 1e3:.3f} ms a step; misfit first {tr[0]:.2f}, last {tr[-1]:.2f}")
+    err = near_pcn("(c)", sv.mean.double().cpu().numpy())
+    q_mean, q_chol = moment_q(sv.particles)
+    cert_c = psis_certify(pipe4, q_mean.float(), q_chol.float(), data, n_draws=P13_PSIS)
+    say("P13", f"(c) PSIS of the moment-matched Gaussian: k-hat {cert_c.k_hat:.4f} (printed, not gated; "
+        f"the reference's 0.771 fails its own 0.7), ESS {cert_c.ess:.1f}; error vs pcn {err:.4f}")
+
+    # (d) SMC evidence with phase 3's seed: the same observations
+    log = MetricsLogger()
+    ev = run_smc_evidence(pipe4, metrics=log, **P13_SMC)
+    if not torch.equal(ev.data, data):
+        fail("(d): run_smc_evidence's observations differ from phase 3's run_inversion's")
+    stages = ev.n_stages.cpu().tolist()
+    if max(stages) >= P13_SMC["max_stages"]:
+        fail(f"(d): a group hit max_stages before lambda = 1: {stages}")
+    dz = abs(ev.log_evidence - inv_pt.log_evidence)
+    sz = float(np.hypot(ev.log_evidence_std, inv_pt.log_evidence_std))
+    say("P13", f"(d) SMC rom_nn {P13_SMC['n_particles']} particles in {P13_SMC['n_groups']} groups: "
+        f"{ev.wall_seconds:.3f} s, stages {stages}; log Z {ev.log_evidence:.4f} +- "
+        f"{ev.log_evidence_std:.4f} vs phase 11 (a)'s pt_pcn {inv_pt.log_evidence:.4f} +- "
+        f"{inv_pt.log_evidence_std:.4f}: {dz / sz:.2f} combined sds; data bit-identical to phase 3's")
+    if not (np.isfinite(ev.log_evidence) and dz <= P13_LOGZ_GATE * sz):
+        fail(f"(d): log Z {dz / sz:.2f} combined sds from phase 11 (a)'s")
+    near_pcn("(d)", ev.particles.double().mean(0).cpu().numpy(), frac=0.5)
+
+    # (e) the fom likelihood through K3r at res4
+    (res_e, _, _, wall), n = counted(lambda: run_eki_inversion(pipe4, "fom", **kw))
+    k3r += n
+    n_iters = eki_gates("(e) EKI fom", res_e, P13_EKI_J)
+    say("P13", f"(e) EKI fom J = {P13_EKI_J}: {n_iters} iterations in {wall:.3f} s; launches K3r {n} "
+        f"(n_iters + 1 = {n_iters + 1})")
+    if n != n_iters + 1:
+        fail(f"(e): EKI on fom made {n} K3r launches, not n_iters + 1 = {n_iters + 1}")
+    near_pcn("(e) EKI fom", res_e.mean.double().cpu().numpy())
+    ev_f, n = counted(lambda: run_smc_evidence(pipe4, likelihood="fom", **P13_SMC_FOM))
+    k3r += n
+    st = ev_f.n_stages.cpu().tolist()
+    want = 2 + P13_SMC_FOM["n_mutations"] * max(st)
+    say("P13", f"(e) SMC fom {P13_SMC_FOM['n_particles']} particles in {P13_SMC_FOM['n_groups']} groups: "
+        f"{ev_f.wall_seconds:.3f} s, stages {st}; launches K3r {n} (the truth solve, the initial sweep "
+        f"and {P13_SMC_FOM['n_mutations']} x {max(st)} sweeps = {want}); log Z fom "
+        f"{ev_f.log_evidence:.4f} +- {ev_f.log_evidence_std:.4f} beside rom_nn's {ev.log_evidence:.4f} "
+        f"(a Bayes-factor leg, not gated)")
+    if n != want:
+        fail(f"(e): SMC on fom made {n} K3r launches, not {want}")
+    if not (np.isfinite(ev_f.log_evidence) and torch.isfinite(ev_f.particles).all()
+            and max(st) < P13_SMC_FOM["max_stages"]):
+        fail("(e): SMC on fom: non-finite output or a group at max_stages")
+    cert_e, n = counted(lambda: psis_certify(pipe4, vi.theta_mean, vi.theta_chol, data, "fom",
+                                             n_draws=P13_PSIS))
+    k3r += n
+    say("P13", f"(e) PSIS of (b)'s fit on fom, {P13_PSIS} draws: launches K3r {n}; k-hat "
+        f"{cert_e.k_hat:.4f}, ESS {cert_e.ess:.1f}")
+    if n != 1:
+        fail(f"(e): psis_certify on fom made {n} K3r launches, not 1")
+    if not (np.isfinite(cert_e.k_hat) and np.isfinite(cert_e.mean).all() and cert_e.ess > 0):
+        fail("(e): non-finite PSIS certificate on fom")
+
+    # (f) run_inversion with the EKI and the ADVI warm starts
+    for init in ("eki", "vi"):
+        log = MetricsLogger()
+        t0 = time.perf_counter()
+        inv = run_inversion(_with_mcmc(pipe4, **P13_INIT), init=init, data=data, theta_true=truth,
+                            metrics=log)
+        torch.cuda.synchronize()
+        ev_init = [e for e in log.events if e["event"] == f"{init}_init"]
+        if len(ev_init) != 2:
+            fail(f"(f): the {init}_init timer and event were not both logged")
+        say("P13", f"(f) init={init}: {ev_init[0]['seconds']:.2f} s of warm start ({ev_init[1]}) in the "
+            f"call's {time.perf_counter() - t0:.2f} s")
+        _p12_moments(f"(f) init={init}", inv, inv4, phase="P13")
+    say("P13", f"K3r launches over phase 13: {k3r}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return k3r
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
                   ms: float, plain_ms: float, bound: tuple) -> dict:
     return {"name": name, "route": "cuda", "source": f"bayesianinferencedl_tpu_torch/csrc/{source}",
@@ -2595,6 +2803,7 @@ def main() -> None:
     k5 = phase_k5(k3)
     pt_launches, inv_pt = phase_pt(pipe, inv, pipe8, inv8)
     p12_launches = phase_gradient(pipe, inv, pipe8, inv8, inv_pt)
+    p13_launches = phase_approx(pipe, inv, inv_pt)
     t1 = lanes["times"][B_CHECK]
     t3 = k3["times"][1024]
     t4r = k4["times"][K4_BATCHES[0]]
@@ -2616,11 +2825,12 @@ def main() -> None:
                       k2["K2"]["plain_ms"], k2["K2"]["bound"]),
         # K3r: res8, B = 1,024; its launches are the res4 slice's (the lanes
         # route), the res8 DA slice's, phase 11's (its fom samplers at res8,
-        # the headline's truth solve at res4) and phase 12's (DA's fine
-        # solves at res8, gpcn on fom at res4)
+        # the headline's truth solve at res4), phase 12's (DA's fine
+        # solves at res8, gpcn on fom at res4) and phase 13's (EKI, SMC and
+        # PSIS on fom at res4)
         _kernel_entry("pcg_stencil_tile_mma", "pcg_stencil_tile_mma.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385",
-                      slice_launches["K3r"] + k3_launches + pt_launches + p12_launches,
+                      slice_launches["K3r"] + k3_launches + pt_launches + p12_launches + p13_launches,
                       max(k3["max_abs_err"], lanes["max_abs"]["K3r"]), t3["ms"], t3["plain_ms"],
                       t3["bound"]),
         # K3, off the main path since K3r: timed on the same inputs, for the record

@@ -2,8 +2,8 @@
 (``theta_map``, ``theta_true``, ``laplace_sd_working``, ``k_map``, ``nlp``,
 ``prior``, and ``noise_sigma_plugin`` with ``--infer-noise``), finite, with
 the MAP near the truth behind the data and positive Laplace standard
-deviations; ``--psis``, whose module is not ported, is refused with its
-ROADMAP.md item."""
+deviations; ``--psis`` with ``--infer-noise`` is refused with the
+reference's SystemExit."""
 
 import json
 
@@ -36,5 +36,7 @@ def test_map_prints_the_reference_keys(infer_noise, capsys):
 
 
 def test_map_psis_is_refused():
-    with pytest.raises(NotImplementedError, match="item 20"):
-        main(["map", *SMALL, "--psis", "64"])
+    """The certificate of the sigma-marginal potential is refused, as the
+    reference refuses it (map --psis itself: test_torch_cli_approx.py)."""
+    with pytest.raises(SystemExit, match="--psis with --infer-noise is unsupported"):
+        main(["map", *SMALL, "--psis", "64", "--infer-noise"])
