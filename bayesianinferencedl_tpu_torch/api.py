@@ -27,7 +27,10 @@ forward an iteration), ``run_vi_inversion`` (ADVI), ``run_svgd_inversion``
 (Stein variational gradient descent), ``psis_certify`` (Pareto-smoothed
 importance sampling of any Gaussian fit: one batched forward) and
 ``run_smc_evidence`` (the log evidence by adaptive tempered SMC, its groups
-one batch).
+one batch); the normalizing flow's ``run_flow_vi_inversion`` (tempered SMC
+distilled into a coupling flow by maximum likelihood, or annealed
+reverse-KL flow-VI), ``psis_certify_flow`` (PSIS with the flow as the
+proposal) and ``run_neutra_inversion`` (flow-preconditioned pCN, exact).
 
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP.md item: ``mlda_pcn``, the ``high``/``fast`` online precision tiers
@@ -52,6 +55,12 @@ from bayesianinferencedl_tpu_torch.infer.delayed_acceptance import DAResult, run
 from bayesianinferencedl_tpu_torch.infer.diagnostics import ess_bulk, ess_tail, split_rhat
 from bayesianinferencedl_tpu_torch.infer.eki import EKIResult, run_eki
 from bayesianinferencedl_tpu_torch.infer.evidence import log_evidence_from_pt
+from bayesianinferencedl_tpu_torch.infer.flow import (
+    FlowVIResult,
+    flow_fit_pipeline,
+    flow_psis_certify,
+    run_neutra_pcn,
+)
 from bayesianinferencedl_tpu_torch.infer.hmc import run_hmc, run_hmc_chees, run_hmc_segmented
 from bayesianinferencedl_tpu_torch.infer.mala import MALAResult, run_mala, run_mala_segmented
 from bayesianinferencedl_tpu_torch.infer.map import find_map_multistart, laplace_approximation
@@ -933,3 +942,127 @@ def _smc_evidence_core(
         log_evidence_std=log_z_std, log_z_groups=lz, n_stages=res.n_stages,
         theta_true=theta_true, data=data, wall_seconds=wall,
     )
+
+
+def run_flow_vi_inversion(
+    pipe: Pipeline,
+    likelihood: str = "rom_nn",
+    *,
+    n_couplings: int = 6,
+    hidden: int = 32,
+    n_steps: Optional[int] = None,
+    n_mc: int = 64,
+    lr: float = 0.003,
+    pretrain: str = "smc",
+    pretrain_particles: int = 2048,
+    pretrain_steps: int = 2000,
+    n_mutations: int = 5,
+    max_stages: int = 64,
+    anneal_steps: Optional[int] = None,
+    theta_true: Optional[torch.Tensor] = None,
+    data: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    metrics: Optional[MetricsLogger] = None,
+) -> tuple[FlowVIResult, torch.Tensor, torch.Tensor, float]:
+    """A normalizing-flow posterior approximation (infer/flow.py), the
+    non-Gaussian member of the approximation layer.
+
+    pretrain="smc": one tempered-SMC population on the batched forward, then
+    the flow fitted to it by mass-covering maximum likelihood; no reverse-KL
+    refinement unless n_steps > 0 (it re-collapses a covering fit).
+    pretrain="none": annealed reverse-KL flow-VI (default 3,000 steps) on the
+    differentiable forward (``batched_forward_fn(..., differentiable=True)``),
+    for unimodal targets. ``run_inversion``'s data contract: the observations
+    come first from ``generator`` (default cfg.seed), the fit's draws from a
+    child of it. Returns (FlowVIResult, theta_true, data, wall_seconds) and
+    logs the "flow_vi" event."""
+    if pretrain not in ("smc", "none"):
+        raise ValueError(f"pretrain must be 'smc' or 'none', got {pretrain!r}")
+    gen, theta_true, data = _approx_setup(pipe, generator, theta_true, data)
+    noise = pipe.config.mcmc.noise_sigma
+    misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood), data, noise)
+    misfit_bd = gaussian_misfit(pipe.batched_forward_fn(likelihood, differentiable=True), data, noise)
+    (res, n_stages), wall = _timed(pipe.device, lambda: flow_fit_pipeline(
+        misfit_b, misfit_bd, pipe.prior, _child(gen), n_couplings=n_couplings, hidden=hidden,
+        pretrain=pretrain, pretrain_particles=pretrain_particles, pretrain_steps=pretrain_steps,
+        n_mutations=n_mutations, max_stages=max_stages, n_steps=n_steps, n_mc=n_mc, lr=lr,
+        anneal_steps=anneal_steps))
+    if metrics is not None:
+        metrics.log("flow_vi", likelihood=likelihood, pretrain=pretrain, n_couplings=n_couplings,
+                    n_steps=n_steps, smc_stages=n_stages, n_forward=res.n_forward,
+                    elbo_final=float(torch.mean(res.elbo_trace[-50:])), wall_seconds=wall)
+    return res, theta_true, data, wall
+
+
+def psis_certify_flow(
+    pipe: Pipeline,
+    flow_res: FlowVIResult,
+    data: torch.Tensor,
+    likelihood: str = "rom_nn",
+    *,
+    n_draws: int = 4096,
+    base_scale: float = 1.0,
+    generator: Optional[torch.Generator] = None,
+    metrics: Optional[MetricsLogger] = None,
+) -> PSISResult:
+    """``psis_certify`` for a flow fit: n_draws flow draws carrying their exact
+    log q, one batched forward through the sampler's route (on fom, one
+    stencil-kernel solve), the k-hat gate, the weighted moments and the
+    evidence. base_scale > 1 widens the flow's base (defensive importance
+    sampling). The draws come from ``generator``, else from cfg.seed + 7.
+    Logs the "psis_flow" event."""
+    cfg = pipe.config.mcmc
+    gen = generator if generator is not None else torch.Generator(device=pipe.device).manual_seed(cfg.seed + 7)
+    data = torch.as_tensor(data, dtype=pipe.prior.mean.dtype, device=pipe.device)
+    misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood), data, cfg.noise_sigma)
+    res = flow_psis_certify(misfit_b, pipe.prior, flow_res, gen, n_draws=n_draws, base_scale=base_scale)
+    if metrics is not None:
+        metrics.log("psis_flow", likelihood=likelihood, n_draws=n_draws, base_scale=base_scale,
+                    k_hat=res.k_hat, ess=res.ess, reliable=res.reliable)
+    return res
+
+
+def run_neutra_inversion(
+    pipe: Pipeline,
+    flow_res: FlowVIResult,
+    data: torch.Tensor,
+    likelihood: str = "rom_nn",
+    *,
+    theta_true: Optional[torch.Tensor] = None,
+    n_chains: int = 1024,
+    n_steps: int = 2000,
+    n_burn: int = 1000,
+    beta: float = 0.3,
+    thin: int = 1,
+    generator: Optional[torch.Generator] = None,
+    metrics: Optional[MetricsLogger] = None,
+) -> InversionResult:
+    """Flow-preconditioned pCN (NeuTra, infer/flow.py run_neutra_pcn): the
+    exact posterior of ``likelihood`` on ``data``, sampled in the flow's
+    latent coordinates, one batched misfit a step (on fom, one stencil-kernel
+    solve a step and one for the chains' start). The chains' start and every
+    step's draws come from ``generator``, else from cfg.seed + 11. Returns an
+    InversionResult whose diagnostics (bulk and tail ESS, split-R-hat) are
+    over the pushed, working-coordinate samples, and logs the "neutra"
+    event."""
+    cfg = pipe.config.mcmc
+    gen = generator if generator is not None else torch.Generator(device=pipe.device).manual_seed(cfg.seed + 11)
+    dtype = pipe.prior.mean.dtype
+    data = torch.as_tensor(data, dtype=dtype, device=pipe.device)
+    if theta_true is None:
+        theta_true = pipe.prior.mean
+    misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood), data, cfg.noise_sigma)
+    out, wall = _timed(pipe.device, lambda: run_neutra_pcn(
+        flow_res, misfit_b, pipe.prior, gen, n_chains=n_chains, n_steps=n_steps, n_burn=n_burn,
+        beta=beta, thin=thin))
+    ess, ess_t, rh = ess_bulk(out.samples), ess_tail(out.samples), split_rhat(out.samples)
+    n_total = out.samples.shape[0] * out.samples.shape[1]
+    res = InversionResult(
+        result=out, theta_true=theta_true, data=data, ess=ess, rhat=rh, wall_seconds=wall,
+        samples_per_sec=n_total / wall, ess_per_sec=float(torch.min(ess)) / wall, ess_tail=ess_t,
+    )
+    if metrics is not None:
+        metrics.log("neutra", likelihood=likelihood, n_chains=n_chains, n_steps=n_steps,
+                    rhat_split_max=float(torch.max(rh)), ess_bulk_min=float(torch.min(ess)),
+                    accept_rate=float(torch.mean(out.accept_rate)), wall_seconds=wall)
+    return res

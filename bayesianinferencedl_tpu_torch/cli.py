@@ -54,9 +54,17 @@ ADVI, SVGD (``--psis K`` certifies the fit, for EKI and SVGD its
 moment-matched Gaussian) and the log evidence by tempered SMC, each with
 the reference's flags and JSON keys. ``invert --init eki|vi`` starts the
 chains from an EKI ensemble or an ADVI fit.
+
+    python -m bayesianinferencedl_tpu_torch.cli vi --resolution 4 --flow 6 --psis 8192 --neutra 2000
+
+fits a normalizing flow with 6 coupling layers instead (tempered SMC
+distilled by maximum likelihood; ``--flow-pretrain none`` runs annealed
+reverse-KL flow-VI over ``--steps``), certifies it by PSIS through a base
+widened by ``--psis-widen`` and samples the exact posterior by
+flow-preconditioned pCN over ``--neutra`` steps (256 chains, half burn-in).
 Flags the port does not support yet (``mlda_pcn``, box priors, the bf16
-precision tiers, the greedy ROM basis, ``vi --flow/--neutra/--psis-widen``)
-raise NotImplementedError naming their ROADMAP.md item.
+precision tiers, the greedy ROM basis) raise NotImplementedError naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -392,20 +400,67 @@ def cmd_eki(args) -> None:
     print(json.dumps(rec))
 
 
+def _cmd_vi_flow(args, pipe, obs, log) -> None:
+    """``vi --flow N``: the normalizing flow (api.run_flow_vi_inversion).
+    --flow-pretrain smc distills a tempered-SMC population by maximum
+    likelihood (--steps and --lr unused: no refinement); none runs annealed
+    reverse-KL flow-VI over --steps at --lr. --psis certifies the flow
+    through a base widened by --psis-widen; --neutra runs NeuTra pCN on 256
+    chains with half the steps burn-in."""
+    from bayesianinferencedl_tpu_torch.api import (
+        psis_certify_flow, run_flow_vi_inversion, run_neutra_inversion,
+    )
+    from bayesianinferencedl_tpu_torch.infer.flow import flow_sample
+
+    dev = pipe.device
+    gen = lambda k: torch.Generator(device=dev).manual_seed(args.seed + k)
+    res, theta_true, data, wall = run_flow_vi_inversion(
+        pipe, args.likelihood, n_couplings=args.flow, pretrain=args.flow_pretrain,
+        n_steps=args.steps if args.flow_pretrain == "none" else None, n_mc=args.mc, lr=args.lr,
+        data=obs, generator=gen(0), metrics=log,
+    )
+    rec = {"likelihood": args.likelihood,
+           "family": f"flow (couplings={args.flow}, pretrain={args.flow_pretrain})",
+           "n_forward_evals": res.n_forward,
+           **_summary(pipe, flow_sample(res, gen(1), (4096,)), theta_true, wall)}
+    if args.psis:
+        cert = psis_certify_flow(pipe, res, data, args.likelihood, n_draws=args.psis,
+                                 base_scale=args.psis_widen, generator=gen(2), metrics=log)
+        w = np.exp(cert.log_weights - cert.log_weights.max())
+        w /= w.sum()
+        th = pipe.prior.to_theta(cert.samples).double().cpu().numpy()
+        rec["psis"] = {"n_draws": args.psis, "base_scale": args.psis_widen,
+                       **_psis_record(args.psis, cert, corrected_mean=(w @ th).tolist())}
+    if args.neutra:
+        inv = run_neutra_inversion(pipe, res, data, args.likelihood, theta_true=theta_true, n_chains=256,
+                                   n_steps=args.neutra, n_burn=args.neutra // 2, generator=gen(3),
+                                   metrics=log)
+        s = inv.result.samples
+        rec["neutra"] = {
+            "n_steps": args.neutra,
+            "rhat_split_max": round(float(torch.max(inv.rhat)), 4),
+            "ess_bulk_min": round(float(torch.min(inv.ess)), 1),
+            "accept_rate": round(float(torch.mean(inv.result.accept_rate)), 3),
+            "posterior_mean_log_k": pipe.prior.to_theta(s.reshape(-1, s.shape[-1])).mean(dim=0)
+            .double().cpu().numpy().tolist(),
+            "wall_seconds": round(inv.wall_seconds, 3),
+        }
+    print(json.dumps(rec))
+
+
 def cmd_vi(args) -> None:
     """Gradient-based variational approximation (api.run_vi_inversion,
     ADVI): q = N(mu, L L^T) by stochastic ELBO ascent, exact where the
-    posterior is Gaussian in the whitened frame. The flow family (--flow,
-    --neutra, --psis-widen) is not ported yet."""
+    posterior is Gaussian in the whitened frame; with --flow N a
+    normalizing flow instead (_cmd_vi_flow). Without --flow, --neutra and
+    --psis-widen are ignored, as in the reference."""
     from bayesianinferencedl_tpu_torch.api import psis_certify, run_vi_inversion
     from bayesianinferencedl_tpu_torch.infer.vi import vi_sample
 
-    if args.flow > 0 or args.neutra > 0 or args.psis_widen != 1.0:
-        raise NotImplementedError(
-            "vi --flow/--neutra/--psis-widen (the normalizing flow and NeuTra, infer/flow.py) "
-            "is not ported yet: ROADMAP.md queue 1, item 28"
-        )
     pipe, log, obs = _build_for(args)
+    if args.flow > 0:
+        _cmd_vi_flow(args, pipe, obs, log)
+        return
     dev = pipe.device
     res, theta_true, data, wall = run_vi_inversion(
         pipe, args.likelihood, rank=args.rank, n_steps=args.steps, n_mc=args.mc, lr=args.lr,
@@ -598,13 +653,14 @@ def main(argv=None) -> None:
                         "k-hat (< 0.7: the fit covers the posterior) and the corrected mean")
     p.add_argument("--data", type=str, default=None, help=data_help)
     p.add_argument("--flow", type=int, default=0, metavar="N",
-                   help="a normalizing flow with N coupling layers (not ported yet)")
+                   help="fit a normalizing flow with N coupling layers instead of the Gaussian family")
     p.add_argument("--flow-pretrain", choices=["smc", "none"], default="smc",
-                   help="the flow's pretraining (not ported yet)")
+                   help="smc: distill a tempered-SMC population (multimodal-safe); none: annealed "
+                   "reverse-KL flow-VI over --steps (unimodal targets)")
     p.add_argument("--neutra", type=int, default=0, metavar="STEPS",
-                   help="flow-preconditioned pCN after the flow fit (not ported yet)")
+                   help="after the flow fit, flow-preconditioned pCN for STEPS steps (exact)")
     p.add_argument("--psis-widen", type=float, default=1.0, metavar="S",
-                   help="certify through a base-widened flow proposal (not ported yet)")
+                   help="certify the flow through its base widened to N(0, S^2 I)")
     p.set_defaults(fn=cmd_vi)
 
     p = sub.add_parser("svgd", help="Stein variational gradient descent: a particle approximation")

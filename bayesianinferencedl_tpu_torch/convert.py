@@ -11,6 +11,11 @@ port ``Pipeline`` that computes the same forward maps. The dict holds:
     rom_pcg_iters                            deployed reduced-PCG iterations
 
 The mesh and FOM are rebuilt from ``cfg`` (meshes are deterministic).
+
+``flow_from_arrays`` does the same for a normalizing flow (infer/flow.py):
+the reference's flow parameters ``{"mu" (d,), "raw" (d, d), "couplings":
+[[(W (in, out), b (out,)), ...], ...]}`` become a ``CouplingFlow``, or, with
+``ref=(mean, chol)``, a ``FlowVIResult`` in that frame.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 
 from bayesianinferencedl_tpu_torch.api import Pipeline, make_prior
+from bayesianinferencedl_tpu_torch.infer.flow import CouplingFlow, FlowVIResult
 from bayesianinferencedl_tpu_torch.models.corrected import CorrectedForward
 from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
 from bayesianinferencedl_tpu_torch.models.surrogate import MLP, Normalizer, TrainedSurrogate
@@ -49,3 +55,28 @@ def pipeline_from_arrays(cfg, arrays: dict, *, device="cuda", dtype=torch.float3
         prior=make_prior(cfg.prior, dtype, device), P0=t("P0"),
         rom_pcg_iters=int(np.asarray(arrays["rom_pcg_iters"])),
     )
+
+
+def flow_from_arrays(arrays: dict, *, ref=None, device="cuda", dtype=torch.float32):
+    """The flow whose parameters are ``arrays`` (dim, couplings and width read
+    off their shapes); with ref=(mean (d,), chol (d, d)) a FlowVIResult in
+    that frame, its trace empty and its summary the frame's (mean, I)."""
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    couplings = arrays["couplings"]
+    mu = t(arrays["mu"])
+    d = mu.shape[0]
+    hidden = int(np.asarray(couplings[0][0][0]).shape[1]) if couplings else 1
+    flow = CouplingFlow(d, len(couplings), hidden, generator=torch.Generator(device=device),
+                        dtype=dtype, device=device)  # its draws are overwritten below
+    with torch.no_grad():
+        flow.mu.copy_(mu)
+        flow.raw.copy_(t(arrays["raw"]))
+        for mlp, layers in zip(flow.couplings, couplings):
+            for p, a in zip(mlp.params(), [x for W, b in layers for x in (W, b)]):
+                p.copy_(t(a))
+    if ref is None:
+        return flow
+    ref_mean, ref_chol = (t(r) for r in ref)
+    return FlowVIResult(flow=flow, ref_mean=ref_mean, ref_chol=ref_chol, elbo_trace=mu.new_zeros((0,)),
+                        theta_mean=ref_mean.clone(), theta_cov=torch.eye(d, dtype=dtype, device=device),
+                        n_forward=0)

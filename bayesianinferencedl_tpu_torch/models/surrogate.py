@@ -76,9 +76,12 @@ class MLP(nn.Module):
     @fp32_matmul()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x
-        for W, b in zip(self.weights[:-1], self.biases[:-1]):
-            h = self._act(h @ W + b)
-        return h @ self.weights[-1] + self.biases[-1]
+        last = len(self.weights) - 1
+        for i, (W, b) in enumerate(zip(self.weights, self.biases)):  # no ParameterList slices: they build modules
+            h = h @ W + b
+            if i < last:
+                h = self._act(h)
+        return h
 
 
 @dataclass
@@ -95,15 +98,20 @@ def adam_init(params: Sequence[torch.Tensor]) -> AdamState:
 @torch.no_grad()
 def adam_update(params, grads, state: AdamState, lr, b1=0.9, b2=0.999, eps=1e-8) -> AdamState:
     """One Adam step, in place on ``params``; the reference's formula
-    p -= lr sqrt(1 - b2^t) / (1 - b1^t) * m / (sqrt(v) + eps)."""
+    p -= lr sqrt(1 - b2^t) / (1 - b1^t) * m / (sqrt(v) + eps), each
+    product and sum in the reference's order. The leaves go through
+    multi-tensor (``_foreach``) ops: a handful of launches a step for any
+    number of leaves, with the same elementwise arithmetic."""
+    params, grads = list(params), list(grads)
     step = state.step + 1
-    mu = [b1 * m + (1 - b1) * g for m, g in zip(state.mu, grads)]
-    nu = [b2 * v + (1 - b2) * g * g for v, g in zip(state.nu, grads)]
+    mu = torch._foreach_add(torch._foreach_mul(state.mu, b1), torch._foreach_mul(grads, 1 - b1))
+    nu = torch._foreach_add(torch._foreach_mul(state.nu, b2),
+                            torch._foreach_mul(torch._foreach_mul(grads, 1 - b2), grads))
     lr = torch.as_tensor(lr, dtype=params[0].dtype, device=params[0].device)
     t = torch.tensor(float(step), dtype=torch.float32, device=params[0].device)
     scale = lr * torch.sqrt(1 - b2**t) / (1 - b1**t)
-    for p, m, v in zip(params, mu, nu):
-        p.copy_(p - scale * m / (torch.sqrt(v) + eps))
+    den = torch._foreach_add(torch._foreach_sqrt(nu), eps)
+    torch._foreach_sub_(params, torch._foreach_div(torch._foreach_mul(mu, scale), den))
     return AdamState(step, mu, nu)
 
 

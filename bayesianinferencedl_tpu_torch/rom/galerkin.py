@@ -91,10 +91,10 @@ class ReducedOperator:
         C, r = ks.shape[0], self.r
         stack = torch.cat([self.Ahat, self.Mhat[None]], 0)  # (6, r, r)
         AT = stack.transpose(1, 2).permute(1, 0, 2).reshape(r, -1)  # (r, 6r)
-        w = torch.cat([ks, torch.full_like(ks[:, :1], self.biot)], 1)  # (C, 6)
+        w = torch.cat([ks, torch.full_like(ks[:, :1], self.biot)], 1)[:, :, None]  # (C, 6, 1)
 
         def amat(p):
-            return torch.sum(w[:, :, None] * (p @ AT).view(C, -1, r), 1)
+            return torch.sum(w * (p @ AT).view(C, -1, r), 1)
 
         return amat, AT
 
@@ -137,24 +137,21 @@ def _fixed_pcg(amat, P0: torch.Tensor, b: torch.Tensor, n_iters: int) -> torch.T
     preconditioner P0, warm-started at P0 b, ``n_iters`` iterations; the
     loop of the reference's ``pcg_solve``, with its zero guards."""
 
-    def prec(v):
-        return v @ P0.T
-
-    x = prec(b)  # warm start: P0 b is already close
+    P0T = P0.T
+    x = b @ P0T  # warm start: P0 b is already close
     res = b - amat(x)
-    z = prec(res)
+    z = res @ P0T
     p = z
     rz = torch.sum(res * z, -1)
     for _ in range(n_iters):
         Ap = amat(p)
         pAp = torch.sum(p * Ap, -1)
-        alpha = rz / torch.where(pAp != 0, pAp, 1.0)
-        x = x + alpha[:, None] * p
-        res = res - alpha[:, None] * Ap
-        z = prec(res)
+        alpha = (rz / torch.where(pAp != 0, pAp, 1.0))[:, None]
+        x = x + alpha * p
+        res = res - alpha * Ap
+        z = res @ P0T
         rz_new = torch.sum(res * z, -1)
-        beta = rz_new / torch.where(rz != 0, rz, 1.0)
-        p = z + beta[:, None] * p
+        p = z + (rz_new / torch.where(rz != 0, rz, 1.0))[:, None] * p
         rz = rz_new
     return x
 

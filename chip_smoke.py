@@ -287,6 +287,27 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               rom_nn, 1,024 chains, 1,000 steps (300 burn-in; cut for the time
               limit): the "eki_init" / "vi_init" events logged and phase 12's
               moment gates against phase 3's pcn
+ 14. flow     the normalizing flow and NeuTra through their api entry points on
+              the card, on phase 3's build (phase_flow's docstring holds the
+              gates): (a) run_flow_vi_inversion at bench.py's flow_neutra widths
+              on phase 11 (b)'s 1e-3 headline data (SMC on 4,096 particles,
+              8 mutations, at most 256 stages, then 3,000 MLE steps of a flow
+              of 6 couplings of width 32): SMC under 256 stages, the MLE trace
+              rising, the flow's round trip within 1e-4; (b) psis_certify_flow,
+              8,192 draws, plain and base-widened by 1.5: k-hat finite (printed
+              beside the reference's 0.785), ESS > 0, log Z finite; (c)
+              run_neutra_inversion, 4,096 chains x 4,000 steps (1,000 burn-in,
+              thin 4; cut from 10,000 / 2,000 for the time limit): accept in
+              (0.05, 0.95), the means within one pt_pcn sd
+              of the headline's cold level; (d) the identity reduction at 1,024
+              base points within 1e-5 relative; (e) the fom route through K3r:
+              the certificate exactly 1 launch, NeuTra 1,024 chains x 64 steps
+              exactly 65; (f) pretrain="none" flow-VI on phase 3's data, 400
+              steps: the ELBO rising, the means within one pcn sd of pcn's;
+              (g)-(i) tests/test_flow.py's weights, degenerate-population and
+              NeuTra mode-crossing cases at their sizes and tolerances, (h)'s
+              gate printed, not enforced (the reference fails it on 4 of 26
+              seeds)
 
 The last three lines are the kernel summary (JSON: time, launches, bound,
 plain time of each kernel), the nvidia-smi line, and
@@ -2316,7 +2337,7 @@ def phase_pt(pipe4, inv4, pipe8, inv8):
         fail(f"(e): sigma quantiles {q} not ordered")
     say("PT", f"K3r launches over phase 11: {k3r} ((b)'s truth solve {n_b['K3r']}, (c) {n_c['K3r']}, "
         f"(d) {n_d['K3r']})")
-    return k3r, inv_a
+    return k3r, inv_a, inv_b
 
 
 # phase 12: the Laplace and gradient-sampler layer (its steps cut for the time limit)
@@ -2780,6 +2801,345 @@ def phase_approx(pipe4, inv4, inv_pt):
     return k3r
 
 
+# phase 14: the normalizing flow and NeuTra at the bench's widths (bench.py:411-412, 956-1005)
+P14_FLOW = dict(n_couplings=6, hidden=32, pretrain_particles=4096, pretrain_steps=3000, n_mutations=8,
+                max_stages=256)  # (a): bench.py's flow_neutra block
+P14_PSIS = 8192  # (b): 2 x the bench's psis_draws
+P14_WIDEN = 1.5  # (b): the base-widened certificate
+P14_NEUTRA = dict(n_chains=4096, n_steps=4_000, n_burn=1_000, thin=4)  # (c): cut from 10,000 / 2,000
+P14_IDENT = 1024  # (d): base points of the identity reduction
+P14_FOM_PSIS = 4096  # (e)
+P14_FOM_NEUTRA = dict(n_chains=1024, n_steps=64, n_burn=32)  # (e)
+P14_NONE = dict(n_couplings=6, hidden=32, pretrain="none", n_steps=400, lr=0.01)  # (f): cut from 3,000
+P14_ROUND_TRIP = 1e-4  # (a): |inverse(forward(Z)) - Z| and the log-determinants, float32
+P14_IDENT_GATE = 1e-5  # (d): relative
+P14_REF = {"k_hat": 0.785, "rhat": 1.1085}  # the reference's BENCH_r05 flow_neutra numbers
+
+
+def _p14_analytic(device):
+    """(g)-(i): the reference's analytic flow cases (tests/test_flow.py:299,
+    :252, :195) at its sizes and tolerances, on the port's own generators:
+    each takes 18-20 s on one CPU thread, past the CPU tests' budget. (g) a
+    weighted MLE fit (4,096 particles of the two-basin posterior, basin 1
+    weighted 3:1, 2,000 steps) holds the weighted split: 0.65 < f1 < 0.85,
+    0.15 < f2 < 0.35 of 8,000 flow draws. (h) MLE on 32 unique float32 rows
+    tiled 128x (3,000 steps): every sd ratio of 8,192 flow draws to the rows'
+    in (0.5, 2.0), the means within 0.3 (printed). (i) NeuTra pCN from a covering MLE
+    flow (2,048 particles, 2,000 steps), 64 chains x 2,000 steps (500
+    burn-in), beta 0.3: over 90% of chains visit both basins, basin 1 holds
+    40-60% of the samples, R-hat < 1.05; plain pCN on the same budget from
+    prior draws: under 5% of chains cross. (h)'s gate is printed, not
+    enforced: the reference's own fit fails it on 4 of 26 seeds, the port's on
+    2 of 26 (tests/sweep_torch_flow_degenerate.py). Returns the seconds each
+    took."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.infer.diagnostics import rhat
+    from bayesianinferencedl_tpu_torch.infer.flow import fit_flow_mle, flow_sample, run_neutra_pcn
+    from bayesianinferencedl_tpu_torch.infer.pcn import run_pcn
+    from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior
+
+    a, s, d, f64 = 1.5, 0.25, 2, torch.float64
+    prior = GaussianPrior.iid(d, sigma=1.0, dtype=f64, device=device)
+    m1 = torch.full((d,), a, dtype=f64, device=device)
+    g = torch.Generator(device=device).manual_seed(140)
+
+    def misfit(th):  # the posterior is exactly 0.5 N(m1, s^2 I) + 0.5 N(-m1, s^2 I)
+        d1 = torch.sum((th - m1) ** 2, -1) / (2 * s * s)
+        d2 = torch.sum((th + m1) ** 2, -1) / (2 * s * s)
+        return -torch.logaddexp(-d1, -d2) + 0.5 * torch.sum(th * th, -1)
+
+    def particles(n):
+        which = torch.rand((n,), generator=g, dtype=f64, device=device) < 0.5
+        return torch.where(which[:, None], m1, -m1) + s * torch.randn((n, d), generator=g, dtype=f64,
+                                                                       device=device)
+
+    near = lambda th, m: torch.sum((th - m) ** 2, -1) < (4 * s) ** 2
+    secs = {}
+
+    t0 = time.perf_counter()
+    pts = particles(4096)
+    w = torch.where(near(pts, m1), 3.0, 1.0).to(f64)
+    th = flow_sample(fit_flow_mle(pts, prior, g, weights=w, n_steps=2000), g, (8000,))
+    f1, f2 = float(near(th, m1).double().mean()), float(near(th, -m1).double().mean())
+    secs["weights"] = time.perf_counter() - t0
+    say("P14", f"(g) weighted MLE (basin 1 at 3:1): mass {f1:.4f} / {f2:.4f} (gates (0.65, 0.85) / (0.15, "
+        f"0.35)); {secs['weights']:.1f} s")
+    if not (0.65 < f1 < 0.85 and 0.15 < f2 < 0.35):
+        fail(f"(g): weighted MLE split {f1:.4f} / {f2:.4f}")
+
+    t0 = time.perf_counter()
+    mean = torch.tensor([0.5845, -0.4843, -0.1081, -0.0761, -0.5730], device=device)
+    sd = torch.tensor([0.0118, 0.1007, 0.3028, 0.5778, 0.0664], device=device)
+    uniq = mean + sd * torch.randn((32, 5), generator=g, device=device)
+    res = fit_flow_mle(torch.tile(uniq, (128, 1)), GaussianPrior.iid(5, sigma=0.6, device=device), g,
+                       n_couplings=6, hidden=32, n_steps=3000, n_batch=256, lr=0.01)
+    th = flow_sample(res, g, (8192,))
+    ratio = (th.std(0) / uniq.std(0)).cpu().numpy()
+    dmean = float((th.mean(0) - uniq.mean(0)).abs().max())
+    secs["degenerate"] = time.perf_counter() - t0
+    ok = bool(np.all(ratio > 0.5) and np.all(ratio < 2.0) and dmean < 0.3)
+    say("P14", f"(h) MLE on 32 unique rows tiled 128x: sd ratios {[round(float(r), 3) for r in ratio]}, "
+        f"mean diff {dmean:.4f}; the reference's gate (0.5, 2) / 0.3: {'pass' if ok else 'fail'} (printed, not "
+        f"enforced: the JAX package fails it on 4 of 26 seeds); {secs['degenerate']:.1f} s")
+
+    t0 = time.perf_counter()
+    res = fit_flow_mle(particles(2048), prior, g, n_steps=2000)
+    out = run_neutra_pcn(res, misfit, prior, g, n_chains=64, n_steps=2000, n_burn=500, beta=0.3)
+    n1, n2 = near(out.samples, m1), near(out.samples, -m1)
+    both = float((n1.any(0) & n2.any(0)).double().mean())
+    frac1, rh = float(n1.double().mean()), float(rhat(out.samples).max())
+    plain = run_pcn(misfit, prior, prior.sample(g, (64,)), g, n_steps=2000, n_burn=500, beta=0.3)
+    p1, p2 = near(plain.samples, m1), near(plain.samples, -m1)
+    cross = float((p1.any(0) & p2.any(0)).double().mean())
+    secs["neutra"] = time.perf_counter() - t0
+    say("P14", f"(i) NeuTra mode crossing, 64 chains x 2000 steps: {both:.4f} of chains visit both basins "
+        f"(gate > 0.9), basin 1 {frac1:.4f} (gate (0.4, 0.6)), R-hat {rh:.4f} (gate 1.05); plain pCN "
+        f"{cross:.4f} cross (gate < 0.05); {secs['neutra']:.1f} s")
+    if not (both > 0.9 and 0.4 < frac1 < 0.6 and rh < 1.05 and cross < 0.05):
+        fail(f"(i): NeuTra {both:.4f} both, {frac1:.4f} basin 1, R-hat {rh:.4f}; plain pCN {cross:.4f}")
+    return secs
+
+
+_CHILDREN: list = []
+
+
+def _stop_children() -> None:
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _p14_analytic_start():
+    """Start (g)-(i) in a child process on the host's CPU, one thread: they
+    are host-bound two- and five-dimensional problems, 60-70 s in all, which
+    run beside (a)-(f) instead of after them. atexit stops the child if this
+    process ends first."""
+    import atexit
+    import os
+
+    if not _CHILDREN:
+        atexit.register(_stop_children)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--p14-analytic"],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _CHILDREN.append(proc)
+    return proc
+
+
+def _p14_analytic_join(proc) -> None:
+    """Relay the child's lines; its failure is the phase's."""
+    try:
+        out, _ = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        print(out, end="", flush=True)
+        fail("(g)-(i): the analytic cases did not finish in 900 s")
+    print(out, end="", flush=True)
+    if proc.returncode != 0:
+        fail(f"(g)-(i): the analytic cases' process exited {proc.returncode}")
+
+
+def phase_flow(pipe4, inv4, inv_head):
+    """Phase 14: the normalizing flow and NeuTra through their api entry points
+    on the card, on phase 3's res4 build. (a)-(e) run on phase 11 (b)'s
+    headline data (noise 1e-3, phase 3's truth), with its cold-level samples
+    as the reference posterior; (f) on phase 3's data against its pcn run.
+    Returns K3r's launches over the phase.
+
+    (a) run_flow_vi_inversion at bench.py's widths (6 couplings of width 32,
+        SMC on 4,096 particles with 8 mutations and at most 256 stages, 3,000
+        MLE steps): SMC reaches lambda = 1 under 256 stages, the MLE trace
+        rises (its last 100 steps' mean above its first 100's), and on 4,096
+        base draws inverse(forward(Z)) is within 1e-4 of Z and the two
+        log-determinants within 1e-4 of each other.
+    (b) psis_certify_flow with 8,192 draws, then again with base_scale 1.5:
+        k-hat finite, ESS > 0, the log evidence finite. k-hat is printed beside
+        the reference's 0.785 and against the 0.7 gate (printed, not
+        enforced: 0.785 fails it in JAX too), the log evidence beside phase 11
+        (b)'s stepping-stone log Z.
+    (c) run_neutra_inversion at the bench's 4,096 chains and thin 4, its
+        steps cut for the time limit (4,000 steps, 1,000 burn-in, for the
+        bench's 10,000 / 2,000): accept in (0.05, 0.95), every sample
+        finite, each coordinate's mean within one pt_pcn sd of the cold
+        level's mean. Split-R-hat printed beside the reference's 1.1085.
+    (d) The identity reduction: with an identity flow in the prior frame the
+        NeuTra potential at 1,024 base points equals the rom_nn misfit at the
+        pushed points within 1e-5 relative.
+    (e) The fom route through K3r, its launches counted around each call:
+        psis_certify_flow with 4,096 draws exactly 1 launch (one batched
+        solve); run_neutra_inversion with 1,024 chains and 64 steps (32
+        burn-in) exactly 65, one for the chains' start (pcn_init) and one a
+        step (run_neutra_inversion adds none: the data are passed and the samples are
+        pushed through the flow alone); accept in (0.05, 0.95).
+    (f) pretrain="none": annealed reverse-KL flow-VI on phase 3's 1e-2 data,
+        400 steps (cut from the default 3,000) at lr 0.01: the ELBO rises
+        (last-50 mean above first-50) and each mean is within one pcn sd of
+        phase 3's pcn. This is `vi --flow N --flow-pretrain none`.
+    (g)-(i) the reference's analytic cases at its sizes and tolerances
+        (_p14_analytic): the weighted MLE split, MLE on a population of
+        atoms, NeuTra crossing two basins where plain pCN does not. They run
+        on the host's CPU in a child process started with the phase, beside
+        (a)-(f)."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.api import (
+        psis_certify_flow, run_flow_vi_inversion, run_neutra_inversion,
+    )
+    from bayesianinferencedl_tpu_torch.infer.flow import CouplingFlow, FlowVIResult, neutra_misfit
+    from bayesianinferencedl_tpu_torch.infer.pcn import gaussian_misfit
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    t_phase = time.perf_counter()
+    analytic = _p14_analytic_start()
+    pipe_h = _with_mcmc(pipe4, noise_sigma=PT_HEAD["noise_sigma"])
+    data, truth = inv_head.data, inv_head.theta_true
+    ref = inv_head.result.samples.double()
+    pt_mean = ref.mean(dim=(0, 1)).cpu().numpy()
+    pt_sd = ref.reshape(-1, ref.shape[-1]).std(0).cpu().numpy()
+    k3r = 0
+
+    def counted(fn):
+        """fn() with K3r's count set to 0 just before and read just after."""
+        K.launches = K.tile_launches = K.tile_mma_launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        if K.launches or K.tile_launches:
+            fail(f"K1 {K.launches} / K3 {K.tile_launches} launches where K3r carries the fom solves")
+        return out, K.tile_mma_launches
+
+    # (a) SMC -> MLE flow at the bench's widths
+    log = MetricsLogger()
+    res, _, _, wall = run_flow_vi_inversion(pipe_h, "rom_nn", data=data, theta_true=truth, metrics=log,
+                                            **P14_FLOW)
+    stages = log.summary()["flow_vi"]["smc_stages"]
+    if not stages < P14_FLOW["max_stages"]:
+        fail(f"(a): SMC took {stages} stages, not under {P14_FLOW['max_stages']}")
+    tr = res.elbo_trace.double().cpu().numpy()
+    if not (np.isfinite(tr).all() and tr[-100:].mean() > tr[:100].mean()):
+        fail(f"(a): MLE trace first-100 {tr[:100].mean():.4f}, last-100 {tr[-100:].mean():.4f}")
+    with torch.no_grad():
+        Z = torch.randn((4096, res.flow.dim), generator=torch.Generator(device="cuda").manual_seed(14),
+                        device="cuda")
+        Y, ld = res.flow(Z)
+        Z2, ld2 = res.flow.inverse(Y)
+    e_z, e_ld = float((Z2 - Z).abs().max()), float((ld2 - ld).abs().max())
+    fit_err = np.abs(res.theta_mean.double().cpu().numpy() - pt_mean)
+    say("P14", f"(a) flow fit rom_nn noise {PT_HEAD['noise_sigma']:g}, {P14_FLOW['n_couplings']} couplings x "
+        f"{P14_FLOW['hidden']}, SMC {P14_FLOW['pretrain_particles']} particles: {stages} stages; "
+        f"{P14_FLOW['pretrain_steps']} MLE steps; {wall:.2f} s in all; trace first-100 {tr[:100].mean():.4f}, "
+        f"last-100 {tr[-100:].mean():.4f}; round trip |dZ| {e_z:.2e}, |d logdet| {e_ld:.2e}; fit mean "
+        f"{np.round(res.theta_mean.double().cpu().numpy(), 4).tolist()} vs pt {np.round(pt_mean, 4).tolist()}, "
+        f"fit_mean_abs_err_vs_pt {fit_err.mean():.4f}")
+    if not (e_z <= P14_ROUND_TRIP and e_ld <= P14_ROUND_TRIP):
+        fail(f"(a): round trip |dZ| {e_z:.2e}, |d logdet| {e_ld:.2e} (gate {P14_ROUND_TRIP})")
+
+    # (b) the flow's PSIS certificate, plain and base-widened
+    for scale in (1.0, P14_WIDEN):
+        t0 = time.perf_counter()
+        cert = psis_certify_flow(pipe_h, res, data, n_draws=P14_PSIS, base_scale=scale)
+        torch.cuda.synchronize()
+        c_err = np.abs(np.asarray(cert.mean) - pt_mean).mean()
+        say("P14", f"(b) PSIS {P14_PSIS} draws, base_scale {scale:g}: {time.perf_counter() - t0:.3f} s; "
+            f"k-hat {cert.k_hat:.4f} (the reference's {P14_REF['k_hat']}; gate 0.7: "
+            f"{'pass' if cert.k_hat < 0.7 else 'fail'}, printed, not enforced), ESS {cert.ess:.1f}, "
+            f"log Z {cert.log_evidence:.4f} beside phase 11 (b)'s stepping stone "
+            f"{inv_head.log_evidence:.4f} +- {inv_head.log_evidence_std:.4f}; corrected mean abs err vs pt "
+            f"{c_err:.4f}")
+        if not (np.isfinite(cert.k_hat) and cert.ess > 0 and np.isfinite(cert.log_evidence)):
+            fail(f"(b): base_scale {scale}: k-hat {cert.k_hat}, ESS {cert.ess}, log Z {cert.log_evidence}")
+
+    # (c) NeuTra pCN at the bench's widths
+    inv_nt = run_neutra_inversion(pipe_h, res, data, theta_true=truth, **P14_NEUTRA)
+    s = inv_nt.result.samples
+    if not torch.isfinite(s).all():
+        fail("(c): non-finite NeuTra samples")
+    acc = float(inv_nt.result.accept_rate.mean())
+    flat = s.reshape(-1, s.shape[-1]).double()
+    nt_mean, nt_sd = flat.mean(0).cpu().numpy(), flat.std(0).cpu().numpy()
+    err = np.abs(nt_mean - pt_mean) / pt_sd
+    rh = float(inv_nt.rhat.max())
+    say("P14", f"(c) NeuTra pCN {P14_NEUTRA['n_chains']} chains x {P14_NEUTRA['n_steps']} steps "
+        f"({P14_NEUTRA['n_burn']} burn-in, thin {P14_NEUTRA['thin']}): {inv_nt.wall_seconds:.3f} s, "
+        f"{inv_nt.wall_seconds / P14_NEUTRA['n_steps'] * 1e3:.3f} ms a step, {inv_nt.samples_per_sec:.1f} "
+        f"samples/s, bulk ESS/s {inv_nt.ess_per_sec:.2f} (bulk ESS min {inv_nt.ess.min().item():.1f}); "
+        f"accept {acc:.4f}; split-rhat max {rh:.4f} (the reference's {P14_REF['rhat']}; phase 11 (b)'s "
+        f"pt_pcn {float(inv_head.rhat.max()):.4f})")
+    say("P14", f"(c) mean {np.round(nt_mean, 4).tolist()} vs pt {np.round(pt_mean, 4).tolist()}: |diff| / pt "
+        f"sd {np.round(err, 3).tolist()}, mean_abs_err_vs_pt {np.abs(nt_mean - pt_mean).mean():.4f}; std ratio "
+        f"vs pt {np.round(nt_sd / pt_sd, 3).tolist()}")
+    if not 0.05 < acc < 0.95:
+        fail(f"(c): accept {acc:.4f} outside (0.05, 0.95)")
+    if not np.all(err <= 1.0):
+        fail(f"(c): NeuTra mean {err.max():.2f} pt sds from the cold level's")
+
+    # (d) the identity reduction on the card
+    g = torch.Generator(device="cuda").manual_seed(15)
+    prior = pipe_h.prior
+    ident = FlowVIResult(
+        flow=CouplingFlow(prior.dim, P14_FLOW["n_couplings"], P14_FLOW["hidden"], generator=g,
+                          device="cuda"),
+        ref_mean=prior.mean, ref_chol=prior.chol, elbo_trace=prior.mean.new_zeros((0,)),
+        theta_mean=prior.mean, theta_cov=torch.eye(prior.dim, device="cuda"), n_forward=0)
+    misfit = gaussian_misfit(pipe_h.batched_forward_fn("rom_nn"), data, PT_HEAD["noise_sigma"])
+    misfit_Z, _, to_theta = neutra_misfit(ident, misfit, prior)
+    with torch.no_grad():
+        Zi = torch.randn((P14_IDENT, prior.dim), generator=g, device="cuda")
+        a, b = misfit_Z(Zi).double(), misfit(to_theta(Zi)).double()
+    rel = float(((a - b).abs() / b.abs()).max())
+    say("P14", f"(d) identity flow: NeuTra potential vs the misfit at the pushed points, {P14_IDENT} base "
+        f"points: max relative difference {rel:.2e} (gate {P14_IDENT_GATE:g})")
+    if not rel <= P14_IDENT_GATE:
+        fail(f"(d): the identity reduction is off by {rel:.2e} relative")
+
+    # (e) the fom route at res4 through K3r
+    cert_f, n = counted(lambda: psis_certify_flow(pipe_h, res, data, "fom", n_draws=P14_FOM_PSIS))
+    k3r += n
+    say("P14", f"(e) PSIS of (a)'s flow on fom, {P14_FOM_PSIS} draws: launches K3r {n}; k-hat "
+        f"{cert_f.k_hat:.4f}, ESS {cert_f.ess:.1f}, log Z {cert_f.log_evidence:.4f}")
+    if n != 1:
+        fail(f"(e): psis_certify_flow on fom made {n} K3r launches, not 1")
+    if not (np.isfinite(cert_f.k_hat) and cert_f.ess > 0 and np.isfinite(cert_f.log_evidence)):
+        fail("(e): non-finite PSIS certificate on fom")
+    inv_f, n = counted(lambda: run_neutra_inversion(pipe_h, res, data, "fom", theta_true=truth,
+                                                    **P14_FOM_NEUTRA))
+    k3r += n
+    want = P14_FOM_NEUTRA["n_steps"] + 1
+    acc_f = float(inv_f.result.accept_rate.mean())
+    say("P14", f"(e) NeuTra on fom, {P14_FOM_NEUTRA['n_chains']} chains x {P14_FOM_NEUTRA['n_steps']} steps "
+        f"({P14_FOM_NEUTRA['n_burn']} burn-in): {inv_f.wall_seconds:.3f} s, "
+        f"{inv_f.wall_seconds / P14_FOM_NEUTRA['n_steps'] * 1e3:.2f} ms a step; launches K3r {n} (the "
+        f"chains' start and one a step = {want}); accept {acc_f:.4f}; mean "
+        f"{np.round(inv_f.result.samples.double().mean(dim=(0, 1)).cpu().numpy(), 4).tolist()}")
+    if n != want:
+        fail(f"(e): NeuTra on fom made {n} K3r launches, not {want}")
+    if not (0.05 < acc_f < 0.95 and torch.isfinite(inv_f.result.samples).all()):
+        fail(f"(e): NeuTra on fom: accept {acc_f:.4f} outside (0.05, 0.95) or non-finite samples")
+
+    # (f) plain annealed reverse-KL flow-VI on phase 3's data
+    pcn = inv4.result.samples.double()
+    pcn_mean, pcn_sd = pcn.mean(dim=(0, 1)).cpu().numpy(), pcn.reshape(-1, pcn.shape[-1]).std(0).cpu().numpy()
+    res_f, _, _, wall = run_flow_vi_inversion(pipe4, "rom_nn", data=inv4.data, theta_true=inv4.theta_true,
+                                              **P14_NONE)
+    e = res_f.elbo_trace.double().cpu().numpy()
+    err_f = np.abs(res_f.theta_mean.double().cpu().numpy() - pcn_mean) / pcn_sd
+    say("P14", f"(f) flow-VI pretrain none, {P14_NONE['n_steps']} steps x 64 draws, lr {P14_NONE['lr']}: "
+        f"{wall:.3f} s, {wall / P14_NONE['n_steps'] * 1e3:.3f} ms a step; ELBO first-50 {e[:50].mean():.3f}, "
+        f"last-50 {e[-50:].mean():.3f}; mean |diff| / pcn sd {np.round(err_f, 3).tolist()}")
+    if not (np.isfinite(e).all() and e[-50:].mean() > e[:50].mean()):
+        fail(f"(f): ELBO first-50 {e[:50].mean():.3f}, last-50 {e[-50:].mean():.3f}")
+    if not np.all(err_f <= 1.0):
+        fail(f"(f): flow-VI mean {err_f.max():.2f} pcn sds from pcn's")
+
+    # (g)-(i) the reference's analytic cases, too long for the CPU tests,
+    # from the child started with the phase
+    _p14_analytic_join(analytic)
+    say("P14", f"K3r launches over phase 14: {k3r}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return k3r
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
                   ms: float, plain_ms: float, bound: tuple) -> dict:
     return {"name": name, "route": "cuda", "source": f"bayesianinferencedl_tpu_torch/csrc/{source}",
@@ -2801,9 +3161,10 @@ def main() -> None:
     k4_launches = phase_fom_cli(k4)
     k4c = phase_k4c(k4)
     k5 = phase_k5(k3)
-    pt_launches, inv_pt = phase_pt(pipe, inv, pipe8, inv8)
+    pt_launches, inv_pt, inv_head = phase_pt(pipe, inv, pipe8, inv8)
     p12_launches = phase_gradient(pipe, inv, pipe8, inv8, inv_pt)
     p13_launches = phase_approx(pipe, inv, inv_pt)
+    p14_launches = phase_flow(pipe, inv, inv_head)
     t1 = lanes["times"][B_CHECK]
     t3 = k3["times"][1024]
     t4r = k4["times"][K4_BATCHES[0]]
@@ -2826,11 +3187,13 @@ def main() -> None:
         # K3r: res8, B = 1,024; its launches are the res4 slice's (the lanes
         # route), the res8 DA slice's, phase 11's (its fom samplers at res8,
         # the headline's truth solve at res4), phase 12's (DA's fine
-        # solves at res8, gpcn on fom at res4) and phase 13's (EKI, SMC and
-        # PSIS on fom at res4)
+        # solves at res8, gpcn on fom at res4), phase 13's (EKI, SMC and
+        # PSIS on fom at res4) and phase 14's (the flow's PSIS and NeuTra on
+        # fom at res4)
         _kernel_entry("pcg_stencil_tile_mma", "pcg_stencil_tile_mma.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385",
-                      slice_launches["K3r"] + k3_launches + pt_launches + p12_launches + p13_launches,
+                      slice_launches["K3r"] + k3_launches + pt_launches + p12_launches + p13_launches
+                      + p14_launches,
                       max(k3["max_abs_err"], lanes["max_abs"]["K3r"]), t3["ms"], t3["plain_ms"],
                       t3["bound"]),
         # K3, off the main path since K3r: timed on the same inputs, for the record
@@ -2862,4 +3225,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--p14-analytic"]:  # phase 14's child process
+        import torch
+
+        torch.set_num_threads(1)
+        _p14_analytic("cpu")
+    else:
+        main()

@@ -20,14 +20,13 @@ import pytest
 import torch
 
 from bayesianinferencedl_tpu import config as jcfg
-from bayesianinferencedl_tpu.api import build_pipeline as j_build
 from bayesianinferencedl_tpu.infer import eki as je
 from bayesianinferencedl_tpu_torch import api
 from bayesianinferencedl_tpu_torch import config as tcfg
 from bayesianinferencedl_tpu_torch.convert import pipeline_from_arrays
 from bayesianinferencedl_tpu_torch.infer import eki as te
 from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
-from test_torch_slice import _arrays
+from test_torch_slice import _arrays, jax_build
 
 torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
 
@@ -46,7 +45,7 @@ def _cfg(cfg):
 
 @pytest.fixture(scope="module")
 def pipes():
-    jpipe = j_build(_cfg(jcfg), dtype=jnp.float32)
+    jpipe = jax_build(_cfg(jcfg), jnp.float32)
     return jpipe, pipeline_from_arrays(_cfg(tcfg), _arrays(jpipe), device="cpu", dtype=torch.float32)
 
 

@@ -1,8 +1,9 @@
 """The port's approximation commands at res1 on the CPU (``eki``, ``vi``,
 ``svgd``, ``evidence``, ``map --psis``, ``invert --init``): each prints the
 reference CLI's JSON keys with finite values; ``--psis`` adds the
-reference's ``psis`` block; the flow flags of ``vi`` are refused, naming
-their ROADMAP.md item."""
+reference's ``psis`` block; ``vi --flow N`` runs the normalizing flow and
+prints its keys, and without ``--flow`` the flow-only flags ``--neutra``
+and ``--psis-widen`` are ignored, as in the reference (plain ADVI)."""
 
 import json
 
@@ -10,9 +11,19 @@ import numpy as np
 import pytest
 import torch
 
+from bayesianinferencedl_tpu_torch import api
 from bayesianinferencedl_tpu_torch.cli import main
+from test_torch_flow_cli import FLOW_KEYS, flow_spy
+from test_torch_slice import cached_build_pipeline
 
 torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
+
+@pytest.fixture(autouse=True)
+def _one_build_per_config(monkeypatch):
+    """The commands' pipelines built once for the file (test_torch_slice.cached_build_pipeline)."""
+    monkeypatch.setattr(api, "build_pipeline", cached_build_pipeline)
+
 
 SMALL = ["--device", "cpu", "--resolution", "1", "--n-snapshots", "32", "--r", "8", "--n-train", "64",
          "--epochs", "5", "--noise", "1e-2"]
@@ -85,6 +96,18 @@ def test_invert_init_eki(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--flow", "2"], ["--neutra", "100"], ["--psis-widen", "1.5"]])
-def test_vi_flow_is_refused(flag):
-    with pytest.raises(NotImplementedError, match="item 28"):
-        main(["vi", *SMALL, *flag])
+def test_vi_flow_is_refused(flag, monkeypatch, capsys):
+    """The flow flags as the reference's ``cmd_vi`` takes them (it branches
+    only on --flow > 0): --flow 2 runs the flow (its SMC pretraining at
+    test_torch_flow_cli's small sizes) and prints the flow's keys; --neutra
+    and --psis-widen without --flow run plain ADVI and print ADVI's."""
+    seen = flow_spy(monkeypatch)
+    out = _run(["vi", *SMALL, "--steps", "20", "--mc", "8", *flag], capsys)
+    _finite_summary(out)
+    if flag[0] == "--flow":
+        assert seen["n_couplings"] == 2 and set(out) == FLOW_KEYS
+        assert out["family"] == "flow (couplings=2, pretrain=smc)"
+    else:
+        assert not seen and set(out) == SUMMARY | {"likelihood", "rank", "n_steps", "n_mc",
+                                                   "n_forward_evals", "elbo_first_last"}
+        assert out["n_steps"] == 20 and out["n_forward_evals"] == 160

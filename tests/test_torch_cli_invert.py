@@ -27,8 +27,16 @@ from bayesianinferencedl_tpu_torch import api
 from bayesianinferencedl_tpu_torch.cli import main
 from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
 from bayesianinferencedl_tpu_torch.config import MeshConfig, PipelineConfig, ROMConfig
+from test_torch_slice import cached_build_pipeline
 
 torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
+
+
+@pytest.fixture(autouse=True)
+def _one_build_per_config(monkeypatch):
+    """The commands' pipelines built once for the file (test_torch_slice.cached_build_pipeline)."""
+    monkeypatch.setattr(api, "build_pipeline", cached_build_pipeline)
+
 
 SMALL = ["--device", "cpu", "--resolution", "1", "--n-snapshots", "32", "--r", "8",
          "--n-train", "64", "--epochs", "5", "--chains", "8", "--steps", "24", "--burn", "12",

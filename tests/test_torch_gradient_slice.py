@@ -21,12 +21,11 @@ import pytest
 import torch
 
 from bayesianinferencedl_tpu import config as jcfg
-from bayesianinferencedl_tpu.api import build_pipeline as j_build
 from bayesianinferencedl_tpu_torch import api
 from bayesianinferencedl_tpu_torch import config as tcfg
 from bayesianinferencedl_tpu_torch.convert import pipeline_from_arrays
 from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
-from test_torch_slice import _arrays
+from test_torch_slice import _arrays, jax_build
 
 torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
 
@@ -46,7 +45,7 @@ def _cfg(cfg):
 
 @pytest.fixture(scope="module")
 def pipe():
-    jpipe = j_build(_cfg(jcfg), dtype=jnp.float64)
+    jpipe = jax_build(_cfg(jcfg), jnp.float64)
     return pipeline_from_arrays(_cfg(tcfg), _arrays(jpipe), device="cpu", dtype=torch.float64)
 
 

@@ -108,9 +108,11 @@ def test_hmc_step_replays_reference():
     theta0 = rng.normal(0.0, 0.6, (C, D))
     h = rng.uniform(0.05, 0.6, C)
     (sj, eval_j), (st, eval_t) = _states(j, t, theta0)
+    # the reference's step as one compiled program, not a dispatch of each primitive
+    step_j = jax.jit(lambda s, k: jhmc.hmc_step(eval_j, jnp.asarray(h), 5, 0.2, s, k))
     for i in range(3):
         key = jax.random.PRNGKey(20 + i)
-        sj, acc_j = jhmc.hmc_step(eval_j, jnp.asarray(h), 5, 0.2, sj, key)
+        sj, acc_j = step_j(sj, key)
         nrm, jit, uni = _step_draws(key, C)
         st, acc_t = thmc.hmc_step(eval_t, torch.from_numpy(h), 5, 0.2, st, normals=torch.from_numpy(nrm),
                                   jitters=torch.from_numpy(jit), uniforms=torch.from_numpy(uni))

@@ -120,9 +120,11 @@ def test_mala_step_replays_reference():
         st = tmala.init_state(eval_t, tmala.frame(tm_, tc)[1], torch.from_numpy(theta0))
         for f in ("y", "nlp", "phi", "grad"):
             _close_scaled(getattr(st, f), getattr(sj, f))
+        # the reference's step as one compiled program, not a dispatch of each primitive
+        step_j = jax.jit(lambda s, k: jmala.mala_step(eval_j, jnp.asarray(h), s, k))
         for i in range(3):
             key = jax.random.PRNGKey(10 + i)
-            sj, acc_j = jmala.mala_step(eval_j, jnp.asarray(h), sj, key)
+            sj, acc_j = step_j(sj, key)
             xi, u = _step_draws(key, C)
             st, acc_t = tmala.mala_step(eval_t, torch.from_numpy(h), st,
                                         normals=torch.from_numpy(xi), uniforms=torch.from_numpy(u))

@@ -18,7 +18,6 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from bayesianinferencedl_tpu import config as jcfg
-from bayesianinferencedl_tpu.api import build_pipeline as j_build
 from bayesianinferencedl_tpu.experimental.pcn_fused import run_pcn_fused as j_run_pcn_fused
 from bayesianinferencedl_tpu_torch import config as tcfg
 from bayesianinferencedl_tpu_torch.convert import pipeline_from_arrays
@@ -26,6 +25,7 @@ from bayesianinferencedl_tpu_torch.experimental import pcn_fused as K2
 from bayesianinferencedl_tpu_torch.infer import pcn as tp
 from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior
 from bayesianinferencedl_tpu_torch.rom.galerkin import ReducedOperator
+from test_torch_slice import jax_build
 
 torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
 
@@ -58,7 +58,7 @@ def _arrays(jpipe) -> dict:
 def pipes():
     """One JAX pipeline in float64, carried into the port in float32 and
     float64, and the data and initial states of every test."""
-    jpipe = j_build(_cfg(jcfg), dtype=jnp.float64)
+    jpipe = jax_build(_cfg(jcfg), jnp.float64)
     arrays = _arrays(jpipe)
     rng = np.random.default_rng(0)
     theta_true = rng.normal(0.0, 0.6, (1, D))

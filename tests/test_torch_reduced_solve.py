@@ -63,9 +63,11 @@ def test_differentiable_reduced_solve_matches_custom_linear_solve(case, request)
     theta = rng.normal(0.0, 0.5, 5).astype(np_dt)
     data = np.asarray(jpipe.forward_fn("rom_nn")(jnp.asarray(rng.normal(0, 0.5, 5), jdtype)))
     data = (data + 1e-2 * rng.normal(size=data.shape)).astype(np_dt)
-    # JAX: the per-theta forward through custom_linear_solve
+    # JAX: the per-theta forward through custom_linear_solve (each derivative
+    # one compiled program, not a dispatch of every primitive)
     mj = j_misfit(jpipe.forward_fn("rom_nn"), jnp.asarray(data), 1e-2)
-    gj, Hj = np.asarray(jax.grad(mj)(jnp.asarray(theta))), np.asarray(jax.hessian(mj)(jnp.asarray(theta)))
+    gj = np.asarray(jax.jit(jax.grad(mj))(jnp.asarray(theta)))
+    Hj = np.asarray(jax.jit(jax.hessian(mj))(jnp.asarray(theta)))
     fwd_t = tpipe.batched_forward_fn("rom_nn", differentiable=True)
     mt = t_misfit(fwd_t, torch.from_numpy(data), 1e-2)
     th = torch.from_numpy(theta)[None].requires_grad_()

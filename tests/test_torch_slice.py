@@ -9,6 +9,13 @@
    below the ROM's, and the acceptance rate is sane.
 Sizes: res1, r = 8, 32 snapshots, 64 training samples, 20 epochs."""
 
+import dataclasses
+import fcntl
+import hashlib
+import os
+import tempfile
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +23,7 @@ import pytest
 import torch
 
 from bayesianinferencedl_tpu import config as jcfg
+from bayesianinferencedl_tpu.api import Pipeline as JPipeline
 from bayesianinferencedl_tpu.api import build_pipeline as j_build
 from bayesianinferencedl_tpu.infer import pcn as jp
 from bayesianinferencedl_tpu_torch import api
@@ -53,9 +61,57 @@ def _arrays(jpipe) -> dict:
     return out
 
 
+def jax_build(cfg, dtype):
+    """The JAX package's build_pipeline(cfg, dtype=dtype), built once per test
+    run for each configuration: the first test process to ask builds it and
+    saves it (``Pipeline.save``), the others load that file
+    (``Pipeline.load``: the same arrays, mesh and config), under the run's
+    temporary directory. The key leaves out the MCMC fields, of which the
+    build reads only whether noise_sigma < 5e-4; the pipeline comes back
+    under the asked-for config."""
+    bare = dataclasses.replace(cfg, mcmc=jcfg.MCMCConfig(noise_sigma=1e-4 if cfg.mcmc.noise_sigma < 5e-4
+                                                         else 1e-2))
+    key = hashlib.sha256(f"{bare!r} {jnp.dtype(dtype).name}".encode()).hexdigest()[:16]
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID", str(os.getpid()))
+    root = Path(tempfile.gettempdir()) / f"bidl_jax_builds_{run}"
+    root.mkdir(parents=True, exist_ok=True)
+    path = root / f"{key}.npz"
+    with open(root / f"{key}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # one builder; the others wait for its file
+        if not path.exists():
+            jpipe = j_build(cfg, dtype=dtype)
+            jpipe.save(str(root / f"{key}.tmp.npz"))
+            os.replace(root / f"{key}.tmp.npz", path)
+            return jpipe
+    return dataclasses.replace(JPipeline.load(str(path), dtype=dtype), config=cfg)
+
+
+_BUILDS: dict = {}
+
+
+def cached_build_pipeline(cfg, *, device="cuda", dtype=torch.float32, metrics=None,
+                          _build=api.build_pipeline):
+    """api.build_pipeline, built once per process for each configuration: a
+    repeat with the same fields but the MCMC ones (of which the build reads
+    only noise_sigma) returns the first build under the asked-for config,
+    and logs the first build's events into ``metrics`` again. The build is
+    deterministic and no code of the port mutates a Pipeline, so the CLI
+    tests run their commands on one build instead of one each."""
+    key = (repr(dataclasses.replace(cfg, mcmc=tcfg.MCMCConfig(noise_sigma=cfg.mcmc.noise_sigma))),
+           str(device), str(dtype))
+    if key not in _BUILDS:
+        log = MetricsLogger()
+        _BUILDS[key] = (_build(cfg, device=device, dtype=dtype, metrics=log), log.events)
+    pipe, events = _BUILDS[key]
+    if metrics is not None:
+        for e in events:
+            metrics.log(e["event"], **{k: v for k, v in e.items() if k not in ("event", "t")})
+    return dataclasses.replace(pipe, config=cfg)
+
+
 @pytest.fixture(scope="module")
 def converted():
-    jpipe = j_build(_cfg(1e-10, jcfg), dtype=jnp.float64)
+    jpipe = jax_build(_cfg(1e-10, jcfg), jnp.float64)
     tpipe = pipeline_from_arrays(_cfg(1e-10), _arrays(jpipe), device="cpu", dtype=torch.float64)
     return jpipe, tpipe
 

@@ -55,8 +55,9 @@ def test_one_adam_step_matches_reference(setup):
     def loss_j(p):
         return jnp.mean((mlp_j.apply(p, jnp.asarray(xb)) - jnp.asarray(yb)) ** 2)
 
-    g = jax.grad(loss_j)(params_j)
-    new_j, st_j = js.adam_update(params_j, g, js.adam_init(params_j), jnp.asarray(lr, jnp.float32))
+    # each of the reference's functions as one compiled program
+    g = jax.jit(jax.grad(loss_j))(params_j)
+    new_j, st_j = jax.jit(js.adam_update)(params_j, g, js.adam_init(params_j), jnp.asarray(lr, jnp.float32))
 
     mlp_t = ts.MLP.from_params(_to_torch(params_j), "tanh")
     params_t = mlp_t.params()

@@ -23,7 +23,6 @@ import pytest
 import torch
 
 from bayesianinferencedl_tpu import config as jcfg
-from bayesianinferencedl_tpu.api import build_pipeline as j_build
 from bayesianinferencedl_tpu.infer import tempering as jt
 from bayesianinferencedl_tpu.infer.evidence import log_evidence_from_pt as j_evidence
 from bayesianinferencedl_tpu.infer.pcn import gaussian_misfit as j_misfit
@@ -35,6 +34,7 @@ from bayesianinferencedl_tpu_torch.infer.evidence import log_evidence_from_pt as
 from bayesianinferencedl_tpu_torch.infer.pcn import gaussian_misfit as t_misfit
 from bayesianinferencedl_tpu_torch.infer.pcn import run_pcn
 from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior as TPrior
+from test_torch_slice import jax_build
 
 torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
 
@@ -359,7 +359,7 @@ def _cfg(cfg):
 
 
 def test_pt_pcn_on_converted_res2_rom_nn_matches_reference():
-    jpipe = j_build(_cfg(jcfg), dtype=jnp.float32)
+    jpipe = jax_build(_cfg(jcfg), jnp.float32)
     rom, sur = jpipe.rom, jpipe.surrogate
     arrays = {f: np.asarray(getattr(rom, f)) for f in ("Ahat", "Mhat", "Fhat", "Bhat", "V")}
     arrays["P0"], arrays["rom_pcg_iters"] = np.asarray(jpipe.P0), np.asarray(jpipe.rom_pcg_iters)
