@@ -12,14 +12,28 @@ corrected against the ``fom`` likelihood (or ``rom``), one batched FOM solve
 per outer step, the Laplace-seeded samplers (``laplace_mh``, ``gpcn``,
 ``mala_lap``, ``hmc_lap``: the MAP and its Laplace approximation first) and
 the gradient samplers ``mala`` and ``hmc``, which take the differentiable
-forward (``Pipeline.batched_forward_fn(..., differentiable=True)``). With
+forward (``Pipeline.working_forward_fn(..., differentiable=True)``). With
 ``infer_noise`` every sampler runs on the noise-marginalised potential.
 Tempered runs also return the log evidence. Nothing moves between devices
 on its own: asking for ``device="cuda"`` without a card raises.
 
 Chains start from prior draws (the Laplace-seeded samplers from the
 Laplace approximation), or with ``init="eki"`` / ``"vi"`` from an EKI
-ensemble or a short full-rank ADVI fit.
+ensemble or a short full-rank ADVI fit. The chains live in the prior's
+working coordinates: theta = log k under the Gaussian prior, the probit
+coordinates z under a box prior (``PriorConfig.kind`` "uniform" /
+"log_uniform"); every forward a sampler or driver evaluates is
+``Pipeline.working_forward_fn``, the forward composed with
+``prior.to_theta``.
+
+The online reduced solves run at ``ROMConfig.online_precision``: "highest"
+(full fp32), "high" (bf16x3) or "fast" (one bf16 pass), per call
+(``utils.precision``); ``build_pipeline`` trains the surrogate on the
+deployed tier and iteration count. ``Pipeline.save`` / ``Pipeline.load``
+keep a built pipeline in the JAX package's npz layout, readable by either
+side. The disk-checkpointed, resumable chain runners
+(``run_pcn_checkpointed`` and its kin, ``infer/checkpointed.py``) are
+exported here, as the reference exports them.
 
 The approximation layer has its own entry points, with ``run_inversion``'s data
 contract: ``run_eki_inversion`` (ensemble Kalman inversion, one batched
@@ -32,9 +46,8 @@ distilled into a coupling flow by maximum likelihood, or annealed
 reverse-KL flow-VI), ``psis_certify_flow`` (PSIS with the flow as the
 proposal) and ``run_neutra_inversion`` (flow-preconditioned pCN, exact).
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``mlda_pcn``, the ``high``/``fast`` online precision tiers
-and box priors.
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
+item: ``mlda_pcn``.
 """
 
 from __future__ import annotations
@@ -42,6 +55,7 @@ from __future__ import annotations
 import math
 import time
 import warnings
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Optional, Union
 
@@ -51,6 +65,14 @@ import torch
 from bayesianinferencedl_tpu_torch.config import PipelineConfig
 from bayesianinferencedl_tpu_torch.data.datasets import ErrorDataset, generate_error_dataset
 from bayesianinferencedl_tpu_torch.fem.solve import pcg_fom
+from bayesianinferencedl_tpu_torch.infer.checkpointed import (  # noqa: F401  (the reference's api exports)
+    run_da_checkpointed,
+    run_hmc_checkpointed,
+    run_mala_checkpointed,
+    run_pcn_checkpointed,
+    run_pt_checkpointed,
+    run_pt_da_checkpointed,
+)
 from bayesianinferencedl_tpu_torch.infer.delayed_acceptance import DAResult, run_da_pcn_segmented
 from bayesianinferencedl_tpu_torch.infer.diagnostics import ess_bulk, ess_tail, split_rhat
 from bayesianinferencedl_tpu_torch.infer.eki import EKIResult, run_eki
@@ -87,14 +109,16 @@ from bayesianinferencedl_tpu_torch.infer.tempering import (
 from bayesianinferencedl_tpu_torch.infer.vi import VIResult, run_advi, vi_sample
 from bayesianinferencedl_tpu_torch.models.corrected import CorrectedForward
 from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
-from bayesianinferencedl_tpu_torch.models.surrogate import TrainedSurrogate, train_surrogate
+from bayesianinferencedl_tpu_torch.models.surrogate import MLP, Normalizer, TrainedSurrogate, train_surrogate
 from bayesianinferencedl_tpu_torch.ops.pcg_stencil import solve_fom_stencil
 from bayesianinferencedl_tpu_torch.rom.galerkin import ReducedOperator
 from bayesianinferencedl_tpu_torch.rom.pod import pod_basis_host
 from bayesianinferencedl_tpu_torch.rom.snapshots import sample_log_uniform
+from bayesianinferencedl_tpu_torch.utils.checkpoint import load_checkpoint, np_dtype, read_meta, save_checkpoint
 from bayesianinferencedl_tpu_torch.utils.device import resolve_device
 from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
 from bayesianinferencedl_tpu_torch.utils.ppc import noise_posterior, ppc_chi2_pvalue, ppc_shape_pvalue
+from bayesianinferencedl_tpu_torch.utils.precision import check_tier
 
 # the untimed warm-up run that precedes the timed one: pcn and pt_pcn run
 # 2 * _WARMUP_STEPS steps (_WARMUP_STEPS burn-in); the samplers with a
@@ -117,16 +141,23 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _set_online_precision(kind: str) -> None:
-    """ROMConfig.online_precision. "highest" = full fp32 matmuls, which every
-    pinned contraction sets for itself (``utils.precision.fp32_matmul``);
-    nothing here touches the process's settings. The other tiers are TPU
-    MXU pass counts (bf16x3, bf16) with no faithful torch counterpart yet."""
-    if kind != "highest":
-        raise NotImplementedError(
-            f"online_precision={kind!r} (TPU bf16x3 / bf16 MXU passes) is not ported; "
-            "it does not map onto TF32 — see ROADMAP.md §3 (precision tiers), item 26"
-        )
+def _pipeline_layout(r: int, sizes: tuple) -> list:
+    """The leaves of a saved pipeline, [(name, shape)], in file order: the
+    order of ``jax.tree.leaves((rom, params, norm, P0, dataset))`` in the
+    JAX package's ``Pipeline.save``, each named by its key path there
+    (``jax.tree_util.keystr``). rom is the ReducedOperator's data fields,
+    params the MLP's [(W, b), ...], norm and dataset NamedTuples in field
+    order. V's rows (the padded FOM size) and the dataset's length (0 rows:
+    none) are not fixed here."""
+    d, m = sizes[0], sizes[-1]
+    out = [("[0].Ahat", (5, r, r)), ("[0].Mhat", (r, r)), ("[0].Fhat", (r,)), ("[0].Bhat", (m, r)),
+           ("[0].V", None)]
+    for i, (din, dout) in enumerate(zip(sizes[:-1], sizes[1:])):
+        out += [(f"[1][{i}][0]", (din, dout)), (f"[1][{i}][1]", (dout,))]
+    out += [(f"[2].{f}", (w,)) for f, w in (("x_mean", d), ("x_std", d), ("y_mean", m), ("y_std", m))]
+    out.append(("[3]", (r, r)))
+    out += [(f"[4].{f}", None) for f in ("log_k", "error", "y_fom", "y_rom")]
+    return out
 
 
 @dataclass
@@ -142,10 +173,94 @@ class Pipeline:
     prior: GaussianPrior
     P0: torch.Tensor  # reduced-space preconditioner Ahat(1)^{-1}
     rom_pcg_iters: int = 15  # deployed reduced-PCG iteration count
+    # the online tier of the reduced solves: "highest", "high" (bf16x3) or
+    # "fast" (bf16); ROMConfig.online_precision at build and load
+    rom_precision: str = "highest"
 
     @property
     def device(self) -> torch.device:
         return self.rom.Ahat.device
+
+    @classmethod
+    def from_arrays(cls, cfg: PipelineConfig, arrays: dict, *, dataset: Optional[ErrorDataset] = None,
+                    device="cuda", dtype=torch.float32) -> "Pipeline":
+        """A pipeline from its arrays (the keys of ``convert.pipeline_from_arrays``:
+        Ahat, Mhat, Fhat, Bhat, V, P0, W0, b0, ..., x_mean, x_std, y_mean,
+        y_std, rom_pcg_iters), the mesh and FOM rebuilt from ``cfg`` (meshes
+        are deterministic) and the tier taken from cfg.rom.online_precision."""
+        t = lambda k: torch.tensor(np.asarray(arrays[k]), dtype=dtype, device=device)
+        fin = FiveParamFin.create(
+            resolution=cfg.mesh.resolution, biot=cfg.fem.biot, dtype=dtype, device=device,
+            cg_tol=cfg.fem.cg_tol, cg_maxiter=cfg.fem.cg_maxiter,
+        )
+        rom = ReducedOperator(Ahat=t("Ahat"), Mhat=t("Mhat"), Fhat=t("Fhat"), Bhat=t("Bhat"), V=t("V"),
+                              biot=float(cfg.fem.biot))
+        if rom.V.shape[0] != fin.op.n:
+            raise ValueError(f"the basis has {rom.V.shape[0]} rows, the res{cfg.mesh.resolution} "
+                             f"FOM {fin.op.n}")
+        n_layers = sum(1 for k in arrays if k.startswith("W") and k[1:].isdigit())
+        if n_layers == 0:
+            raise ValueError("arrays hold no MLP layers (W0, b0, ...)")
+        mlp = MLP.from_params([(t(f"W{i}"), t(f"b{i}")) for i in range(n_layers)],
+                              cfg.surrogate.activation)
+        norm = Normalizer(x_mean=t("x_mean"), x_std=t("x_std"), y_mean=t("y_mean"), y_std=t("y_std"))
+        surrogate = TrainedSurrogate(mlp=mlp, norm=norm)
+        return cls(
+            config=cfg, fin=fin, rom=rom, surrogate=surrogate,
+            corrected=CorrectedForward(rom=rom, surrogate=surrogate), dataset=dataset,
+            prior=make_prior(cfg.prior, dtype, device), P0=t("P0"),
+            rom_pcg_iters=int(np.asarray(arrays["rom_pcg_iters"])),
+            rom_precision=check_tier(cfg.rom.online_precision),
+        )
+
+    def save(self, path) -> None:
+        """Every offline artifact (the reduced operator and basis, the MLP and
+        its normaliser, P0, the error dataset, the config) in one npz, in
+        the JAX package's layout (``_pipeline_layout``): its
+        ``Pipeline.load`` reads the file, and so does this class's. A
+        pipeline without a dataset (``convert.pipeline_from_arrays``) saves
+        one of 0 rows."""
+        sur = self.surrogate
+        ds = self.dataset
+        if ds is None:
+            d, m = sur.mlp.sizes[0], sur.mlp.sizes[-1]
+            z = lambda w: self.P0.new_zeros((0, w))
+            ds = ErrorDataset(log_k=z(d), error=z(m), y_fom=z(m), y_rom=z(m))
+        named = {f"[0].{f}": getattr(self.rom, f) for f in ("Ahat", "Mhat", "Fhat", "Bhat", "V")}
+        named.update({f"[1][{i}][{j}]": a for i, Wb in enumerate(sur.params) for j, a in enumerate(Wb)})
+        named.update({f"[2].{f}": a for f, a in zip(Normalizer._fields, sur.norm)})
+        named["[3]"] = self.P0
+        named.update({f"[4].{f}": a for f, a in zip(ErrorDataset._fields, ds)})
+        layout = _pipeline_layout(self.rom.r, sur.mlp.sizes)
+        save_checkpoint(path, [named[name] for name, _ in layout], meta={
+            "config": self.config.to_dict(),
+            "rom_pcg_iters": int(self.rom_pcg_iters),
+            "surrogate_sizes": list(sur.mlp.sizes),
+            "surrogate_activation": sur.mlp.activation,
+        })
+
+    @classmethod
+    def load(cls, path, *, device="cuda", dtype=torch.float32) -> "Pipeline":
+        """A pipeline from ``save``'s npz (or the JAX package's): the mesh and
+        FOM rebuilt from the saved config, every array cast to ``dtype`` on
+        ``device`` (the card unless the caller asks for "cpu"), the tier from
+        the config's online_precision."""
+        meta = read_meta(path)
+        cfg = PipelineConfig.from_dict(meta["config"])
+        sizes = tuple(int(v) for v in meta["surrogate_sizes"])
+        cfg = dataclasses.replace(cfg, surrogate=dataclasses.replace(
+            cfg.surrogate, activation=meta["surrogate_activation"]))
+        layout = _pipeline_layout(cfg.rom.basis_size, sizes)
+        leaves, _ = load_checkpoint(path, [(k, shape, np_dtype(dtype)) for k, shape in layout])
+        arrays = {f: leaves[f"[0].{f}"] for f in ("Ahat", "Mhat", "Fhat", "Bhat", "V")}
+        for i in range(len(sizes) - 1):
+            arrays[f"W{i}"], arrays[f"b{i}"] = leaves[f"[1][{i}][0]"], leaves[f"[1][{i}][1]"]
+        arrays.update({f: leaves[f"[2].{f}"] for f in ("x_mean", "x_std", "y_mean", "y_std")})
+        arrays["P0"], arrays["rom_pcg_iters"] = leaves["[3]"], meta["rom_pcg_iters"]
+        ds = ErrorDataset(*(torch.tensor(leaves[f"[4].{f}"], device=resolve_device(device))
+                            for f in ErrorDataset._fields))
+        return cls.from_arrays(cfg, arrays, dataset=ds if ds.log_k.shape[0] else None, device=device,
+                               dtype=dtype)
 
     def batched_forward_fn(self, likelihood: str, *, differentiable: bool = False) -> Callable:
         """(C, d) log-conductivities -> (C, n_obs) observables for the chain
@@ -166,7 +281,8 @@ class Pipeline:
                 return lambda thetas: self.fin.op.observe(self.fin.solve(torch.exp(thetas)))
             solve = make_fom_solver(self.fin, tol=self.fin.cg_tol, maxiter=self.fin.cg_maxiter)
             return lambda thetas: self.fin.op.observe(solve(torch.exp(thetas)))
-        ff = self.rom.fast_forward(self.P0, self.rom_pcg_iters, differentiable=differentiable)
+        ff = self.rom.fast_forward(self.P0, self.rom_pcg_iters, self.rom_precision,
+                                   differentiable=differentiable)
         if likelihood == "rom":
             return lambda thetas: ff(torch.exp(thetas))
         return lambda thetas: (ff(torch.exp(thetas))
@@ -177,14 +293,26 @@ class Pipeline:
         fb = self.batched_forward_fn(likelihood)
         return lambda theta: fb(theta[None])[0]
 
+    def working_forward_fn(self, likelihood: str, *, differentiable: bool = False) -> Callable:
+        """``batched_forward_fn`` composed with ``prior.to_theta``: (C, d)
+        working coordinates (log k under the Gaussian prior, z under a box
+        prior) -> (C, n_obs). The forward every sampler and driver here
+        evaluates, as the reference composes to_theta into each."""
+        fb = self.batched_forward_fn(likelihood, differentiable=differentiable)
+        to_theta = self.prior.to_theta
+        return lambda xs: fb(to_theta(xs))
+
 
 def make_prior(cfg_prior, dtype=torch.float32, device="cuda"):
-    """PriorConfig -> prior object (log-normal k: Gaussian on theta = log k),
-    on ``device`` (the card unless the caller asks for "cpu")."""
+    """PriorConfig -> prior object on ``device`` (the card unless the caller
+    asks for "cpu"): kind "gaussian" is the log-normal-k GaussianPrior on
+    theta = log k, "uniform" / "log_uniform" the probit push-forward
+    BoxPrior on k."""
     if cfg_prior.kind == "gaussian":
         return GaussianPrior.iid(cfg_prior.dim, mean=cfg_prior.mean, sigma=cfg_prior.sigma,
                                  dtype=dtype, device=device)
-    return BoxPrior.create(cfg_prior.dim, low=cfg_prior.low, high=cfg_prior.high, kind=cfg_prior.kind)
+    return BoxPrior.create(cfg_prior.dim, low=cfg_prior.low, high=cfg_prior.high, kind=cfg_prior.kind,
+                           dtype=dtype, device=device)
 
 
 def make_fom_solver(fin: FiveParamFin, *, tol: float, maxiter: int, with_iters: bool = False):
@@ -248,7 +376,7 @@ def build_pipeline(
             "yet: ROADMAP.md queue 1, item 21"
         )
     dev = resolve_device(device)
-    _set_online_precision(cfg.rom.online_precision)
+    tier = check_tier(cfg.rom.online_precision)
 
     with log.timer("build_fom"):
         fin = FiveParamFin.create(
@@ -284,7 +412,10 @@ def build_pipeline(
         )
         log.log("online_iters_bumped", value=rom_pcg_iters,
                 reason=f"noise_sigma {cfg.mcmc.noise_sigma:g} < 5e-4")
-    rom_fwd = rom.fast_forward(P0, rom_pcg_iters)
+    # the dataset's and the holdout's ROM forwards run the deployed tier and
+    # iteration count, so the surrogate learns the error of the path the
+    # chains evaluate
+    rom_fwd = rom.fast_forward(P0, rom_pcg_iters, tier)
 
     with log.timer("error_dataset"):
         gen_ds = torch.Generator(device=dev).manual_seed(cfg.surrogate.seed + 1)
@@ -328,7 +459,7 @@ def build_pipeline(
     return Pipeline(
         config=cfg, fin=fin, rom=rom, surrogate=surrogate, corrected=corrected,
         dataset=ds, prior=make_prior(cfg.prior, dtype, dev), P0=P0,
-        rom_pcg_iters=rom_pcg_iters,
+        rom_pcg_iters=rom_pcg_iters, rom_precision=tier,
     )
 
 
@@ -398,7 +529,7 @@ def _map_laplace(pipe: Pipeline, like: str, mk_misfit: Callable, data: torch.Ten
     posterior mode of sigma^2 at the MAP, so the Laplace factors are built
     there."""
     cfg = pipe.config.mcmc
-    fwd_d = pipe.batched_forward_fn(like, differentiable=True)
+    fwd_d = pipe.working_forward_fn(like, differentiable=True)
     with log.timer("map_laplace"):
         theta_map, nlp = find_map_multistart(mk_misfit(fwd_d), pipe.prior, gen, n_starts=8)
         sig_lap = cfg.noise_sigma
@@ -534,9 +665,8 @@ def run_inversion(
             "correction always accepts and each kept sample costs subchain + 1 evaluations of "
             "the same model. Set likelihood='fom' (the exact target) or use sampler='pcn'."
         )
-    fwd_b = pipe.batched_forward_fn(like)
+    fwd_b = pipe.working_forward_fn(like)
     dev = pipe.device
-    _set_online_precision(pipe.config.rom.online_precision)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(cfg.seed)
     theta_true, data = _observations(pipe, gen, theta_true, data)
 
@@ -552,7 +682,7 @@ def run_inversion(
     # the differentiable route (the MAP, the Laplace factors, the gradient
     # samplers, MALA subchains): adjoint solves, never a backward through
     # solver iterations
-    misfit_d = lambda lk=like: mk_misfit(pipe.batched_forward_fn(lk, differentiable=True))
+    misfit_d = lambda lk=like: mk_misfit(pipe.working_forward_fn(lk, differentiable=True))
     warm = (2 * _WARMUP_STEPS, _WARMUP_STEPS)
     grad_kw = dict(step=cfg.mala_step, thin=cfg.thin, n_leap=cfg.hmc_leap, jitter=cfg.hmc_jitter,
                    log=log)
@@ -620,7 +750,7 @@ def run_inversion(
         warm = _WARMUP_DA
         # MALA subchains need the coarse gradient; their beta is the initial h
         mala = cfg.da_inner == "mala"
-        misfit_c = misfit_d(cfg.da_coarse) if mala else mk_misfit(pipe.batched_forward_fn(cfg.da_coarse))
+        misfit_c = misfit_d(cfg.da_coarse) if mala else mk_misfit(pipe.working_forward_fn(cfg.da_coarse))
         da_beta = cfg.mala_step if mala else cfg.beta
         fom = like == "fom"
         if smp == "da_pcn":
@@ -720,7 +850,6 @@ def _approx_setup(pipe: Pipeline, generator, theta_true, data):
     contract of ``_observations``, from ``generator`` or cfg.seed."""
     cfg = pipe.config.mcmc
     gen = generator if generator is not None else torch.Generator(device=pipe.device).manual_seed(cfg.seed)
-    _set_online_precision(pipe.config.rom.online_precision)
     theta_true, data = _observations(pipe, gen, theta_true, data)
     return gen, theta_true, data
 
@@ -751,7 +880,7 @@ def run_eki_inversion(
     linear-Gaussian limit. Returns (EKIResult, theta_true, data,
     wall_seconds) and logs the "eki" event."""
     gen, theta_true, data = _approx_setup(pipe, generator, theta_true, data)
-    fwd_b = pipe.batched_forward_fn(likelihood)
+    fwd_b = pipe.working_forward_fn(likelihood)
     res, wall = _timed(pipe.device, lambda: run_eki(
         fwd_b, pipe.prior, data, pipe.config.mcmc.noise_sigma, _child(gen),
         n_ensemble=n_ensemble, ess_target=ess_target))
@@ -780,7 +909,7 @@ def run_vi_inversion(
     contract. Returns (VIResult, theta_true, data, wall_seconds) and logs
     the "vi" event."""
     gen, theta_true, data = _approx_setup(pipe, generator, theta_true, data)
-    misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood, differentiable=True), data,
+    misfit_b = gaussian_misfit(pipe.working_forward_fn(likelihood, differentiable=True), data,
                                pipe.config.mcmc.noise_sigma)
     res, wall = _timed(pipe.device, lambda: run_advi(
         misfit_b, pipe.prior, _child(gen), n_steps=n_steps, n_mc=n_mc, rank=rank, lr=lr))
@@ -812,7 +941,7 @@ def run_svgd_inversion(
     Returns (SVGDResult, theta_true, data, wall_seconds) and logs the
     "svgd" event."""
     gen, theta_true, data = _approx_setup(pipe, generator, theta_true, data)
-    misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood, differentiable=True), data,
+    misfit_b = gaussian_misfit(pipe.working_forward_fn(likelihood, differentiable=True), data,
                                pipe.config.mcmc.noise_sigma)
     res, wall = _timed(pipe.device, lambda: run_svgd(
         misfit_b, pipe.prior, _child(gen), n_particles=n_particles, n_steps=n_steps, lr=lr,
@@ -845,7 +974,7 @@ def psis_certify(
     cfg = pipe.config.mcmc
     gen = generator if generator is not None else torch.Generator(device=pipe.device).manual_seed(cfg.seed + 7)
     data = torch.as_tensor(data, dtype=pipe.prior.mean.dtype, device=pipe.device)
-    misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood), data, cfg.noise_sigma)
+    misfit_b = gaussian_misfit(pipe.working_forward_fn(likelihood), data, cfg.noise_sigma)
     res = psis_correct(misfit_b, pipe.prior, q_mean, q_chol, gen, n_draws=n_draws)
     if metrics is not None:
         metrics.log("psis", likelihood=likelihood, n_draws=n_draws, k_hat=res.k_hat, ess=res.ess,
@@ -897,7 +1026,7 @@ def run_smc_evidence(
     cfg = pipe.config.mcmc
     like = likelihood or cfg.likelihood
     gen, theta_true, data = _approx_setup(pipe, generator, theta_true, None)
-    fwd_b = pipe.batched_forward_fn(like)
+    fwd_b = pipe.working_forward_fn(like)
     if cfg.infer_noise:
         misfit_b = marginal_misfit(fwd_b, data, a0=2.0, b0=float(cfg.noise_sigma) ** 2)
     else:
@@ -971,7 +1100,7 @@ def run_flow_vi_inversion(
     the flow fitted to it by mass-covering maximum likelihood; no reverse-KL
     refinement unless n_steps > 0 (it re-collapses a covering fit).
     pretrain="none": annealed reverse-KL flow-VI (default 3,000 steps) on the
-    differentiable forward (``batched_forward_fn(..., differentiable=True)``),
+    differentiable forward (``working_forward_fn(..., differentiable=True)``),
     for unimodal targets. ``run_inversion``'s data contract: the observations
     come first from ``generator`` (default cfg.seed), the fit's draws from a
     child of it. Returns (FlowVIResult, theta_true, data, wall_seconds) and
@@ -980,8 +1109,8 @@ def run_flow_vi_inversion(
         raise ValueError(f"pretrain must be 'smc' or 'none', got {pretrain!r}")
     gen, theta_true, data = _approx_setup(pipe, generator, theta_true, data)
     noise = pipe.config.mcmc.noise_sigma
-    misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood), data, noise)
-    misfit_bd = gaussian_misfit(pipe.batched_forward_fn(likelihood, differentiable=True), data, noise)
+    misfit_b = gaussian_misfit(pipe.working_forward_fn(likelihood), data, noise)
+    misfit_bd = gaussian_misfit(pipe.working_forward_fn(likelihood, differentiable=True), data, noise)
     (res, n_stages), wall = _timed(pipe.device, lambda: flow_fit_pipeline(
         misfit_b, misfit_bd, pipe.prior, _child(gen), n_couplings=n_couplings, hidden=hidden,
         pretrain=pretrain, pretrain_particles=pretrain_particles, pretrain_steps=pretrain_steps,
@@ -1014,7 +1143,7 @@ def psis_certify_flow(
     cfg = pipe.config.mcmc
     gen = generator if generator is not None else torch.Generator(device=pipe.device).manual_seed(cfg.seed + 7)
     data = torch.as_tensor(data, dtype=pipe.prior.mean.dtype, device=pipe.device)
-    misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood), data, cfg.noise_sigma)
+    misfit_b = gaussian_misfit(pipe.working_forward_fn(likelihood), data, cfg.noise_sigma)
     res = flow_psis_certify(misfit_b, pipe.prior, flow_res, gen, n_draws=n_draws, base_scale=base_scale)
     if metrics is not None:
         metrics.log("psis_flow", likelihood=likelihood, n_draws=n_draws, base_scale=base_scale,
@@ -1051,7 +1180,7 @@ def run_neutra_inversion(
     data = torch.as_tensor(data, dtype=dtype, device=pipe.device)
     if theta_true is None:
         theta_true = pipe.prior.mean
-    misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood), data, cfg.noise_sigma)
+    misfit_b = gaussian_misfit(pipe.working_forward_fn(likelihood), data, cfg.noise_sigma)
     out, wall = _timed(pipe.device, lambda: run_neutra_pcn(
         flow_res, misfit_b, pipe.prior, gen, n_chains=n_chains, n_steps=n_steps, n_burn=n_burn,
         beta=beta, thin=thin))

@@ -62,9 +62,19 @@ distilled by maximum likelihood; ``--flow-pretrain none`` runs annealed
 reverse-KL flow-VI over ``--steps``), certifies it by PSIS through a base
 widened by ``--psis-widen`` and samples the exact posterior by
 flow-preconditioned pCN over ``--neutra`` steps (256 chains, half burn-in).
-Flags the port does not support yet (``mlda_pcn``, box priors, the bf16
-precision tiers, the greedy ROM basis) raise NotImplementedError naming
-their ROADMAP.md item.
+
+    python -m bayesianinferencedl_tpu_torch.cli surrogate --resolution 4 --out sur.npz
+
+builds the pipeline and checks the corrected model's autograd gradient
+against central differences (BASELINE config 4), printing the reference's
+keys; ``--out`` saves (MLP params, Ahat, V) in the JAX package's npz
+layout. ``pipeline`` is ``invert``. Every command that builds takes
+``--prior uniform|log_uniform`` with ``--prior-low`` / ``--prior-high`` (the
+box on k; samples live in the probit coordinates, the JSON reports log k)
+and ``--online-precision highest|high|fast`` (the reduced solves' tier: full
+fp32, bf16x3, one bf16 pass). Flags the port does not support yet
+(``mlda_pcn``, the greedy ROM basis) raise NotImplementedError naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -187,7 +197,8 @@ def cmd_rom(args) -> None:
 
 
 def _pipeline_config(args, mcmc):
-    """The PipelineConfig of ``invert`` and ``map`` from their flags."""
+    """The PipelineConfig of the building commands from their flags (the
+    reference's, with its ``_prior_config``)."""
     from bayesianinferencedl_tpu_torch.config import (
         FEMConfig, MeshConfig, PipelineConfig, PriorConfig, ROMConfig, SurrogateConfig,
     )
@@ -202,8 +213,51 @@ def _pipeline_config(args, mcmc):
         ),
         surrogate=SurrogateConfig(n_train=args.n_train, epochs=args.epochs, seed=args.seed),
         mcmc=mcmc,
-        prior=PriorConfig(mean=args.prior_mean, sigma=args.prior_sigma, dim=5, kind=args.prior),
+        prior=PriorConfig(mean=args.prior_mean, sigma=args.prior_sigma, dim=5, kind=args.prior,
+                          low=args.prior_low, high=args.prior_high),
     )
+
+
+def cmd_surrogate(args) -> None:
+    """BASELINE config 4: the build, then the corrected model's autograd
+    gradient of 0.5 ||G~(theta) - G~(0)||^2 at theta = 0.1 against central
+    differences (eps 1e-3 in float32, 1e-6 in float64)."""
+    from bayesianinferencedl_tpu_torch.api import build_pipeline
+    from bayesianinferencedl_tpu_torch.config import MCMCConfig
+    from bayesianinferencedl_tpu_torch.utils.checkpoint import save_checkpoint
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    log = MetricsLogger(args.metrics)
+    cfg = _pipeline_config(args, MCMCConfig())
+    dt = _dtype(args)
+    pipe = build_pipeline(cfg, device=args.device, dtype=dt, metrics=log)
+    corrected = lambda t: pipe.corrected(t[None], differentiable=True)[0]
+    theta0 = torch.zeros(5, dtype=dt, device=pipe.device)
+    with torch.no_grad():
+        d = corrected(theta0)
+    f = lambda t: 0.5 * torch.sum((corrected(t) - d) ** 2)
+    t = (theta0 + 0.1).requires_grad_(True)
+    (g,) = torch.autograd.grad(f(t), t)
+    eps = 1e-3 if args.dtype == "float32" else 1e-6
+    fd = []
+    with torch.no_grad():
+        for i in range(5):
+            e = torch.zeros(5, dtype=dt, device=pipe.device)
+            e[i] = eps
+            fd.append((float(f(theta0 + 0.1 + e)) - float(f(theta0 + 0.1 - e))) / (2 * eps))
+    fd = torch.tensor(fd, dtype=dt, device=pipe.device)
+    gd_err = float(torch.max(torch.abs(g - fd) / (torch.abs(g) + 1e-8)))
+    log.log("gradcheck", rel_err=gd_err)
+    if args.out:
+        # the reference's (params, Ahat, V) tuple, its leaves in that order
+        save_checkpoint(args.out, [a for W, b in pipe.surrogate.params for a in (W, b)]
+                        + [pipe.rom.Ahat, pipe.rom.V], meta=cfg.to_dict())
+    s = log.summary()
+    print(json.dumps({
+        "rom_rel_err": s["rom_rel_err"]["value"],
+        "corrected_rel_err": s["corrected_rel_err"]["value"],
+        "gradcheck_rel_err": gd_err,
+    }))
 
 
 def cmd_invert(args) -> None:
@@ -259,6 +313,10 @@ def cmd_invert(args) -> None:
     print(json.dumps(out))
 
 
+def cmd_pipeline(args) -> None:
+    cmd_invert(args)
+
+
 def cmd_map(args) -> None:
     """Deterministic inversion: the MAP point and the Laplace approximation's
     standard deviations (the reference's ``map``)."""
@@ -279,11 +337,12 @@ def cmd_map(args) -> None:
     dev, dt = pipe.device, _dtype(args)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     # working coordinates: log k under the gaussian prior (to_theta is the
-    # identity), as in run_inversion
+    # identity), z under a box prior; the forward composes to_theta, as in
+    # run_inversion
     x_true = pipe.prior.sample(gen)
     data = pipe.fin.forward(torch.exp(pipe.prior.to_theta(x_true)))
     data = data + args.noise * torch.randn(data.shape, generator=gen, dtype=dt, device=dev)
-    fwd = pipe.batched_forward_fn(args.likelihood, differentiable=True)
+    fwd = pipe.working_forward_fn(args.likelihood, differentiable=True)
     b0 = float(args.noise) ** 2
     if args.infer_noise:  # the MAP of the sigma-marginal potential
         misfit = marginal_misfit(fwd, data, a0=2.0, b0=b0)
@@ -540,41 +599,21 @@ def _add_build(p: argparse.ArgumentParser) -> None:
     p.add_argument("--metrics", type=str, default=None, help="JSONL metrics path")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--prior", choices=["gaussian", "uniform", "log_uniform"], default="gaussian")
+    p.add_argument("--prior-low", type=float, default=0.1, help="box prior lower bound on k")
+    p.add_argument("--prior-high", type=float, default=10.0, help="box prior upper bound on k")
     p.add_argument("--prior-mean", type=float, default=0.0, help="gaussian prior mean of log k")
     p.add_argument("--prior-sigma", type=float, default=0.6, help="gaussian prior sd of log k")
     p.add_argument("--n-snapshots", type=int, default=256)
     p.add_argument("--r", type=int, default=40)
     p.add_argument("--n-train", type=int, default=1024)
     p.add_argument("--epochs", type=int, default=300)
-    p.add_argument("--online-precision", choices=["highest", "high", "fast"], default="highest")
+    p.add_argument("--online-precision", choices=["highest", "high", "fast"], default="highest",
+                   help="the reduced solves' matmul tier: full fp32, bf16x3 (high) or one bf16 "
+                        "pass (fast); the surrogate is trained on the same tier")
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(prog="bayesianinferencedl_tpu_torch")
-    sub = ap.add_subparsers(dest="cmd", required=True)
-
-    p = sub.add_parser("fom", help="config 1: single FOM solve")
-    _add_common(p)
-    p.add_argument("--k", type=float, nargs=5, default=[1.0, 1.0, 1.0, 1.0, 1.0])
-    p.add_argument("--save-obs", type=str, default=None,
-                   help="write the QoI vector as an observation npz for `invert --data`")
-    p.set_defaults(fn=cmd_fom)
-
-    p = sub.add_parser("snapshots", help="config 2: batched FOM solves")
-    _add_common(p)
-    p.add_argument("--n", type=int, default=256)
-    p.add_argument("--out", type=str, default=None)
-    p.set_defaults(fn=cmd_snapshots)
-
-    p = sub.add_parser("rom", help="config 3: reduced basis + rel-err")
-    _add_common(p)
-    p.add_argument("--n-snapshots", type=int, default=256)
-    p.add_argument("--r", type=int, default=40)
-    p.add_argument("--method", choices=["pod", "greedy"], default="pod")
-    p.add_argument("--out", type=str, default=None)
-    p.set_defaults(fn=cmd_rom)
-
-    p = sub.add_parser("invert", help="offline build + pCN inversion")
+def _add_invert(p: argparse.ArgumentParser) -> None:
+    """The flags of ``invert`` (and ``pipeline``)."""
     _add_build(p)
     p.add_argument("--chains", type=int, default=1024)
     p.add_argument("--steps", type=int, default=10_000)
@@ -611,7 +650,44 @@ def main(argv=None) -> None:
     p.add_argument("--init", choices=["prior", "eki", "vi"], default="prior",
                    help="chain starts: prior draws, an EKI ensemble (~10 batched forwards) or "
                         "draws from a short full-rank ADVI fit; unimodal posteriors only")
-    p.set_defaults(fn=cmd_invert)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="bayesianinferencedl_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("fom", help="config 1: single FOM solve")
+    _add_common(p)
+    p.add_argument("--k", type=float, nargs=5, default=[1.0, 1.0, 1.0, 1.0, 1.0])
+    p.add_argument("--save-obs", type=str, default=None,
+                   help="write the QoI vector as an observation npz for `invert --data`")
+    p.set_defaults(fn=cmd_fom)
+
+    p = sub.add_parser("snapshots", help="config 2: batched FOM solves")
+    _add_common(p)
+    p.add_argument("--n", type=int, default=256)
+    p.add_argument("--out", type=str, default=None)
+    p.set_defaults(fn=cmd_snapshots)
+
+    p = sub.add_parser("rom", help="config 3: reduced basis + rel-err")
+    _add_common(p)
+    p.add_argument("--n-snapshots", type=int, default=256)
+    p.add_argument("--r", type=int, default=40)
+    p.add_argument("--method", choices=["pod", "greedy"], default="pod")
+    p.add_argument("--out", type=str, default=None)
+    p.set_defaults(fn=cmd_rom)
+
+    p = sub.add_parser("surrogate", help="config 4: build + the corrected model's gradient check")
+    _add_build(p)
+    p.add_argument("--out", type=str, default=None,
+                   help="save (MLP params, Ahat, V) as an npz in the JAX package's layout")
+    p.set_defaults(fn=cmd_surrogate)
+
+    for name, fn, help_ in (("invert", cmd_invert, "offline build + pCN inversion"),
+                            ("pipeline", cmd_pipeline, "invert, under the reference's other name")):
+        p = sub.add_parser(name, help=help_)
+        _add_invert(p)
+        p.set_defaults(fn=fn)
 
     p = sub.add_parser("map", help="MAP point + Laplace credible intervals")
     _add_build(p)

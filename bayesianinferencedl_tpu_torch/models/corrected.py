@@ -12,10 +12,12 @@ from bayesianinferencedl_tpu_torch.rom.galerkin import ReducedOperator
 
 class CorrectedForward(NamedTuple):
     """Batched callable: log_k (C, 5) -> y_ROM(exp(log_k)) + e_hat(log_k),
-    with the Cholesky reduced solve (the reference form)."""
+    with the Cholesky reduced solve (the reference form); differentiable=True
+    keeps the surrogate's graph (the ROM term is differentiable always)."""
 
     rom: ReducedOperator
     surrogate: TrainedSurrogate
 
-    def __call__(self, log_ks: torch.Tensor) -> torch.Tensor:
-        return self.rom.forward(torch.exp(log_ks)) + self.surrogate.predict(log_ks)
+    def __call__(self, log_ks: torch.Tensor, *, differentiable: bool = False) -> torch.Tensor:
+        return (self.rom.forward(torch.exp(log_ks))
+                + self.surrogate.predict(log_ks, differentiable=differentiable))

@@ -14,7 +14,13 @@ import numpy as np
 import torch
 
 from bayesianinferencedl_tpu_torch.utils.device import resolve_device
-from bayesianinferencedl_tpu_torch.utils.precision import fp32_matmul
+from bayesianinferencedl_tpu_torch.utils.precision import (
+    TierOperand,
+    check_tier,
+    fp32_matmul,
+    tier_matmul,
+    tier_operand,
+)
 
 
 @dataclass(frozen=True)
@@ -83,64 +89,79 @@ class ReducedOperator:
         A = np.tensordot(k_ref, Ahat, axes=1) + self.biot * Mhat
         return torch.as_tensor(np.linalg.inv(A), dtype=self.Ahat.dtype, device=self.Ahat.device)
 
-    def _pcg_operands(self, ks: torch.Tensor):
-        """The reduced operator at ks (C, 5) as the PCG applies it:
-        (amat, AT, w) with amat(p) = A(k) p for the whole batch, one
-        (C, r) @ (r, 6r) matmul against AT = [Ahat_1^T .. Ahat_5^T | Mhat^T]
-        plus a weighted sum with the weights w (C, 6) = [k | biot]."""
+    def _pcg_operands(self, ks: torch.Tensor, precision: str = "highest"):
+        """The reduced operator at ks (C, 5) as the PCG applies it at the
+        online tier ``precision`` (``utils.precision``): (amat, AT) with
+        amat(p) = A(k) p for the whole batch, one (C, r) @ (r, 6r) tier
+        product against AT = [Ahat_1^T .. Ahat_5^T | Mhat^T] plus a float32
+        sum weighted by w (C, 6) = [k | biot]. The reference issues the same
+        work as three products at its tier (p with k, the (5, r, r)
+        contraction, Mhat p); here only the product with the operator takes
+        the tier and the k-weighting stays float32."""
         C, r = ks.shape[0], self.r
         stack = torch.cat([self.Ahat, self.Mhat[None]], 0)  # (6, r, r)
-        AT = stack.transpose(1, 2).permute(1, 0, 2).reshape(r, -1)  # (r, 6r)
+        AT = tier_operand(stack.transpose(1, 2).permute(1, 0, 2).reshape(r, -1), precision)  # (r, 6r)
         w = torch.cat([ks, torch.full_like(ks[:, :1], self.biot)], 1)[:, :, None]  # (C, 6, 1)
 
         def amat(p):
-            return torch.sum(w * (p @ AT).view(C, -1, r), 1)
+            return torch.sum(w * tier_matmul(p, AT).view(C, -1, r), 1)
 
         return amat, AT
 
-    def solve_pcg(self, ks: torch.Tensor, P0: torch.Tensor, n_iters: int = 25) -> torch.Tensor:
+    def solve_pcg(self, ks: torch.Tensor, P0: torch.Tensor, n_iters: int = 25,
+                  precision: str = "highest") -> torch.Tensor:
         """Reduced solves by preconditioned CG with a FIXED iteration count:
         (C, 5) -> (C, r). No factorisation: A(k) p for the whole batch is one
         (C, r) @ (r, 6r) matmul against [Ahat_1^T .. Ahat_5^T | Mhat^T] plus
         a weighted sum, and the preconditioner is one (C, r) @ (r, r)
-        matmul. Not differentiable through the solve: ``solve_pcg_diff``
-        is."""
+        matmul; both products run at the tier ``precision`` ("highest",
+        "high" or "fast", ``utils.precision.tier_matmul``), the inner
+        products in float32. Not differentiable through the solve:
+        ``solve_pcg_diff`` is."""
         ks = self._k(ks)
-        amat, _ = self._pcg_operands(ks)
+        amat, _ = self._pcg_operands(ks, precision)
         with fp32_matmul():
-            return _fixed_pcg(amat, P0, self.Fhat.expand(ks.shape[0], self.r), n_iters)
+            return _fixed_pcg(amat, tier_operand(P0.T, precision), self.Fhat.expand(ks.shape[0], self.r),
+                              n_iters)
 
-    def solve_pcg_diff(self, ks: torch.Tensor, P0: torch.Tensor, n_iters: int = 25) -> torch.Tensor:
+    def solve_pcg_diff(self, ks: torch.Tensor, P0: torch.Tensor, n_iters: int = 25,
+                       precision: str = "highest") -> torch.Tensor:
         """``solve_pcg``, differentiable in ks by implicit differentiation
         (``_ReducedSolve``): the same forward values, and every derivative,
-        of any order, a further run of the same fixed-iteration PCG."""
+        of any order, a further run of the same fixed-iteration PCG at the
+        same tier."""
         ks = self._k(ks)
-        return _ReducedSolve.apply(ks, self.Fhat.expand(ks.shape[0], self.r), self, P0, n_iters)
+        return _ReducedSolve.apply(ks, self.Fhat.expand(ks.shape[0], self.r), self, P0, n_iters,
+                                   precision)
 
-    def fast_forward(self, P0: torch.Tensor, n_iters: int = 25, *, differentiable: bool = False):
-        """(C, 5) -> (C, n_obs) via :meth:`solve_pcg`; the likelihood kernel
-        of the chain hot loop. differentiable=True goes through
+    def fast_forward(self, P0: torch.Tensor, n_iters: int = 25, precision: str = "highest", *,
+                     differentiable: bool = False):
+        """(C, 5) -> (C, n_obs) via :meth:`solve_pcg` at the tier
+        ``precision``; the likelihood kernel of the chain hot loop. The
+        observation product with Bhat stays full fp32 at every tier, as the
+        reference pins it. differentiable=True goes through
         :meth:`solve_pcg_diff` (the gradient samplers, the MAP and the
         Laplace Jacobian)."""
+        check_tier(precision)
         solve = self.solve_pcg_diff if differentiable else self.solve_pcg
 
         def f(ks):
-            x = solve(ks, P0, n_iters)
+            x = solve(ks, P0, n_iters, precision)
             with fp32_matmul():
                 return x @ self.Bhat.T
 
         return f
 
 
-def _fixed_pcg(amat, P0: torch.Tensor, b: torch.Tensor, n_iters: int) -> torch.Tensor:
+def _fixed_pcg(amat, P0T: TierOperand, b: torch.Tensor, n_iters: int) -> torch.Tensor:
     """x ~ A^-1 b for a batch b (C, r) by preconditioned CG with the fixed
-    preconditioner P0, warm-started at P0 b, ``n_iters`` iterations; the
-    loop of the reference's ``pcg_solve``, with its zero guards."""
+    preconditioner P0 (given as P0^T prepared for ``tier_matmul``),
+    warm-started at P0 b, ``n_iters`` iterations; the loop of the
+    reference's ``pcg_solve``, with its zero guards."""
 
-    P0T = P0.T
-    x = b @ P0T  # warm start: P0 b is already close
+    x = tier_matmul(b, P0T)  # warm start: P0 b is already close
     res = b - amat(x)
-    z = res @ P0T
+    z = tier_matmul(res, P0T)
     p = z
     rz = torch.sum(res * z, -1)
     for _ in range(n_iters):
@@ -149,7 +170,7 @@ def _fixed_pcg(amat, P0: torch.Tensor, b: torch.Tensor, n_iters: int) -> torch.T
         alpha = (rz / torch.where(pAp != 0, pAp, 1.0))[:, None]
         x = x + alpha * p
         res = res - alpha * Ap
-        z = res @ P0T
+        z = tier_matmul(res, P0T)
         rz_new = torch.sum(res * z, -1)
         p = z + (rz_new / torch.where(rz != 0, rz, 1.0))[:, None] * p
         rz = rz_new
@@ -159,32 +180,33 @@ def _fixed_pcg(amat, P0: torch.Tensor, b: torch.Tensor, n_iters: int) -> torch.T
 class _ReducedSolve(torch.autograd.Function):
     """x = A(k)^-1 b by ``_fixed_pcg``, differentiable in k and b the way
     ``lax.custom_linear_solve(symmetric=True)`` is: the backward solves
-    A(k) lam = g with the same PCG (A is symmetric) and returns grad_b = lam
-    and grad_k_i = -lam . (Ahat_i x); it never backpropagates through the
+    A(k) lam = g with the same PCG at the same tier (A is symmetric) and
+    returns grad_b = lam and grad_k_i = -lam . (Ahat_i x), Ahat_i x a product
+    at that tier too; it never backpropagates through the
     iterations, whose reverse pass gives other gradients, and 0/0 once the
     residuals go denormal. The backward is written in differentiable ops
     and calls the Function again, so a second backward works (the full
     Hessian of ``infer.map.laplace_approximation``)."""
 
     @staticmethod
-    def forward(ctx, ks, b, rom, P0, n_iters):
-        amat, _ = rom._pcg_operands(ks)
+    def forward(ctx, ks, b, rom, P0, n_iters, precision):
+        amat, _ = rom._pcg_operands(ks, precision)
         with fp32_matmul():
-            x = _fixed_pcg(amat, P0, b, n_iters)
+            x = _fixed_pcg(amat, tier_operand(P0.T, precision), b, n_iters)
         ctx.save_for_backward(ks, x)
-        ctx.rom, ctx.P0, ctx.n_iters = rom, P0, n_iters
+        ctx.rom, ctx.P0, ctx.n_iters, ctx.precision = rom, P0, n_iters, precision
         return x
 
     @staticmethod
     def backward(ctx, g):
         ks, x = ctx.saved_tensors
         rom = ctx.rom
-        lam = _ReducedSolve.apply(ks, g, rom, ctx.P0, ctx.n_iters)
+        lam = _ReducedSolve.apply(ks, g, rom, ctx.P0, ctx.n_iters, ctx.precision)
         grad_k = None
         if ctx.needs_input_grad[0]:
-            _, AT = rom._pcg_operands(ks)
+            _, AT = rom._pcg_operands(ks, ctx.precision)
             C, r = x.shape
             with fp32_matmul():
-                Ax = (x @ AT).view(C, -1, r)[:, : ks.shape[1]]  # (C, 5, r): Ahat_i x
+                Ax = tier_matmul(x, AT).view(C, -1, r)[:, : ks.shape[1]]  # (C, 5, r): Ahat_i x
             grad_k = -torch.sum(lam[:, None, :] * Ax, -1)
-        return grad_k, lam, None, None, None
+        return grad_k, lam, None, None, None, None

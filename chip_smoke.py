@@ -308,6 +308,20 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               NeuTra mode-crossing cases at their sizes and tolerances, (h)'s
               gate printed, not enforced (the reference fails it on 4 of 26
               seeds)
+ 15. P15      persistence, the online tiers, box priors and resumable chains
+              (phase_persist_precision's docstring holds the gates): (a) the
+              bf16x3 ("high") and bf16 ("fast") products at C = 4,096, r =
+              40 against their plain versions and float64; (b) build_pipeline
+              at "high" with phase 3's config, pcn on phase 3's data against
+              phase 3's pcn (5 MCSE, sds 10%) and the headline pt_pcn on
+              phase 11 (b)'s data under phase 11's ladder and swap gates; (c)
+              a "fast" build and pcn run, printed; (d) Pipeline.save / load on
+              the card, the rom_nn forward bit-identical and the tier kept;
+              (e) a log_uniform [0.1, 10] box prior on phase 6's build and
+              data, pcn on rom_nn and da_pcn on fom (K3r one launch an outer
+              step, every kept log k inside the box, the two means within one
+              pcn sd); (f) run_pt_checkpointed and run_da_checkpointed stopped
+              half-way and resumed, bit-identical to uninterrupted runs
 
 The last three lines are the kernel summary (JSON: time, launches, bound,
 plain time of each kernel), the nvidia-smi line, and
@@ -691,7 +705,7 @@ def phase_slice():
         fail(f"training-set corrected error {corr_tr:.4e} not below ROM error {rom_tr:.4e}")
     if not 0.05 < acc < 0.9:
         fail(f"accept rate {acc:.3f} outside (0.05, 0.9)")
-    return n_main, cfg, pipe, inv
+    return n_main, cfg, pipe, inv, s
 
 
 K2_SEED = 1234
@@ -3140,6 +3154,285 @@ def phase_flow(pipe4, inv4, inv_head):
     return k3r
 
 
+# phase 15: persistence, the online tiers, box priors and resumable chains
+P15_SHAPE = (4096, 40)  # (a): the headline's chains of one level x r
+P15_PCN = dict(n_steps=2000, n_burn=500)  # (b1): phase 3's cell, cut from 4,000 / 1,000 for the time limit
+P15_FAST = dict(n_steps=1000, n_burn=300)  # (c): a short pcn run on the fast build
+P15_BOX_PCN = dict(n_chains=1024, n_steps=1000, n_burn=300)  # (e): pcn on rom_nn
+P15_BOX_DA = dict(n_chains=1024, n_steps=12, n_burn=4, subchain=64)  # (e): da_pcn on fom
+# (f): each stopped at a segment boundary half-way, after its burn-in
+P15_PT = dict(n_steps=200, n_burn=50, segment=50, n_temps=4, lambda_min=0.05)  # 1,024 x 4, rom_nn
+P15_DA = dict(n_steps=6, n_burn=2, segment=3, subchain=64)  # res8, 1,024 chains
+P15_PRODUCT_GATE = {"high": 1e-6, "fast": 1e-5}  # (a): card vs plain, relative
+P15_REF_HOLDOUT = (5.7e-5, 1.5e-5)  # docs/DESIGN.md section 4: "high" corrected, "highest" corrected (TPU)
+P15_THETA_SLACK = 1e-6  # (e): float32 rounding of to_theta at the box's edges
+
+
+def _p15_products(pipe4):
+    """(a): the tier products at the chain step's shapes, each against its
+    plain version on the card and against float64."""
+    import torch
+
+    from bayesianinferencedl_tpu_torch.utils import precision as P
+
+    rom = pipe4.rom
+    C, r = P15_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(15)
+    p = torch.randn((C, r), generator=g, device="cuda")
+    stack = torch.cat([rom.Ahat, rom.Mhat[None]], 0)
+    AT = stack.transpose(1, 2).permute(1, 0, 2).reshape(r, -1).contiguous()  # (r, 6r)
+    for tag, b in (("operator (r, 6r)", AT), ("P0^T (r, r)", pipe4.P0.T.contiguous())):
+        exact = p.double() @ b.double()
+        nrm = torch.linalg.norm(exact)
+        with P.fp32_matmul():
+            e32 = float(torch.linalg.norm((p @ b).double() - exact) / nrm)
+        line = [f"highest err vs f64 {e32:.3e}"]
+        for tier in ("high", "fast"):
+            op = P.tier_operand(b, tier)
+            left = P._left(p, tier)
+            card = P.tier_matmul(p, op)
+            plain = P.bf16_mm_plain(left, op.mat, torch.float32)
+            rel = float(torch.linalg.norm((card - plain).double()) / torch.linalg.norm(plain.double()))
+            err = float(torch.linalg.norm(card.double() - exact) / nrm)
+            ms = _time_ms(lambda: P.tier_matmul(p, op), 20)
+            ms_plain = _time_ms(lambda: P.bf16_mm_plain(P._left(p, tier), op.mat, torch.float32), 20)
+            line.append(f"{tier}: card vs plain {rel:.3e} (gate {P15_PRODUCT_GATE[tier]:g}), err vs f64 "
+                        f"{err:.3e}, {ms * 1e3:.1f} us (plain {ms_plain * 1e3:.1f} us)")
+            if not rel <= P15_PRODUCT_GATE[tier]:
+                fail(f"(a) {tier} product {tag}: card vs plain {rel:.3e} above {P15_PRODUCT_GATE[tier]:g}")
+        say("P15", f"(a) {C} x {tag}: " + "; ".join(line))
+
+
+def phase_persist_precision(pipe4, inv4, slice_log, inv_head, pipe8, inv8):
+    """Phase 15: the online tiers (the bf16x3 and bf16 products, builds and
+    chains at "high" and "fast"), Pipeline.save / load, box priors through
+    run_inversion and the checkpointed runners' resume, on the card.
+
+    (a) the tier products at C = 4,096, r = 40 against their plain versions
+    (relative difference <= 1e-6 for "high", <= 1e-5 for "fast") and
+    float64 (printed). (b) build_pipeline at "high" with phase 3's config:
+    the holdout errors printed beside phase 3's and the reference's TPU
+    figures; (b1) pcn on phase 3's data and cell, its means within 5 MCSE
+    of phase 3's pcn and its sds within 10% (2,000 steps, 500 burn-in, cut
+    from phase 3's 4,000 / 1,000 for the time limit); (b2) the headline pt_pcn on
+    phase 11 (b)'s data and steps, under phase 11's ladder and swap gates,
+    us a step, split-R-hat and log Z printed beside phase 11 (b)'s. (c) a
+    "fast" build and a short pcn run, printed only. (d) (b)'s pipeline saved
+    and loaded on the card: the rom_nn batched forward bit-identical, the
+    tier "high". (e) a log_uniform [0.1, 10] box prior on phase 6's res8
+    build and data: pcn on rom_nn and da_pcn on fom (its subchains from
+    pcn's mean adapted step) through run_inversion;
+    pcn's accept and da_pcn's inner accept in (0.05, 0.9), da_pcn's outer
+    above 0.6, K3r one launch an outer step (the timed run's outer steps and
+    segment starts, the warm-up's 3, the audit's and the PPC's 1 each),
+    every kept to_theta(z) inside [log 0.1, log 10] (1e-6 of rounding), the
+    two runs' means of log k within one pcn sd. (f) run_pt_checkpointed
+    (1,024 x 4, rom_nn, phase 3's data) and run_da_checkpointed (res8,
+    1,024 chains, phase 6's data), each stopped at its midpoint and resumed:
+    samples, final state and accept accounting bit-identical to an
+    uninterrupted run from the same generator state. Returns K3r's launches
+    over the phase."""
+    import dataclasses
+    import functools
+    import os
+    import shutil
+
+    import torch
+
+    from bayesianinferencedl_tpu_torch.api import (
+        Pipeline, build_pipeline, run_da_checkpointed, run_inversion, run_pt_checkpointed,
+    )
+    from bayesianinferencedl_tpu_torch.config import PriorConfig
+    from bayesianinferencedl_tpu_torch.infer.pcn import gaussian_misfit
+    from bayesianinferencedl_tpu_torch.infer.priors import BoxPrior
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    t_phase = time.perf_counter()
+    k3r = 0
+
+    def counted(fn):
+        """fn() with every FOM kernel's count set to 0 just before and read just after."""
+        K.launches = K.tile_launches = K.tile_mma_launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        if K.launches or K.tile_launches:
+            fail(f"K1 {K.launches} / K3 {K.tile_launches} launches where K3r carries the fom solves")
+        return out, K.tile_mma_launches
+
+    _p15_products(pipe4)
+
+    # (b) the "high" build: phase 3's config at the other tier
+    def tier_build(tier):
+        cfg = pipe4.config
+        cfg = dataclasses.replace(cfg, rom=dataclasses.replace(cfg.rom, online_precision=tier))
+        log = MetricsLogger()
+        t0 = time.perf_counter()
+        pipe, n = counted(lambda: build_pipeline(cfg, device="cuda", metrics=log))
+        return pipe, log.summary(), time.perf_counter() - t0, n
+
+    pipe_h, s_h, build_s, n = tier_build("high")
+    k3r += n
+    hold, hold3 = s_h["holdout_rel_err"], slice_log["holdout_rel_err"]
+    say("P15", f"(b) build_pipeline at \"high\": {build_s:.2f} s, K3r {n}, rom_pcg_iters "
+        f"{pipe_h.rom_pcg_iters}; holdout rom {hold['rom']:.4e} corrected {hold['corrected']:.4e}; "
+        f"phase 3's \"highest\" rom {hold3['rom']:.4e} corrected {hold3['corrected']:.4e}; the "
+        f"reference's TPU figures (docs/DESIGN.md 4, for comparison, not targets): corrected "
+        f"{P15_REF_HOLDOUT[0]:g} at high, {P15_REF_HOLDOUT[1]:g} at highest")
+    if pipe_h.rom_precision != "high":
+        fail(f"(b): the build reports the tier {pipe_h.rom_precision!r}")
+    if n < 3:
+        fail(f"(b): K3r made {n} launches in the build (expected >= 3)")
+
+    # (b1) pcn on phase 3's cell and data
+    inv_h, n = counted(lambda: run_inversion(_with_mcmc(pipe_h, **P15_PCN), data=inv4.data,
+                                             theta_true=inv4.theta_true))
+    k3r += n
+    res_h = inv_h.result
+    means, sds, z, sd_rel, rhats = _posterior_z(res_h.samples, inv4.result.samples)
+    acc_h, mc = float(res_h.accept_rate.mean()), pipe4.config.mcmc
+    say("P15", f"(b1) pcn rom_nn at high, {mc.n_chains} chains x {P15_PCN['n_steps']} steps "
+        f"({P15_PCN['n_burn']} burn-in): {inv_h.wall_seconds:.3f} s, "
+        f"{inv_h.wall_seconds / P15_PCN['n_steps'] * 1e6:.1f} us/step (phase 3 at highest "
+        f"{inv4.wall_seconds / mc.n_steps * 1e6:.1f}); accept {acc_h:.4f} vs "
+        f"{float(inv4.result.accept_rate.mean()):.4f}; |diff| / MCSE {np.round(z, 2).tolist()}; sd "
+        f"rel diff {np.round(sd_rel, 4).tolist()}; split-rhat {rhats[0]:.4f} vs {rhats[1]:.4f}")
+    if not torch.isfinite(res_h.samples).all():
+        fail("(b1): non-finite samples")
+    if z.max() > K2_MEAN_GATE:
+        fail(f"(b1): means {z.max():.2f} Monte-Carlo errors from phase 3's")
+    if sd_rel.max() > K2_SD_GATE:
+        fail(f"(b1): sd {100 * sd_rel.max():.1f}% from phase 3's")
+
+    # (b2) the headline pt_pcn on the "high" build, phase 11 (b)'s data and steps
+    head = _with_mcmc(pipe_h, sampler="pt_pcn", adapt_ladder=True, **PT_HEAD)
+    inv_b2, n = counted(lambda: run_inversion(head, data=inv_head.data, theta_true=inv_head.theta_true))
+    k3r += n
+    lam_b2, swap_b2 = _pt_gates("(b2)", inv_b2)
+    us, us_11 = (inv.wall_seconds / PT_HEAD["n_steps"] * 1e6 for inv in (inv_b2, inv_head))
+    say("P15", f"(b2) headline pt_pcn at high, {PT_HEAD['n_chains']} x {PT_HEAD['n_temps']}, "
+        f"{PT_HEAD['n_steps']} steps: {us:.1f} us/step vs phase 11 (b)'s {us_11:.1f} ({us_11 / us:.3f}x); "
+        f"split-rhat {float(inv_b2.rhat.max()):.4f} vs {float(inv_head.rhat.max()):.4f}; log Z "
+        f"{inv_b2.log_evidence:.4f} +- {inv_b2.log_evidence_std:.4f} vs {inv_head.log_evidence:.4f} +- "
+        f"{inv_head.log_evidence_std:.4f}; swap rates {np.round(swap_b2, 4).tolist()}; mean ladder "
+        f"{np.round(lam_b2, 5).tolist()}")
+
+    # (c) the "fast" tier: a build and a short pcn run, printed only
+    pipe_f, s_f, build_s, n = tier_build("fast")
+    k3r += n
+    inv_f, n = counted(lambda: run_inversion(_with_mcmc(pipe_f, **P15_FAST), data=inv4.data,
+                                             theta_true=inv4.theta_true))
+    k3r += n
+    means, _, z, sd_rel, _ = _posterior_z(inv_f.result.samples, inv4.result.samples)
+    say("P15", f"(c) fast: build {build_s:.2f} s, holdout rom {s_f['holdout_rel_err']['rom']:.4e} corrected "
+        f"{s_f['holdout_rel_err']['corrected']:.4e}; pcn {P15_FAST['n_steps']} steps "
+        f"{inv_f.wall_seconds / P15_FAST['n_steps'] * 1e6:.1f} us/step, accept "
+        f"{float(inv_f.result.accept_rate.mean()):.4f}; |diff| / MCSE vs phase 3 {np.round(z, 2).tolist()}, "
+        f"sd rel diff {np.round(sd_rel, 4).tolist()} (printed, not gated)")
+
+    # (d) save and load (b)'s pipeline on the card
+    root = os.path.join("build", "smoke_p15")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    path = os.path.join(root, "pipe_high.npz")
+    pipe_h.save(path)
+    loaded = Pipeline.load(path, device="cuda")
+    th = torch.randn((1024, 5), generator=torch.Generator(device="cuda").manual_seed(16), device="cuda") * 0.6
+    y0, y1 = pipe_h.batched_forward_fn("rom_nn")(th), loaded.batched_forward_fn("rom_nn")(th)
+    same = bool(torch.equal(y0, y1))
+    say("P15", f"(d) save / load: {os.path.getsize(path)} B; loaded tier {loaded.rom_precision!r}; rom_nn "
+        f"forward at 1,024 points bit-identical: {same}")
+    if not same or loaded.rom_precision != "high":
+        fail("(d): the loaded pipeline's forward or tier differs")
+
+    # (e) the log_uniform box prior on phase 6's build and data
+    box = BoxPrior.create(5, low=0.1, high=10.0, kind="log_uniform", device="cuda")
+    pipe_box = dataclasses.replace(pipe8, prior=box, config=dataclasses.replace(
+        pipe8.config, prior=PriorConfig(kind="log_uniform", low=0.1, high=10.0)))
+    lo, hi = np.log(0.1), np.log(10.0)
+
+    def box_run(tag, **mcmc):
+        inv, n = counted(lambda: run_inversion(_with_mcmc(pipe_box, **mcmc), data=inv8.data))
+        th = box.to_theta(inv.result.samples).double()
+        if not torch.isfinite(th).all():
+            fail(f"(e) {tag}: non-finite samples")
+        t_lo, t_hi = float(th.min()), float(th.max())
+        if t_lo < lo - P15_THETA_SLACK or t_hi > hi + P15_THETA_SLACK:
+            fail(f"(e) {tag}: kept theta in [{t_lo:.6f}, {t_hi:.6f}], outside [log 0.1, log 10]")
+        return inv, n, th, (t_lo, t_hi)
+
+    inv_p, n_p, th_p, rng_p = box_run("pcn", sampler="pcn", likelihood="rom_nn", **P15_BOX_PCN)
+    k3r += n_p
+    acc_p, beta_p = float(inv_p.result.accept_rate.mean()), float(inv_p.result.beta.mean())
+    # the subchains start from pcn's adapted step: in z the posterior is several times
+    # narrower against the prior than in log k, and 4 burn-in outer steps adapt little
+    inv_d, n_d, th_d, rng_d = box_run("da_pcn", sampler="da_pcn", likelihood="fom", da_coarse="rom_nn",
+                                      beta=beta_p, **P15_BOX_DA)
+    k3r += n_d
+    res_d = inv_d.result
+    outer, inner = float(res_d.accept_rate.mean()), float(res_d.inner_accept_rate.mean())
+    steps = P15_BOX_DA["n_steps"]
+    want = steps + -(-steps // 64) + 3 + 2
+    sd_p = th_p.reshape(-1, 5).std(0)
+    err = ((th_p.mean(dim=(0, 1)) - th_d.mean(dim=(0, 1))).abs() / sd_p).cpu().numpy()
+    say("P15", f"(e) box log_uniform [0.1, 10]: pcn rom_nn {P15_BOX_PCN['n_chains']} x "
+        f"{P15_BOX_PCN['n_steps']}: accept {acc_p:.4f}, adapted beta {beta_p:.4f}, K3r {n_p}, theta in [{rng_p[0]:.4f}, {rng_p[1]:.4f}]; "
+        f"da_pcn fom {steps} outer steps: outer {outer:.4f}, inner {inner:.4f}, "
+        f"{inv_d.wall_seconds / steps * 1e3:.1f} ms an outer step, K3r {n_d} (outer steps + segments + "
+        f"warm-up 3 + audit and PPC 2 = {want}), theta in [{rng_d[0]:.4f}, {rng_d[1]:.4f}]; means of "
+        f"log k pcn {np.round(th_p.mean(dim=(0, 1)).cpu().numpy(), 4).tolist()} da "
+        f"{np.round(th_d.mean(dim=(0, 1)).cpu().numpy(), 4).tolist()}, |diff| / pcn sd "
+        f"{np.round(err, 3).tolist()}; truth {np.round(inv8.theta_true.cpu().numpy(), 4).tolist()}")
+    if not 0.05 < acc_p < 0.9:
+        fail(f"(e): pcn accept {acc_p:.4f} outside (0.05, 0.9)")
+    if not (0.05 < inner < 0.9 and outer > 0.6):
+        fail(f"(e): da_pcn inner accept {inner:.4f} outside (0.05, 0.9) or outer {outer:.4f} not above 0.6")
+    if n_p:
+        fail(f"(e): pcn on rom_nn made {n_p} K3r launches (data given: none expected)")
+    if n_d != want:
+        fail(f"(e): da_pcn on fom made {n_d} K3r launches, not one an outer step ({want})")
+    if not np.all(err <= 1.0):
+        fail(f"(e): the two runs' means of log k {err.max():.3f} pcn sds apart")
+
+    # (f) resume: each run stopped at its midpoint, then resumed
+    def resume_check(tag, fn, kw, fields):
+        full = fn(torch.Generator(device="cuda").manual_seed(77), os.path.join(root, f"{tag}_full.npz"),
+                  False, kw)
+        crash = os.path.join(root, f"{tag}_crash.npz")
+        fn(torch.Generator(device="cuda").manual_seed(77), crash, False,
+           {**kw, "n_steps": kw["n_steps"] // 2})
+        t0 = time.perf_counter()
+        resumed = fn(torch.Generator(device="cuda").manual_seed(5), crash, True, kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        get = lambda res, f: functools.reduce(getattr, f.split("."), res)
+        same = {f: bool(torch.equal(get(full, f), get(resumed, f))) for f in fields}
+        say("P15", f"(f) {tag}: {kw['n_steps']} steps in segments of {kw['segment']}, stopped at "
+            f"{kw['n_steps'] // 2} and resumed ({wall:.2f} s); bit-identical to the uninterrupted run: "
+            + ", ".join(f"{f} {v}" for f, v in same.items()))
+        if not all(same.values()):
+            fail(f"(f) {tag}: the resumed run differs from the uninterrupted one")
+
+    misfit4 = gaussian_misfit(pipe4.working_forward_fn("rom_nn"), inv4.data, pipe4.config.mcmc.noise_sigma)
+    theta_pt = pipe4.prior.sample(torch.Generator(device="cuda").manual_seed(78), (1024,))
+    resume_check("run_pt_checkpointed", lambda g, path, resume, kw: run_pt_checkpointed(
+        misfit4, pipe4.prior, theta_pt, g, ckpt_path=path, resume=resume, adapt_ladder=True, **kw),
+        P15_PT, ("samples", "phi_trace", "theta", "beta", "lambdas", "accept_rate", "swap_rate",
+                 "ss_level_mean"))
+    noise8 = pipe8.config.mcmc.noise_sigma
+    fine = gaussian_misfit(pipe8.working_forward_fn("fom"), inv8.data, noise8)
+    coarse = gaussian_misfit(pipe8.working_forward_fn("rom_nn"), inv8.data, noise8)
+    theta_da = pipe8.prior.sample(torch.Generator(device="cuda").manual_seed(79), (1024,))
+    _, n = counted(lambda: resume_check("run_da_checkpointed", lambda g, path, resume, kw: run_da_checkpointed(
+        fine, coarse, pipe8.prior, theta_da, g, ckpt_path=path, resume=resume, **kw), P15_DA,
+        ("samples", "phi_trace", "state.theta", "state.phi_f", "beta", "accept_rate",
+         "inner_accept_rate")))
+    k3r += n
+    shutil.rmtree(root, ignore_errors=True)
+    say("P15", f"K3r launches over phase 15: {k3r}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return k3r
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
                   ms: float, plain_ms: float, bound: tuple) -> dict:
     return {"name": name, "route": "cuda", "source": f"bayesianinferencedl_tpu_torch/csrc/{source}",
@@ -3153,7 +3446,7 @@ def main() -> None:
 
     phase_build()
     lanes = phase_kernel()
-    slice_launches, cfg, pipe, inv = phase_slice()
+    slice_launches, cfg, pipe, inv, slice_log = phase_slice()
     k2 = phase_k2(cfg, pipe, inv)
     k3 = phase_k3()
     k3_launches, pipe8, inv8 = phase_da()
@@ -3165,6 +3458,7 @@ def main() -> None:
     p12_launches = phase_gradient(pipe, inv, pipe8, inv8, inv_pt)
     p13_launches = phase_approx(pipe, inv, inv_pt)
     p14_launches = phase_flow(pipe, inv, inv_head)
+    p15_launches = phase_persist_precision(pipe, inv, slice_log, inv_head, pipe8, inv8)
     t1 = lanes["times"][B_CHECK]
     t3 = k3["times"][1024]
     t4r = k4["times"][K4_BATCHES[0]]
@@ -3188,12 +3482,13 @@ def main() -> None:
         # route), the res8 DA slice's, phase 11's (its fom samplers at res8,
         # the headline's truth solve at res4), phase 12's (DA's fine
         # solves at res8, gpcn on fom at res4), phase 13's (EKI, SMC and
-        # PSIS on fom at res4) and phase 14's (the flow's PSIS and NeuTra on
-        # fom at res4)
+        # PSIS on fom at res4), phase 14's (the flow's PSIS and NeuTra on
+        # fom at res4) and phase 15's (the high and fast builds at res4, the
+        # box-prior da_pcn and the checkpointed DA's fine solves at res8)
         _kernel_entry("pcg_stencil_tile_mma", "pcg_stencil_tile_mma.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385",
                       slice_launches["K3r"] + k3_launches + pt_launches + p12_launches + p13_launches
-                      + p14_launches,
+                      + p14_launches + p15_launches,
                       max(k3["max_abs_err"], lanes["max_abs"]["K3r"]), t3["ms"], t3["plain_ms"],
                       t3["bound"]),
         # K3, off the main path since K3r: timed on the same inputs, for the record

@@ -11,6 +11,7 @@ through the port's api and CLI, on the CPU at res1.
    iteration audit at the plain cap with no state at it.
 3. The CLI prints the DA keys; FiveParamFin.create defaults to the card."""
 
+import dataclasses
 import json
 
 import jax.numpy as jnp
@@ -48,7 +49,10 @@ def _cfg(cfg=tcfg):
 
 
 def test_fom_forward_matches_reference():
-    jpipe = j_build(_cfg(jcfg), dtype=jnp.float32)
+    # the FOM forward reads no trained weight: the JAX build trains for one step
+    jc = _cfg(jcfg)
+    jc = dataclasses.replace(jc, surrogate=dataclasses.replace(jc.surrogate, n_train=8, epochs=1))
+    jpipe = j_build(jc, dtype=jnp.float32)
     tpipe = pipeline_from_arrays(_cfg(), _arrays(jpipe), device="cpu", dtype=torch.float32)
     thetas = np.random.default_rng(0).normal(0.0, 0.6, (16, D)).astype(np.float32)
     yj = np.asarray(jpipe.batched_forward_fn("fom")(jnp.asarray(thetas)))

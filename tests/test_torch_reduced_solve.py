@@ -17,7 +17,6 @@ import pytest
 import torch
 
 from bayesianinferencedl_tpu import config as jcfg
-from bayesianinferencedl_tpu.api import build_pipeline as j_build
 from bayesianinferencedl_tpu.infer import map as jm
 from bayesianinferencedl_tpu.infer.pcn import gaussian_misfit as j_misfit
 from bayesianinferencedl_tpu_torch import config as tcfg
@@ -25,23 +24,26 @@ from bayesianinferencedl_tpu_torch.convert import pipeline_from_arrays
 from bayesianinferencedl_tpu_torch.infer import map as tm
 from bayesianinferencedl_tpu_torch.infer.pcn import gaussian_misfit as t_misfit
 from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior as TPrior
-from test_torch_slice import _arrays
+from test_torch_slice import _arrays, jax_build
 
 torch.set_num_threads(1)  # one intra-op thread a process: the test workers share the CPUs
 
 
 def _cfg(cfg, res, tol):
+    """The build configs other port test files use (test_torch_slice's float64
+    res1, test_torch_approx_api's float32 res2), so their JAX builds are
+    shared (``test_torch_slice.jax_build``)."""
     return cfg.PipelineConfig(
         mesh=cfg.MeshConfig(resolution=res),
         fem=cfg.FEMConfig(biot=0.1, cg_tol=tol, cg_maxiter=1500),
-        rom=cfg.ROMConfig(n_snapshots=16, basis_size=8),
-        surrogate=cfg.SurrogateConfig(hidden=(16, 16), n_train=32, epochs=5),
+        rom=cfg.ROMConfig(n_snapshots=32, basis_size=8),
+        surrogate=cfg.SurrogateConfig(hidden=(16, 16), n_train=64, epochs=20),
         mcmc=cfg.MCMCConfig(noise_sigma=1e-2),
     )
 
 
 def _converted(res, jdtype, tdtype, tol):
-    jpipe = j_build(_cfg(jcfg, res, tol), dtype=jdtype)
+    jpipe = jax_build(_cfg(jcfg, res, tol), jdtype)
     return jpipe, pipeline_from_arrays(_cfg(tcfg, res, tol), _arrays(jpipe), device="cpu", dtype=tdtype)
 
 

@@ -179,9 +179,10 @@ def test_unported_options_raise(converted):
     _, tpipe = converted
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.run_inversion(tpipe, sampler="mlda_pcn", likelihood="fom")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.build_pipeline(
-            tcfg.PipelineConfig(rom=tcfg.ROMConfig(online_precision="high")), device="cpu")
+    # the "high" tier (bf16x3) is ported: the build runs at it and says so
+    cfg = _cfg(1e-7)
+    cfg = dataclasses.replace(cfg, rom=dataclasses.replace(cfg.rom, online_precision="high"))
+    assert api.build_pipeline(cfg, device="cpu").rom_precision == "high"
     if not torch.cuda.is_available():  # the card is the default; absent, it raises, no CPU fallback
         with pytest.raises(RuntimeError, match="cuda"):
             api.build_pipeline(_cfg(1e-7))
