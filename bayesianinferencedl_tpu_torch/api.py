@@ -46,8 +46,14 @@ distilled into a coupling flow by maximum likelihood, or annealed
 reverse-KL flow-VI), ``psis_certify_flow`` (PSIS with the flow as the
 proposal) and ``run_neutra_inversion`` (flow-preconditioned pCN, exact).
 
-Not ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
-item: ``mlda_pcn``.
+Multilevel delayed acceptance (``mlda_pcn``) screens ``da_coarse``
+subchains by the FOM on a coarser mesh (``MCMCConfig.mlda_resolution``)
+before the exact FOM correction. Around ``invert`` the workflow of the
+reference: ``run_sbc_check`` (simulation-based calibration of a sampler and
+likelihood), ``predict_temperature`` (the posterior push-forward of the
+temperature field), ``build_pipeline(fin=...)`` for a fin whose observables
+are pointwise sensors of an optimal design (``infer/oed.py``) and
+``ROMConfig.method="greedy"`` (the greedy reduced basis, ``rom/greedy.py``).
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from bayesianinferencedl_tpu_torch.infer.checkpointed import (  # noqa: F401  (t
     run_da_checkpointed,
     run_hmc_checkpointed,
     run_mala_checkpointed,
+    run_mlda_checkpointed,
     run_pcn_checkpointed,
     run_pt_checkpointed,
     run_pt_da_checkpointed,
@@ -86,6 +93,8 @@ from bayesianinferencedl_tpu_torch.infer.flow import (
 from bayesianinferencedl_tpu_torch.infer.hmc import run_hmc, run_hmc_chees, run_hmc_segmented
 from bayesianinferencedl_tpu_torch.infer.mala import MALAResult, run_mala, run_mala_segmented
 from bayesianinferencedl_tpu_torch.infer.map import find_map_multistart, laplace_approximation
+from bayesianinferencedl_tpu_torch.infer.mlda import MLDAResult, run_mlda_segmented
+from bayesianinferencedl_tpu_torch.infer.oed import solution_indices
 from bayesianinferencedl_tpu_torch.infer.pcn import (
     PCNResult,
     gaussian_misfit,
@@ -96,6 +105,7 @@ from bayesianinferencedl_tpu_torch.infer.pcn import (
 from bayesianinferencedl_tpu_torch.infer.priors import BoxPrior, GaussianPrior
 from bayesianinferencedl_tpu_torch.infer.psis import PSISResult, psis_correct
 from bayesianinferencedl_tpu_torch.infer.samplers import MHResult, run_gpcn, run_laplace_mh
+from bayesianinferencedl_tpu_torch.infer.sbc import SBCResult, run_sbc
 from bayesianinferencedl_tpu_torch.infer.smc import run_smc
 from bayesianinferencedl_tpu_torch.infer.svgd import SVGDResult, run_svgd
 from bayesianinferencedl_tpu_torch.infer.tempering import (
@@ -112,12 +122,14 @@ from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
 from bayesianinferencedl_tpu_torch.models.surrogate import MLP, Normalizer, TrainedSurrogate, train_surrogate
 from bayesianinferencedl_tpu_torch.ops.pcg_stencil import solve_fom_stencil
 from bayesianinferencedl_tpu_torch.rom.galerkin import ReducedOperator
+from bayesianinferencedl_tpu_torch.rom.greedy import greedy_basis, orthonormalize_host
 from bayesianinferencedl_tpu_torch.rom.pod import pod_basis_host
 from bayesianinferencedl_tpu_torch.rom.snapshots import sample_log_uniform
 from bayesianinferencedl_tpu_torch.utils.checkpoint import load_checkpoint, np_dtype, read_meta, save_checkpoint
 from bayesianinferencedl_tpu_torch.utils.device import resolve_device
 from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
-from bayesianinferencedl_tpu_torch.utils.ppc import noise_posterior, ppc_chi2_pvalue, ppc_shape_pvalue
+from bayesianinferencedl_tpu_torch.utils.ppc import noise_posterior, ppc_chi2_pvalue, ppc_shape_pvalue, thin_samples
+from bayesianinferencedl_tpu_torch.utils.predict import FieldPrediction, predict_field
 from bayesianinferencedl_tpu_torch.utils.precision import check_tier
 
 # the untimed warm-up run that precedes the timed one: pcn and pt_pcn run
@@ -128,12 +140,10 @@ from bayesianinferencedl_tpu_torch.utils.precision import check_tier
 _WARMUP_STEPS = 20
 _WARMUP_DA = (2, 1)
 _AUDIT_MAX = 1024  # kept states re-solved by the FOM iteration audit
-_PORTED = ("pcn", "da_pcn", "pt_pcn", "pt_da_pcn", "laplace_mh", "gpcn", "mala", "mala_lap", "hmc",
-           "hmc_lap", "pt_mala")
+_PORTED = ("pcn", "da_pcn", "pt_pcn", "pt_da_pcn", "mlda_pcn", "laplace_mh", "gpcn", "mala",
+           "mala_lap", "hmc", "hmc_lap", "pt_mala")
 _LAPLACE = ("laplace_mh", "gpcn", "mala_lap", "hmc_lap")  # seeded by the MAP's Laplace approximation
 _TEMPERED = ("pt_pcn", "pt_mala", "pt_da_pcn")
-# the unported samplers and their ROADMAP.md queue 1 items
-_UNPORTED = {"mlda_pcn": 19}
 
 
 def _sync(dev: torch.device) -> None:
@@ -183,16 +193,19 @@ class Pipeline:
 
     @classmethod
     def from_arrays(cls, cfg: PipelineConfig, arrays: dict, *, dataset: Optional[ErrorDataset] = None,
-                    device="cuda", dtype=torch.float32) -> "Pipeline":
+                    device="cuda", dtype=torch.float32, fin: Optional[FiveParamFin] = None) -> "Pipeline":
         """A pipeline from its arrays (the keys of ``convert.pipeline_from_arrays``:
         Ahat, Mhat, Fhat, Bhat, V, P0, W0, b0, ..., x_mean, x_std, y_mean,
         y_std, rom_pcg_iters), the mesh and FOM rebuilt from ``cfg`` (meshes
-        are deterministic) and the tier taken from cfg.rom.online_precision."""
+        are deterministic) unless ``fin`` is given (a sensor design's fin,
+        as ``build_pipeline(fin=...)`` takes it) and the tier taken from
+        cfg.rom.online_precision."""
         t = lambda k: torch.tensor(np.asarray(arrays[k]), dtype=dtype, device=device)
-        fin = FiveParamFin.create(
-            resolution=cfg.mesh.resolution, biot=cfg.fem.biot, dtype=dtype, device=device,
-            cg_tol=cfg.fem.cg_tol, cg_maxiter=cfg.fem.cg_maxiter,
-        )
+        if fin is None:
+            fin = FiveParamFin.create(
+                resolution=cfg.mesh.resolution, biot=cfg.fem.biot, dtype=dtype, device=device,
+                cg_tol=cfg.fem.cg_tol, cg_maxiter=cfg.fem.cg_maxiter,
+            )
         rom = ReducedOperator(Ahat=t("Ahat"), Mhat=t("Mhat"), Fhat=t("Fhat"), Bhat=t("Bhat"), V=t("V"),
                               biot=float(cfg.fem.biot))
         if rom.V.shape[0] != fin.op.n:
@@ -316,28 +329,60 @@ def make_prior(cfg_prior, dtype=torch.float32, device="cuda"):
 
 
 def make_fom_solver(fin: FiveParamFin, *, tol: float, maxiter: int, with_iters: bool = False):
-    """Batched FOM solver ks (B, 5) -> u (B, n); with_iters=True returns (u,
-    iters), the per-sample iteration counts (audit_fom_iters).
+    """Batched FOM solver ks (B, 5) -> u (B, n), optionally warm-started
+    from x0 (B, n); with_iters=True returns (u, iters), the per-sample
+    iteration counts (audit_fom_iters).
 
     By the operator's dtype, as in the JAX package: float32 goes through
     the stencil kernels (K1 or K3r with the two-level deflation
     preconditioner; K4r / K4c, undeflated, on the largest meshes, where no basis
     is built), float64 through the plain PCG of ``fem/solve.py``."""
     if fin.op.dtype != torch.float32:
-        def solve(ks):
+        def solve(ks, x0=None):
             ks = torch.as_tensor(ks, dtype=fin.op.dtype, device=fin.op.device)
             u, iters, _ = pcg_fom(fin.op, ks, fin.op.F_root.expand(ks.shape[0], -1), tol=tol,
-                                  maxiter=maxiter)
+                                  maxiter=maxiter, x0=x0)
             return (u, iters) if with_iters else u
 
         return solve
     defl = fin.deflation_for_kernels()
 
-    def solve(ks):
-        u, iters = solve_fom_stencil(fin.op, ks, tol=tol, maxiter=maxiter, deflation=defl)
+    def solve(ks, x0=None):
+        u, iters = solve_fom_stencil(fin.op, ks, tol=tol, maxiter=maxiter, x0=x0, deflation=defl)
         return (u, iters) if with_iters else u
 
     return solve
+
+
+def fom_misfit_aux(pipe: "Pipeline", data: torch.Tensor) -> Callable:
+    """The Gaussian fom misfit at cfg.noise_sigma for
+    ``infer.pcn.run_pcn_aux``: (xs (C, d) in working coordinates, u (C, n))
+    -> (phi (C,), u_prop), each proposal's batched solve warm-started from
+    its chain's last accepted solution field (``make_fom_solver``'s x0: K3r
+    or K1 at res <= 21 take it, as do K4r / K4c). Start the run from aux0 =
+    zeros (C, fin.op.n)."""
+    sigma = pipe.config.mcmc.noise_sigma
+    fin = pipe.fin
+    solve = make_fom_solver(fin, tol=fin.cg_tol, maxiter=fin.cg_maxiter)
+    data = torch.as_tensor(data, dtype=pipe.prior.mean.dtype, device=pipe.device)
+
+    def misfit_aux(xs, u_prev):
+        u = solve(torch.exp(pipe.prior.to_theta(xs)), x0=u_prev)
+        r = fin.op.observe(u) - data
+        return 0.5 * torch.sum(r * r, -1) / sigma**2, u
+
+    return misfit_aux
+
+
+def batched_fom_observe(fin: FiveParamFin) -> Callable:
+    """(C, d) log-conductivities -> (C, n_obs) FOM observables for a fin that
+    is not the pipeline's own (the mid rung of ``mlda_pcn``), through the
+    route of ``Pipeline.batched_forward_fn("fom")``: ``make_fom_solver`` at
+    the fin's tolerance and cap, so the kernel ``layout_for`` names for its
+    mesh (K3r on every fin mesh up to res21) with the fin's own deflation
+    basis in float32, the plain PCG in float64."""
+    solve = make_fom_solver(fin, tol=fin.cg_tol, maxiter=fin.cg_maxiter)
+    return lambda thetas: fin.op.observe(solve(torch.exp(thetas)))
 
 
 def audit_fom_iters(pipe: "Pipeline", thetas: torch.Tensor) -> tuple[int, int, float]:
@@ -363,26 +408,36 @@ def build_pipeline(
     device="cuda",
     dtype=torch.float32,
     metrics: Optional[MetricsLogger] = None,
+    fin: Optional[FiveParamFin] = None,
 ) -> Pipeline:
     """The offline build on ``device`` (the card unless the caller asks for
-    ``"cpu"``; without a card "cuda" raises). Every FOM solve (snapshots,
-    training dataset, holdout) is one batched call of K1, K3r or K4r / K4c, by the
-    mesh size. Holdout errors are logged as the ``holdout_rel_err`` event."""
+    ``"cpu"``; without a card "cuda" raises). Every batched FOM solve
+    (snapshots, training dataset, holdout) is one call of K1, K3r or K4r /
+    K4c, by the mesh size. ROMConfig.method "pod" takes the POD basis of
+    the snapshots, "greedy" the greedy basis (``rom/greedy.py``) over the
+    first ``greedy_candidates`` of them, one FOM solve a basis vector; both
+    are projected in host float64. Holdout errors are logged as the
+    ``holdout_rel_err`` event.
+
+    fin: a prebuilt fin instead of the config's, the seam for other
+    observation operators, e.g. the pointwise sensors of an optimal design
+    (``infer.oed.with_sensor_qoi``): the reduced QoI, the surrogate's output
+    width and every misfit follow op.n_obs / op.observe. The config's mesh
+    and fem sections should describe it (they are what a saved pipeline
+    records); it must live on ``device`` in ``dtype``."""
     log = metrics or MetricsLogger()
     cfg = config
-    if cfg.rom.method != "pod":
-        raise NotImplementedError(
-            f"ROMConfig.method={cfg.rom.method!r} (the greedy basis, rom/greedy.py) is not ported "
-            "yet: ROADMAP.md queue 1, item 21"
-        )
+    if cfg.rom.method not in ("pod", "greedy"):
+        raise ValueError(f"ROMConfig.method must be 'pod' or 'greedy', got {cfg.rom.method!r}")
     dev = resolve_device(device)
     tier = check_tier(cfg.rom.online_precision)
 
     with log.timer("build_fom"):
-        fin = FiveParamFin.create(
-            resolution=cfg.mesh.resolution, biot=cfg.fem.biot, dtype=dtype, device=dev,
-            cg_tol=cfg.fem.cg_tol, cg_maxiter=cfg.fem.cg_maxiter,
-        )
+        if fin is None:
+            fin = FiveParamFin.create(
+                resolution=cfg.mesh.resolution, biot=cfg.fem.biot, dtype=dtype, device=dev,
+                cg_tol=cfg.fem.cg_tol, cg_maxiter=cfg.fem.cg_maxiter,
+            )
         fom_solver = make_fom_solver(fin, tol=cfg.fem.cg_tol, maxiter=cfg.fem.cg_maxiter)
     defl = fin.deflation_for_kernels()
     log.log("fom_built", n_dof=fin.op.n_dof, n_padded=fin.op.n, m=None if defl is None else defl.m,
@@ -391,12 +446,18 @@ def build_pipeline(
     gen = torch.Generator(device=dev).manual_seed(cfg.rom.seed)
     k_snap = sample_log_uniform(gen, cfg.rom.n_snapshots, dtype=dtype)
     with log.timer("snapshots"):
-        S = fom_solver(k_snap)
+        if cfg.rom.method == "greedy":
+            # one solve a selected candidate, each a batch of one through the kernels
+            gres = greedy_basis(fin.op, k_snap[: cfg.rom.greedy_candidates], cfg.rom.basis_size,
+                                solve=lambda k: fom_solver(k[None])[0])
+            # the device Gram-Schmidt's float32 cross-terms go in a host f64 QR
+            V = orthonormalize_host(gres.snapshots)
+        else:
+            V, _ = pod_basis_host(fom_solver(k_snap), cfg.rom.basis_size)
         _sync(dev)
-        V, _ = pod_basis_host(S, cfg.rom.basis_size)
     with log.timer("project_rom"):
         rom = ReducedOperator.project_host(fin.host, cfg.fem.biot, V, dtype=dtype, device=dev)
-    log.log("rom_built", r=rom.r, method="pod", f64_offline=True)
+    log.log("rom_built", r=rom.r, method=cfg.rom.method, f64_offline=True)
 
     P0 = rom.preconditioner()
     # deployed reduced-PCG iteration count: the r/2 knee, bumped to 3r/4
@@ -465,7 +526,8 @@ def build_pipeline(
 
 @dataclass
 class InversionResult:
-    result: Union[PCNResult, DAResult, PTResult, PTDAResult, MHResult, MALAResult, PTMALAResult]
+    result: Union[PCNResult, DAResult, MLDAResult, PTResult, PTDAResult, MHResult, MALAResult,
+                  PTMALAResult]
     theta_true: torch.Tensor
     data: torch.Tensor
     ess: torch.Tensor  # bulk ESS per dimension (rank-normalised, split)
@@ -619,7 +681,12 @@ def run_inversion(
       ``hmc_lap``, Laplace-preconditioned: gradient samplers on the
       differentiable forward, segmented on fom; ``cfg.hmc_leap = 0`` picks
       the trajectory length by ChEES (rom/rom_nn);
-    - ``pt_mala``: tempered MALA with replica exchange, on rom/rom_nn.
+    - ``pt_mala``: tempered MALA with replica exchange, on rom/rom_nn;
+    - ``mlda_pcn``: multilevel delayed acceptance on fom only, a three-rung
+      ladder: ``cfg.subchain`` steps of the ``cfg.da_coarse`` surrogate
+      (pCN, or MALA with ``cfg.da_inner``) per step of the FOM at
+      ``cfg.mlda_resolution`` (below the pipeline's), ``cfg.mlda_subchain``
+      of those per fine FOM correction, in segments of 32 top steps.
     Every misfit is Gaussian at ``cfg.noise_sigma``, or with
     ``cfg.infer_noise`` the noise-marginalised potential under the prior
     sigma^2 ~ InvGamma(2, noise_sigma^2).
@@ -642,10 +709,6 @@ def run_inversion(
     cfg = pipe.config.mcmc
     like = likelihood or cfg.likelihood
     smp = sampler or cfg.sampler
-    if smp in _UNPORTED:
-        raise NotImplementedError(
-            f"sampler {smp!r} is not ported yet: ROADMAP.md queue 1, item {_UNPORTED[smp]}"
-        )
     if smp not in _PORTED:
         raise ValueError(f"unknown sampler {smp!r}")
     if smp == "pt_pcn" and like == "fom":
@@ -658,6 +721,16 @@ def run_inversion(
         raise NotImplementedError(
             "pt_mala with the fom likelihood puts a full-order solve and its adjoint in every "
             "step; use sampler='pt_da_pcn' with da_inner subchains instead"
+        )
+    if smp == "mlda_pcn" and like != "fom":
+        raise ValueError(
+            "mlda_pcn targets the fine FOM posterior through a resolution hierarchy; set "
+            "likelihood='fom' (for a single-screen surrogate chain use sampler='da_pcn')"
+        )
+    if smp == "mlda_pcn" and cfg.mlda_resolution >= pipe.config.mesh.resolution:
+        raise ValueError(
+            f"mlda_resolution ({cfg.mlda_resolution}) must be coarser than the pipeline mesh "
+            f"({pipe.config.mesh.resolution})"
         )
     if smp in ("da_pcn", "pt_da_pcn") and like == cfg.da_coarse:
         raise ValueError(
@@ -753,7 +826,20 @@ def run_inversion(
         misfit_c = misfit_d(cfg.da_coarse) if mala else mk_misfit(pipe.working_forward_fn(cfg.da_coarse))
         da_beta = cfg.mala_step if mala else cfg.beta
         fom = like == "fom"
-        if smp == "da_pcn":
+        if smp == "mlda_pcn":
+            # the mid rung: the FOM on a coarser mesh, its own fin and deflation
+            pc = pipe.config
+            fin_mid = FiveParamFin.create(resolution=cfg.mlda_resolution, biot=pc.fem.biot,
+                                          dtype=pipe.prior.mean.dtype, device=dev,
+                                          cg_tol=pc.fem.cg_tol, cg_maxiter=pc.fem.cg_maxiter)
+            mid = batched_fom_observe(fin_mid)
+            to_theta = pipe.prior.to_theta
+            misfits = (misfit_c, mk_misfit(lambda xs: mid(to_theta(xs))), misfit_b)
+            run = lambda g, n_steps, n_burn: run_mlda_segmented(
+                misfits, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn, beta=da_beta,
+                subchains=(cfg.subchain, cfg.mlda_subchain), segment=32, inner=cfg.da_inner,
+            )
+        elif smp == "da_pcn":
             run = lambda g, n_steps, n_burn: run_da_pcn_segmented(
                 misfit_b, misfit_c, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
                 beta=da_beta, subchain=cfg.subchain, segment=64 if fom else 512, inner=cfg.da_inner,
@@ -831,6 +917,9 @@ def run_inversion(
         log_evidence=log_z, log_evidence_std=log_z_std, noise_sigma_post=sigma_post,
     )
     extra = {}
+    if smp == "mlda_pcn":
+        extra = dict(level_rates=res.level_rates.mean(1).cpu().tolist(),
+                     evals_per_step=list(res.evals_per_step))
     if smp in ("da_pcn", "pt_da_pcn"):
         extra = dict(inner_accept_rate=float(torch.mean(res.inner_accept_rate)),
                      n_fine_evals=res.n_fine_evals, subchain=cfg.subchain)
@@ -843,6 +932,75 @@ def run_inversion(
         accept_rate=float(torch.mean(res.accept_rate)), rhat_max=float(torch.max(r)), **extra,
     )
     return out
+
+
+def predict_temperature(
+    pipe: Pipeline,
+    samples: torch.Tensor,
+    *,
+    points=None,
+    n_draws: int = 256,
+    noise_sigma: Optional[float] = None,
+) -> FieldPrediction:
+    """The posterior push-forward of the temperature field
+    (``utils/predict.py``): what the posterior says about temperatures that
+    were never measured. samples: kept chain states in working coordinates,
+    ``InversionResult.result.samples`` (T, C, d), or flat (N, d). points:
+    optional (P, 2) coordinates for exact P1 point prediction; noise_sigma:
+    if given, also the predictive sd of a new reading at each point
+    (epistemic and aleatoric in quadrature). One batched FOM solve over the
+    evenly thinned draws through ``make_fom_solver``, the fom samplers'
+    route (K3r up to res21, K4r / K4c beyond), then host order statistics.
+    Node arrays come back in mesh-node order."""
+    s = torch.as_tensor(samples, dtype=pipe.prior.mean.dtype, device=pipe.device)
+    if s.dim() == 2:
+        s = s[:, None, :]
+    theta = pipe.prior.to_theta(thin_samples(s, n_draws))
+    u = make_fom_solver(pipe.fin, tol=pipe.fin.cg_tol, maxiter=pipe.fin.cg_maxiter)(torch.exp(theta))
+    return predict_field(u, solution_indices(pipe.fin), pipe.fin.mesh, points=points,
+                         noise_sigma=noise_sigma)
+
+
+def run_sbc_check(
+    pipe: Pipeline,
+    likelihood: str = "rom_nn",
+    *,
+    n_datasets: int = 128,
+    n_chains: int = 31,
+    n_steps: int = 800,
+    n_burn: int = 400,
+    beta: float = 0.25,
+    n_bins: int = 8,
+    sampler: str = "pcn",
+    step: float = 0.1,
+    n_leap: int = 8,
+    n_temps: int = 5,
+    lambda_min: float = 0.02,
+    seed: int = 0,
+    generator: Optional[torch.Generator] = None,
+    metrics: Optional[MetricsLogger] = None,
+) -> SBCResult:
+    """Simulation-based calibration of a sampler and likelihood on the
+    pipeline (``infer/sbc.py``): J synthetic inversions from the pipeline's
+    own prior x likelihood at cfg.noise_sigma, all J x C chains one batch,
+    each slot with its dataset, ranked for posterior correctness. A small
+    p-value says the sampler does not draw from the posterior it claims (a
+    mis-scaled noise, a biased surrogate, a broken proposal). Ranks live in
+    the prior's working coordinates, invariant under the monotone
+    push-forward of a box prior. mala and hmc take the differentiable
+    forward. The draws come from ``generator``, else from ``seed``. Logs the
+    "sbc" event."""
+    fwd = pipe.working_forward_fn(likelihood, differentiable=sampler in ("mala", "hmc"))
+    gen = generator if generator is not None else torch.Generator(device=pipe.device).manual_seed(seed)
+    res, wall = _timed(pipe.device, lambda: run_sbc(
+        fwd, pipe.prior, pipe.config.mcmc.noise_sigma, gen, n_datasets=n_datasets,
+        n_chains=n_chains, n_steps=n_steps, n_burn=n_burn, beta=beta, n_bins=n_bins,
+        sampler=sampler, step=step, n_leap=n_leap, n_temps=n_temps, lambda_min=lambda_min))
+    if metrics is not None:
+        metrics.log("sbc", likelihood=likelihood, n_datasets=n_datasets, n_chains=n_chains,
+                    sampler=sampler, p_min=float(torch.min(res.p_values)),
+                    p_values=[float(p) for p in res.p_values], wall_seconds=wall)
+    return res
 
 
 def _approx_setup(pipe: Pipeline, generator, theta_true, data):

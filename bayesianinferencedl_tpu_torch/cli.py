@@ -35,7 +35,22 @@ the observations ``fom --save-obs`` wrote (``theta_true`` is then null);
 (``laplace_mh``, ``gpcn``, ``mala_lap``, ``hmc_lap``), the gradient samplers
 (``mala``, ``hmc``: ``--mala-step`` is the initial step size, ``--hmc-leap``
 the trajectory length, 0 for ChEES) and ``pt_mala`` run as well;
-``--da-inner mala`` gives the DA samplers MALA subchains.
+``--da-inner mala`` gives the DA samplers MALA subchains, and ``--sampler
+mlda_pcn --likelihood fom`` runs multilevel delayed acceptance with the FOM
+at ``--mlda-resolution`` as the mid rung (``--mlda-subchain`` mid steps per
+fine correction). ``--sensors design.npz`` inverts the pointwise sensors of
+a ``design --out`` file instead of the subfin averages; ``--predict-at X,Y``
+(repeatable) adds the posterior prediction of the temperature there and
+``--predict-out f.npz`` saves the whole field's (one batched FOM solve over
+256 thinned draws).
+
+    python -m bayesianinferencedl_tpu_torch.cli design --resolution 4 --sensors 3 --out d.npz
+    python -m bayesianinferencedl_tpu_torch.cli sbc --resolution 4 --datasets 32 --sbc-chains 31
+
+``design`` places pointwise sensors by greedy expected information gain
+(``infer/oed.py``); ``sbc`` calibrates a sampler by simulation-based
+calibration (``api.run_sbc_check``), each with the reference's flags and
+keys. ``rom --method greedy`` builds the greedy basis instead of POD.
 
     python -m bayesianinferencedl_tpu_torch.cli map --resolution 4 --noise 1e-3
 
@@ -72,9 +87,7 @@ layout. ``pipeline`` is ``invert``. Every command that builds takes
 ``--prior uniform|log_uniform`` with ``--prior-low`` / ``--prior-high`` (the
 box on k; samples live in the probit coordinates, the JSON reports log k)
 and ``--online-precision highest|high|fast`` (the reduced solves' tier: full
-fp32, bf16x3, one bf16 pass). Flags the port does not support yet
-(``mlda_pcn``, the greedy ROM basis) raise NotImplementedError naming their
-ROADMAP.md item.
+fp32, bf16x3, one bf16 pass).
 """
 
 from __future__ import annotations
@@ -116,6 +129,20 @@ def _fin(args):
         resolution=args.resolution, biot=args.biot, dtype=_dtype(args), device=args.device,
         cg_tol=1e-10 if args.dtype == "float64" else 1e-7, cg_maxiter=_cg_maxiter(args),
     )
+
+
+def _parse_points(specs):
+    """["X,Y", ...] (the --predict-at values) -> (P, 2) array, or None."""
+    if not specs:
+        return None
+    pts = []
+    for s in specs:
+        try:
+            x, y = (float(v) for v in s.split(","))
+        except ValueError:
+            raise SystemExit(f"--predict-at expects 'X,Y', got {s!r}")
+        pts.append((x, y))
+    return np.asarray(pts)
 
 
 def _sync(dev: torch.device) -> None:
@@ -171,19 +198,21 @@ def cmd_snapshots(args) -> None:
 def cmd_rom(args) -> None:
     from bayesianinferencedl_tpu_torch.api import make_fom_solver
     from bayesianinferencedl_tpu_torch.rom.galerkin import ReducedOperator
+    from bayesianinferencedl_tpu_torch.rom.greedy import greedy_basis, orthonormalize_host
     from bayesianinferencedl_tpu_torch.rom.pod import pod_basis_host
     from bayesianinferencedl_tpu_torch.rom.snapshots import sample_log_uniform
     from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
 
-    if args.method == "greedy":
-        raise NotImplementedError("rom --method greedy (rom/greedy.py) is not ported yet: "
-                                  "ROADMAP.md queue 1, item 21")
     log = MetricsLogger(args.metrics, run_config=vars(args))
     fin = _fin(args)
     dev, dt = fin.op.device, _dtype(args)
     solver = make_fom_solver(fin, tol=fin.cg_tol, maxiter=fin.cg_maxiter)
     ks = sample_log_uniform(torch.Generator(device=dev).manual_seed(args.seed), args.n_snapshots, dtype=dt)
-    V, _ = pod_basis_host(solver(ks), args.r)
+    if args.method == "greedy":
+        gres = greedy_basis(fin.op, ks, args.r, solve=lambda k: solver(k[None])[0])
+        V = orthonormalize_host(gres.snapshots)  # offline f64, as the POD path
+    else:
+        V, _ = pod_basis_host(solver(ks), args.r)
     rom = ReducedOperator.project_host(fin.host, args.biot, V, dtype=dt, device=dev)
 
     k_test = sample_log_uniform(torch.Generator(device=dev).manual_seed(args.seed + 1), 64, dtype=dt)
@@ -260,6 +289,22 @@ def cmd_surrogate(args) -> None:
     }))
 
 
+def _sensor_fin(args, cfg, log):
+    """``invert --sensors``: the fin whose observables are the saved
+    design's pointwise sensors (``infer.oed.with_sensor_qoi``)."""
+    from bayesianinferencedl_tpu_torch.infer.oed import with_sensor_qoi
+    from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+
+    dz = np.load(args.sensors)
+    if int(dz["resolution"]) != args.resolution:
+        raise SystemExit(f"--sensors design was made at resolution {int(dz['resolution'])}, "
+                         f"but --resolution is {args.resolution}")
+    fin = FiveParamFin.create(resolution=args.resolution, biot=args.biot, dtype=_dtype(args),
+                              device=args.device, cg_tol=cfg.fem.cg_tol, cg_maxiter=cfg.fem.cg_maxiter)
+    log.log("sensor_design", path=args.sensors, n_obs=int(dz["node_ids"].shape[0]))
+    return with_sensor_qoi(fin, dz["node_ids"])
+
+
 def cmd_invert(args) -> None:
     from bayesianinferencedl_tpu_torch.config import MCMCConfig
     from bayesianinferencedl_tpu_torch.api import build_pipeline, run_inversion
@@ -271,10 +316,12 @@ def cmd_invert(args) -> None:
             noise_sigma=args.noise, likelihood=args.likelihood, sampler=args.sampler,
             seed=args.seed, n_temps=args.n_temps, lambda_min=args.lambda_min,
             adapt_ladder=args.adapt_ladder, subchain=args.subchain, da_coarse=args.da_coarse,
-            da_inner=args.da_inner, infer_noise=args.infer_noise, hmc_leap=args.hmc_leap,
+            da_inner=args.da_inner, mlda_resolution=args.mlda_resolution,
+            mlda_subchain=args.mlda_subchain, infer_noise=args.infer_noise, hmc_leap=args.hmc_leap,
             mala_step=args.mala_step,
         ))
-    pipe = build_pipeline(cfg, device=args.device, dtype=_dtype(args), metrics=log)
+    fin = _sensor_fin(args, cfg, log) if args.sensors else None
+    pipe = build_pipeline(cfg, device=args.device, dtype=_dtype(args), metrics=log, fin=fin)
     obs = None
     if args.data:
         obs = torch.as_tensor(np.load(args.data)["data"])
@@ -310,6 +357,20 @@ def cmd_invert(args) -> None:
         out["log_evidence_std"] = inv.log_evidence_std
     if inv.noise_sigma_post is not None:
         out["noise_sigma_post"] = inv.noise_sigma_post
+    if args.predict_at or args.predict_out:
+        from bayesianinferencedl_tpu_torch.api import predict_temperature
+
+        # the aleatoric part of a new reading: the configured noise, or the
+        # posterior median sigma when the noise was inferred
+        sig = args.noise if inv.noise_sigma_post is None else inv.noise_sigma_post["sigma_q50"]
+        pred = predict_temperature(pipe, inv.result.samples, points=_parse_points(args.predict_at),
+                                   noise_sigma=sig)
+        if args.predict_at:
+            out["predictions"] = pred.summary_rows()
+        if args.predict_out:
+            pred.save_npz(args.predict_out)
+            out["prediction_field"] = args.predict_out
+        log.log("predict", n_draws=pred.n_draws, points=len(pred.summary_rows()))
     print(json.dumps(out))
 
 
@@ -586,6 +647,89 @@ def cmd_evidence(args) -> None:
     }))
 
 
+def cmd_sbc(args) -> None:
+    """Simulation-based calibration of a sampler and likelihood on a fresh
+    build (api.run_sbc_check): rank uniformity catches a wrong posterior (a
+    mis-scaled noise, a biased surrogate, a broken proposal), which R-hat
+    cannot."""
+    from bayesianinferencedl_tpu_torch.api import build_pipeline, run_sbc_check
+    from bayesianinferencedl_tpu_torch.config import MCMCConfig
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    log = MetricsLogger(args.metrics)
+    mcmc = MCMCConfig(noise_sigma=args.noise, likelihood=args.likelihood, seed=args.seed)
+    pipe = build_pipeline(_pipeline_config(args, mcmc), device=args.device, dtype=_dtype(args),
+                          metrics=log)
+    res = run_sbc_check(
+        pipe, args.likelihood, n_datasets=args.datasets, n_chains=args.sbc_chains,
+        n_steps=args.steps, n_burn=args.burn, n_bins=args.bins, sampler=args.sampler,
+        step=args.mala_step, n_leap=args.hmc_leap, n_temps=args.temps, lambda_min=args.lambda_min,
+        seed=args.seed, metrics=log,
+    )
+    p = res.p_values.cpu().numpy()
+    print(json.dumps({
+        "likelihood": args.likelihood,
+        "sampler": args.sampler,
+        "prior": args.prior,
+        "noise_sigma": args.noise,
+        "n_datasets": args.datasets,
+        "n_posterior_draws": res.n_draws,
+        "p_values": [round(float(v), 5) for v in p],
+        "p_min": round(float(p.min()), 5),
+        "calibrated": bool(p.min() > 0.005),
+        "rank_counts": res.counts.cpu().numpy().tolist(),
+        "accept_rate": round(float(res.accept_rate.mean()), 4),
+    }))
+
+
+def cmd_design(args) -> None:
+    """Optimal sensor placement (infer/oed.py): greedy expected-information-
+    gain selection of pointwise temperature sensors among the exterior
+    boundary nodes, before any data; ``--out`` saves it for ``invert
+    --sensors``."""
+    from bayesianinferencedl_tpu_torch.api import make_prior
+    from bayesianinferencedl_tpu_torch.config import PriorConfig
+    from bayesianinferencedl_tpu_torch.infer.oed import design_sensors
+    from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    log = MetricsLogger(args.metrics)
+    dt = _dtype(args)
+    tol = 1e-11 if args.dtype == "float64" else 1e-7
+    fin = FiveParamFin.create(resolution=args.resolution, biot=args.biot, dtype=dt, device=args.device,
+                              cg_tol=tol)
+    prior = make_prior(PriorConfig(mean=args.prior_mean, sigma=args.prior_sigma, dim=5, kind=args.prior,
+                                   low=args.prior_low, high=args.prior_high), dt, fin.op.device)
+    with log.timer("design"):
+        design = design_sensors(fin, prior, n_sensors=args.sensors, noise_sigma=args.noise,
+                                n_draws=args.draws,
+                                gen=torch.Generator(device=fin.op.device).manual_seed(args.seed), tol=tol)
+    log.log("design", n_candidates=int(design.candidates.shape[0]))
+    if args.out:
+        np.savez(args.out, node_ids=design.node_ids, xy=design.xy, eig_trace=design.eig_trace,
+                 gains=design.gains, noise_sigma=args.noise, resolution=args.resolution)
+        log.log("saved_design", path=args.out)
+    print(json.dumps({
+        "n_sensors": args.sensors,
+        "node_ids": design.node_ids.tolist(),
+        "xy": [[round(float(a), 6) for a in row] for row in design.xy],
+        "eig_trace_nats": [round(float(v), 4) for v in design.eig_trace],
+        "gains_nats": [round(float(v), 4) for v in design.gains],
+        "n_candidates": int(design.candidates.shape[0]),
+        "prior": args.prior,
+    }))
+
+
+def _add_prior(p: argparse.ArgumentParser) -> None:
+    """The prior families: log-normal k (gaussian on log k), or uniform /
+    log-uniform k on a box (the probit push-forward)."""
+    p.add_argument("--prior", choices=["gaussian", "uniform", "log_uniform"], default="gaussian")
+    p.add_argument("--prior-low", type=float, default=0.1, help="box prior lower bound on k")
+    p.add_argument("--prior-high", type=float, default=10.0, help="box prior upper bound on k")
+    p.add_argument("--prior-mean", type=float, default=0.0, help="gaussian prior mean of log k")
+    p.add_argument("--prior-sigma", type=float, default=0.6, help="gaussian prior sd of log k")
+
+
 def _add_build(p: argparse.ArgumentParser) -> None:
     """The offline build's flags, shared by ``invert`` and ``map``."""
     p.add_argument("--device", default="cuda", help="torch device; cpu runs the plain kernel versions")
@@ -598,11 +742,7 @@ def _add_build(p: argparse.ArgumentParser) -> None:
                         "resolution) in float32, 4,000 in float64)")
     p.add_argument("--metrics", type=str, default=None, help="JSONL metrics path")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--prior", choices=["gaussian", "uniform", "log_uniform"], default="gaussian")
-    p.add_argument("--prior-low", type=float, default=0.1, help="box prior lower bound on k")
-    p.add_argument("--prior-high", type=float, default=10.0, help="box prior upper bound on k")
-    p.add_argument("--prior-mean", type=float, default=0.0, help="gaussian prior mean of log k")
-    p.add_argument("--prior-sigma", type=float, default=0.6, help="gaussian prior sd of log k")
+    _add_prior(p)
     p.add_argument("--n-snapshots", type=int, default=256)
     p.add_argument("--r", type=int, default=40)
     p.add_argument("--n-train", type=int, default=1024)
@@ -635,6 +775,8 @@ def _add_invert(p: argparse.ArgumentParser) -> None:
     p.add_argument("--da-coarse", choices=["rom", "rom_nn"], default="rom_nn")
     p.add_argument("--da-inner", choices=["pcn", "mala"], default="pcn",
                    help="da_pcn subchain kernel (mala = gradient-informed)")
+    p.add_argument("--mlda-resolution", type=int, default=2, help="mlda_pcn mid-rung FOM mesh resolution")
+    p.add_argument("--mlda-subchain", type=int, default=4, help="mlda_pcn mid-rung steps per fine correction")
     p.add_argument("--hmc-leap", type=int, default=8,
                    help="hmc leapfrog steps per trajectory; 0 = auto (cross-chain ChEES "
                         "trajectory tuning, rom/rom_nn likelihoods)")
@@ -650,6 +792,15 @@ def _add_invert(p: argparse.ArgumentParser) -> None:
     p.add_argument("--init", choices=["prior", "eki", "vi"], default="prior",
                    help="chain starts: prior draws, an EKI ensemble (~10 batched forwards) or "
                         "draws from a short full-rank ADVI fit; unimodal posteriors only")
+    p.add_argument("--sensors", type=str, default=None,
+                   help="design npz from `design --out`: invert its pointwise sensor observables "
+                        "instead of the five subfin averages")
+    p.add_argument("--predict-at", action="append", default=None, metavar="X,Y",
+                   help="the posterior predictive temperature at a point (repeatable; exact P1 "
+                        "interpolation of a batched FOM solve over the posterior)")
+    p.add_argument("--predict-out", type=str, default=None,
+                   help="save the posterior temperature-field prediction (mean, sd, quantiles "
+                        "per mesh node) as npz")
 
 
 def main(argv=None) -> None:
@@ -751,6 +902,34 @@ def main(argv=None) -> None:
     p.add_argument("--data", type=str, default=None, help=data_help)
     p.add_argument("--psis", type=int, default=0, metavar="K", help=psis_help)
     p.set_defaults(fn=cmd_svgd)
+
+    p = sub.add_parser("sbc", help="simulation-based calibration of a sampler and likelihood")
+    _add_build(p)
+    p.add_argument("--noise", type=float, default=1e-2)
+    p.add_argument("--likelihood", choices=["fom", "rom", "rom_nn"], default="rom_nn")
+    p.add_argument("--sampler", choices=["pcn", "mala", "hmc", "pt_pcn"], default="pcn",
+                   help="the kernel under calibration")
+    p.add_argument("--mala-step", type=float, default=0.1)
+    p.add_argument("--hmc-leap", type=int, default=8)
+    p.add_argument("--temps", type=int, default=5, help="pt_pcn ladder size")
+    p.add_argument("--lambda-min", type=float, default=0.02, help="pt_pcn ladder floor")
+    p.add_argument("--datasets", type=int, default=128, help="synthetic inversions J")
+    p.add_argument("--sbc-chains", type=int, default=31,
+                   help="chains per dataset C (posterior draws per rank; C + 1 must divide by --bins)")
+    p.add_argument("--steps", type=int, default=800)
+    p.add_argument("--burn", type=int, default=400)
+    p.add_argument("--bins", type=int, default=8, help="rank-histogram bins")
+    p.set_defaults(fn=cmd_sbc)
+
+    p = sub.add_parser("design", help="optimal sensor placement: greedy max-information pointwise sensors")
+    _add_common(p)
+    _add_prior(p)
+    p.add_argument("--sensors", type=int, default=5, help="sensors to place")
+    p.add_argument("--noise", type=float, default=1e-2, help="assumed sensor noise")
+    p.add_argument("--draws", type=int, default=16, help="prior draws for the EIG expectation")
+    p.add_argument("--out", type=str, default=None,
+                   help="save the design as npz (node_ids, xy, eig) for `invert --sensors`")
+    p.set_defaults(fn=cmd_design)
 
     p = sub.add_parser("evidence", help="the log evidence by adaptive tempered SMC")
     _add_build(p)

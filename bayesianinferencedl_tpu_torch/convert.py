@@ -28,10 +28,11 @@ from bayesianinferencedl_tpu_torch.api import Pipeline
 from bayesianinferencedl_tpu_torch.infer.flow import CouplingFlow, FlowVIResult
 
 
-def pipeline_from_arrays(cfg, arrays: dict, *, device="cuda", dtype=torch.float32) -> Pipeline:
+def pipeline_from_arrays(cfg, arrays: dict, *, device="cuda", dtype=torch.float32, fin=None) -> Pipeline:
     """``Pipeline.from_arrays`` (the unpacking ``Pipeline.load`` shares), with
-    no error dataset."""
-    return Pipeline.from_arrays(cfg, arrays, device=device, dtype=dtype)
+    no error dataset; fin: the pipeline's own prebuilt fin (a sensor design's,
+    ``infer.oed.with_sensor_qoi``) instead of the config's."""
+    return Pipeline.from_arrays(cfg, arrays, device=device, dtype=dtype, fin=fin)
 
 
 def flow_from_arrays(arrays: dict, *, ref=None, device="cuda", dtype=torch.float32):

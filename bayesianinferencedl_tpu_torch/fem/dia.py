@@ -239,6 +239,14 @@ class StencilOperator:
     def apply(self, k: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         return self.matvec(self.vals(k), u)
 
+    def apply_component(self, i: int, u: torch.Tensor) -> torch.Tensor:
+        """u -> A_i u, the i-th region's component (the Galerkin projection)."""
+        return self.matvec(self.comp_vals[:, :, i], u)
+
+    def apply_ext_mass(self, u: torch.Tensor) -> torch.Tensor:
+        """u -> (M_ext + I_pad) u."""
+        return self.matvec(self.ext_mass + self.fixed, u)
+
     def diag(self, vals: torch.Tensor) -> torch.Tensor:
         return vals[..., self.offsets.index(0)]
 

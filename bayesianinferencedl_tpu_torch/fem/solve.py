@@ -62,12 +62,13 @@ def pcg(matvec, b: torch.Tensor, diag: torch.Tensor, *, tol: float = 1e-10, maxi
     return x, iters, relres
 
 
-def pcg_fom(op, k: torch.Tensor, F: torch.Tensor, *, tol: float, maxiter: int):
+def pcg_fom(op, k: torch.Tensor, F: torch.Tensor, *, tol: float, maxiter: int,
+            x0: torch.Tensor | None = None):
     """``pcg`` on the flat stencil operator A(k) of ``op``: k (..., 5), F
-    broadcasting to (..., n). Returns (x, iters, relres); not
-    differentiable (``solve_fom`` is)."""
+    broadcasting to (..., n), x0 optional warm starts. Returns (x, iters,
+    relres); not differentiable (``solve_fom`` is)."""
     vals = op.vals(k)
-    return pcg(lambda v: op.matvec(vals, v), F, op.diag(vals), tol=tol, maxiter=maxiter)
+    return pcg(lambda v: op.matvec(vals, v), F, op.diag(vals), tol=tol, maxiter=maxiter, x0=x0)
 
 
 class _Solve(torch.autograd.Function):

@@ -20,8 +20,9 @@ generator state as uint8. The meta holds the step reached, the segments
 run, the kept steps and the steps at which sample files were written.
 
 Runners: ``run_pcn_checkpointed``, ``run_mala_checkpointed``,
-``run_hmc_checkpointed``, ``run_da_checkpointed``, ``run_pt_checkpointed``
-and ``run_pt_da_checkpointed`` (the tempered two refuse an odd segment).
+``run_hmc_checkpointed``, ``run_da_checkpointed``, ``run_mlda_checkpointed``,
+``run_pt_checkpointed`` and ``run_pt_da_checkpointed`` (the tempered two
+refuse an odd segment).
 """
 
 from __future__ import annotations
@@ -35,6 +36,13 @@ import torch
 from bayesianinferencedl_tpu_torch.infer.delayed_acceptance import DAResult, DAState, run_da_pcn
 from bayesianinferencedl_tpu_torch.infer.hmc import run_hmc
 from bayesianinferencedl_tpu_torch.infer.mala import MALAResult, MALAState, frame, run_mala
+from bayesianinferencedl_tpu_torch.infer.mlda import (
+    LevelState,
+    MLDAResult,
+    level_rates_spec,
+    mlda_evals_per_step,
+    run_mlda,
+)
 from bayesianinferencedl_tpu_torch.infer.pcn import PCNResult, PCNState, run_pcn
 from bayesianinferencedl_tpu_torch.infer.segmented import (
     RateSpec,
@@ -42,6 +50,7 @@ from bayesianinferencedl_tpu_torch.infer.segmented import (
     accept_rate_spec,
     drive_segments,
     inner_accept_rate_spec,
+    per_kept_spec,
     swap_rate_spec,
 )
 from bayesianinferencedl_tpu_torch.infer.tempering import PTDAResult, PTResult, run_pt_da, run_pt_pcn
@@ -275,15 +284,50 @@ def run_da_checkpointed(
                     beta=c["beta"], n_fine_evals=n_steps + (n_steps + segment - 1) // segment)
 
 
-def _per_kept(get) -> RateSpec:
-    """A post-burn level mean, accumulated as the rates are."""
-    return (get, lambda kept: kept, lambda total: max(total, 1))
+def run_mlda_checkpointed(
+    misfits: tuple,
+    prior,
+    theta0: torch.Tensor,
+    gen: torch.Generator,
+    *,
+    n_steps: int,
+    n_burn: int = 0,
+    beta=0.25,
+    subchains: tuple = (8, 4),
+    segment: int = 200,
+    inner: str = "pcn",
+    ckpt_path: str = "mlda_chain_ckpt.npz",
+    resume: bool = True,
+    metrics: Optional[MetricsLogger] = None,
+) -> MLDAResult:
+    """Multilevel delayed acceptance (``run_mlda_segmented``; n_steps count
+    top steps, each one batched fine evaluation) checkpointed after every
+    segment, with exact resume. Each segment re-evaluates every rung at its
+    start from the carried theta, as the segmented run does, so a resumed
+    run's samples equal an uninterrupted run's bit for bit."""
+    dt = theta0.dtype
+
+    def seg(c, this, burn, start):
+        res = run_mlda(misfits, prior, c["theta"], gen, n_steps=this, n_burn=burn, beta=c["beta"],
+                       subchains=subchains, adapt_t0=float(start), inner=inner)
+        return res, {**res.state._asdict(), "beta": res.beta}
+
+    layout = [("theta", dt), ("phi", dt), ("phi_sub", dt), ("rate_stack", dt), ("beta", dt)]
+    c, samples, phis, rates, _ = _run_checkpointed(
+        "mlda_", seg, {"theta": theta0, "beta": _betas(beta, theta0)}, layout, gen, n_steps=n_steps,
+        n_burn=n_burn, segment=segment,
+        rates={"accept": accept_rate_spec(), "levels": level_rates_spec()},
+        ckpt_path=ckpt_path, resume=resume, metrics=metrics,
+        log_accept=lambda res: {"outer_accept": float(torch.mean(res.accept_rate))})
+    return MLDAResult(state=LevelState(*(c[f] for f in LevelState._fields)), samples=samples,
+                      phi_trace=phis, accept_rate=rates["accept"], level_rates=rates["levels"],
+                      beta=c["beta"], evals_per_step=mlda_evals_per_step(subchains))
 
 
 _PT_LEVEL_RATES = {
-    "phi_mean": _per_kept(lambda r: r.phi_level_mean),
-    "phi2_mean": _per_kept(lambda r: r.phi2_level_mean),
-    "ss_mean": _per_kept(lambda r: r.ss_level_mean),
+    "phi_mean": per_kept_spec(lambda r: r.phi_level_mean),
+    "phi2_mean": per_kept_spec(lambda r: r.phi2_level_mean),
+    "ss_mean": per_kept_spec(lambda r: r.ss_level_mean),
 }
 
 

@@ -140,7 +140,8 @@ def make_inner_kernel(inner: str, misfit_coarse: Callable, prior: GaussianPrior,
     raise ValueError(f"unknown DA inner kernel {inner!r} (use 'pcn' or 'mala')")
 
 
-def adapt_inner(inner: str, log_beta, ema, frac, acc_out, eta: float, target: float):
+def adapt_inner(inner: str, log_beta, ema, frac, acc_out, eta: float, target: float, *,
+                threshold: float = 0.25, weight: float = 2.0):
     """One Robbins-Monro step on the inner kernel's per-chain log step size
     from an outer step's inner accept fraction and outer accepts. pcn drives
     the effective acceptance, inner fraction x outer survival, toward the
@@ -149,13 +150,15 @@ def adapt_inner(inner: str, log_beta, ema, frac, acc_out, eta: float, target: fl
     drift stops killing the correction. That product cannot reach MALA's
     0.574 whenever the outer acceptance sits below it (it rails h to the
     floor), so mala tunes the inner rate to its target and subtracts a
-    penalty only when ``ema``, a running estimate of the outer acceptance,
-    falls below 0.25. Returns (log_beta, ema), log beta clipped to pCN's
-    (1e-4, 0.9999) or MALA's [1e-8, 10]."""
+    penalty, ``weight`` times the shortfall, only when ``ema``, a running
+    estimate of the outer acceptance, falls below ``threshold`` (DA's 0.25
+    and 2; multilevel DA passes the product of its correction rates as
+    acc_out, with 0.4 and 4). Returns (log_beta, ema), log beta clipped to
+    pCN's (1e-4, 0.9999) or MALA's [1e-8, 10]."""
     dtype = log_beta.dtype
     if inner == "mala":
         ema = ema + 0.05 * (acc_out.to(dtype) - ema)
-        drive = (frac - target) - 2.0 * torch.clamp(0.25 - ema, min=0.0)
+        drive = (frac - target) - weight * torch.clamp(threshold - ema, min=0.0)
         return torch.clamp(log_beta + eta * drive, *LOG_H), ema
     drive = frac * acc_out.to(dtype) - target
     return torch.clamp(log_beta + eta * drive, math.log(1e-4), math.log(0.9999)), ema

@@ -142,6 +142,66 @@ def run_pcn(
     )
 
 
+def run_pcn_aux(
+    misfit_aux_fn: Callable,
+    prior: GaussianPrior,
+    theta0: torch.Tensor,
+    aux0: torch.Tensor,
+    gen: Optional[torch.Generator] = None,
+    *,
+    n_steps: int,
+    n_burn: int = 0,
+    beta=0.25,
+    adapt: bool = True,
+    normals: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None,
+) -> tuple[PCNResult, torch.Tensor]:
+    """pCN whose likelihood carries per-chain auxiliary state:
+    misfit_aux_fn(props (C, d), aux) -> (phi (C,), aux_prop), for example
+    the fom misfit returning its solution fields, which warm-start the next
+    proposal's solve (``api.fom_misfit_aux``: local proposals, few
+    iterations). aux (C, ...) is kept per chain on accept as theta is. The
+    step size adapts per chain in the first n_burn steps (clock from 0);
+    only post-burn accepts count. Draws as for ``run_pcn``. Returns
+    (PCNResult, the final aux)."""
+    dtype, dev = theta0.dtype, theta0.device
+    phi, aux = misfit_aux_fn(theta0, aux0)
+    state = PCNState(theta=theta0, phi=phi, n_accept=torch.zeros_like(phi, dtype=torch.int32))
+    log_beta = torch.log(torch.as_tensor(beta, dtype=dtype, device=dev).expand(phi.shape))
+    lo, hi = math.log(1e-4), math.log(0.9999)
+    samples, phis = [], []
+    for t in range(n_steps):
+        xi = normals[t] if normals is not None else torch.randn(theta0.shape, generator=gen,
+                                                                dtype=dtype, device=dev)
+        u = uniforms[t] if uniforms is not None else torch.rand(phi.shape, generator=gen, dtype=dtype,
+                                                                device=dev)
+        b = torch.exp(log_beta)[..., None]
+        with fp32_matmul():
+            xi = xi @ prior.chol.T
+        prop = prior.mean + torch.sqrt(1.0 - b**2) * (state.theta - prior.mean) + b * xi
+        phi_prop, aux_prop = misfit_aux_fn(prop, aux)
+        accept = torch.log(u) < (state.phi - phi_prop)
+        aux = torch.where(accept.reshape((-1,) + (1,) * (aux.dim() - 1)), aux_prop, aux)
+        state = PCNState(theta=torch.where(accept[..., None], prop, state.theta),
+                         phi=torch.where(accept, phi_prop, state.phi),
+                         n_accept=state.n_accept + (accept & (t >= n_burn)).to(torch.int32))
+        if adapt:  # eta is 0 after burn-in, as in the reference's clipped update
+            eta = 0.5 / (1.0 + t) ** 0.6 if t < n_burn else 0.0
+            log_beta = torch.clamp(log_beta + eta * (accept.to(dtype) - TARGET_ACCEPT), lo, hi)
+        if t >= n_burn:
+            samples.append(state.theta)
+            phis.append(state.phi)
+    C, d = theta0.shape
+    kept = max(n_steps - n_burn, 0)
+    return PCNResult(
+        state=state,
+        samples=torch.stack(samples) if samples else theta0.new_zeros((0, C, d)),
+        phi_trace=torch.stack(phis) if phis else theta0.new_zeros((0, C)),
+        accept_rate=state.n_accept.to(torch.float32) / max(kept, 1),
+        beta=torch.exp(log_beta),
+    ), aux
+
+
 def run_pcn_segmented(
     misfit_fn: Callable,
     prior: GaussianPrior,

@@ -106,9 +106,15 @@ def drive_segments(
 # the accounting conventions of the ported samplers
 
 
+def per_kept_spec(get: Callable[[Any], Any]) -> RateSpec:
+    """A mean over the kept steps (a rate, a level mean), read by ``get``:
+    segment value = sum / kept."""
+    return (get, lambda kept: kept, lambda total: max(total, 1))
+
+
 def accept_rate_spec() -> RateSpec:
     """Per-step acceptance: segment rate = count / kept."""
-    return (lambda r: r.accept_rate, lambda kept: kept, lambda total: max(total, 1))
+    return per_kept_spec(lambda r: r.accept_rate)
 
 
 def inner_accept_rate_spec(subchain: int) -> RateSpec:

@@ -40,6 +40,34 @@ class ReducedOperator:
         return self.Ahat.shape[-1]
 
     @classmethod
+    def project(cls, op, V: torch.Tensor) -> "ReducedOperator":
+        """Galerkin projection on the device, in the working dtype, onto
+        span(V) (n, r): the component applies column by column, every
+        contraction in full fp32 (the reference pins them at HIGHEST). The
+        greedy basis's inner loop; the offline build projects in host
+        float64 (``project_host``). The padding rows of apply_ext_mass's
+        identity touch only padding rows, where every basis vector is 0."""
+        Vt = V.T  # (r, n): the applies run over the columns as a batch
+        with fp32_matmul():
+            Ahat = torch.stack([Vt @ op.apply_component(i, Vt).T for i in range(op.comp_vals.shape[2])])
+            Mhat = Vt @ op.apply_ext_mass(Vt).T
+            Fhat = Vt @ op.F_root
+            Bhat = op.qoi @ V
+        return cls(Ahat=Ahat, Mhat=Mhat, Fhat=Fhat, Bhat=Bhat, V=V, biot=float(op.biot))
+
+    def lift(self, u_r: torch.Tensor) -> torch.Tensor:
+        """(..., r) -> (..., n), V u_r in full fp32: the greedy indicator
+        subtracts A(k) V u_r from F, and a reduced-precision lift floors it."""
+        with fp32_matmul():
+            return u_r @ self.V.T
+
+    def residual_norm(self, op, ks: torch.Tensor) -> torch.Tensor:
+        """||F - A(k) V u_r(k)|| for a batch ks (C, 5) -> (C,): the greedy
+        error indicator and an a-posteriori error proxy."""
+        ks = self._k(ks)
+        return torch.linalg.norm(op.F_root - op.apply(ks, self.lift(self.solve(ks))), dim=-1)
+
+    @classmethod
     def project_host(cls, host, biot: float, V, dtype=torch.float32, device="cuda") -> "ReducedOperator":
         """Exact float64 projection on the host (``host`` is a FinFEMDiaHost),
         cast to the online dtype and device (the card unless the caller asks

@@ -20,6 +20,27 @@ def thin_samples(samples: torch.Tensor, n_draws: int) -> torch.Tensor:
     return flat[idx.to(flat.device)]
 
 
+def posterior_predictive(
+    forward_b: Callable,
+    samples: torch.Tensor,
+    noise_sigma: float,
+    gen: Optional[torch.Generator] = None,
+    *,
+    n_draws: int = 1024,
+    noise: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Replicated observations from the posterior: (y_model, y_rep), with
+    y_model = G(theta_i) (n_draws, m) over the evenly thinned samples and
+    y_rep = y_model + noise_sigma * noise. forward_b: batched forward (n, d)
+    -> (n, m) in the coordinates of ``samples``. noise: the standard normals
+    (n_draws, m), else drawn from gen."""
+    theta = thin_samples(samples, n_draws)
+    y_model = forward_b(theta)
+    if noise is None:
+        noise = torch.randn(y_model.shape, generator=gen, dtype=y_model.dtype, device=y_model.device)
+    return y_model, y_model + noise_sigma * noise
+
+
 def ppc_chi2_pvalue(
     forward_b: Callable,
     samples: torch.Tensor,
@@ -32,11 +53,7 @@ def ppc_chi2_pvalue(
     """Returns {"p_value", "t_obs_mean", "t_rep_mean", "n_draws", "n_obs"};
     forward_b: batched forward (n, d) -> (n, m) in the coordinates of
     ``samples``."""
-    theta = thin_samples(samples, n_draws)
-    y_model = forward_b(theta)
-    y_rep = y_model + noise_sigma * torch.randn(
-        y_model.shape, generator=gen, dtype=y_model.dtype, device=y_model.device
-    )
+    y_model, y_rep = posterior_predictive(forward_b, samples, noise_sigma, gen, n_draws=n_draws)
     inv = 1.0 / noise_sigma**2
     t_obs = torch.sum((data[None, :] - y_model) ** 2, -1) * inv
     t_rep = torch.sum((y_rep - y_model) ** 2, -1) * inv

@@ -30,8 +30,8 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               slower than K1 at every one of them
   3. slice    build_pipeline (res4, 256 snapshots, r = 40, 1024 + 128
               training/holdout samples, (64, 64) tanh MLP, 300 epochs) and
-              run_inversion (pcn, rom_nn, 1024 chains, 4000 steps, 1000 burn,
-              noise 1e-2) on the card; the kernel lanes_route names must carry
+              run_inversion (pcn, rom_nn, 1024 chains, 2500 steps, 1000 burn,
+              noise 1e-2; cut from 4000 / 1000 for the time limit) on the card; the kernel lanes_route names must carry
               the FOM solves (>= 3 launches in the build, >= 4 with the
               inversion's truth solve) and the other lanes kernel none, every
               output finite, and the surrogate must lower the training-set
@@ -52,14 +52,15 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               and pass loose moment and neighbour-correlation gates; for each
               kernel at most 1% of chains accept differently; on the others
               theta and log beta within 1e-4 and phi within 1e-3 relative (see
-              _k2_check); (b) the main path, run_pcn_fused over 4,000 steps
-              (1,000 burn-in) timed by CUDA events after the warm-up of (a),
+              _k2_check); (b) the main path, run_pcn_fused over 1,250 steps
+              (1,000 burn-in; cut from phase 3's 2,500 / 1,000 for the time
+              limit) timed by CUDA events after the warm-up of (a),
               with both kernels' launches counted (K2r must carry it, K2 not):
               posterior means within 5 Monte-Carlo standard errors (bulk ESS of
               both runs) of run_inversion's pcn, sds within 10%, accept rates
               within 0.02; split-R-hat printed beside pcn's; K2 timed beside
               K2r on the same run, in turns; (c) the plain version over the
-              same 4,000 steps, timed. For the record, not gated: K2 and K2r
+              same 1,250 steps, timed. For the record, not gated: K2 and K2r
               in turns at C = 4,096 over 1,000 steps.
   5. K3r, K3  the sublanes layout's kernels against their plain torch version
               at res8 (n = 24,960), B = 256, m = 128, tol 1e-7, maxiter 1500.
@@ -93,10 +94,11 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               K3r's output there under the per-case gates
   6. DA       build_pipeline at res8 with phase 3's widths, then
               run_inversion(da_pcn, fom): 1,024 chains, subchains of 64
-              rom_nn pCN steps, noise 1e-2, 60 outer steps (20 burn-in; the
-              reference bench runs 500 / 150). K3r must carry every FOM solve
-              (>= 3 launches in the build, >= 61 in the run), K3 and K1 none;
-              outputs finite, samples (40, 1024, 5), outer accept > 0.6, inner
+              rom_nn pCN steps, noise 1e-2, 24 outer steps (8 burn-in; cut
+              from 60 / 20 for the time limit; the reference bench runs 500 /
+              150). K3r must carry every FOM solve
+              (>= 3 launches in the build, >= 25 in the run), K3 and K1 none;
+              outputs finite, samples (16, 1024, 5), outer accept > 0.6, inner
               accept in (0.05, 0.9), no audited state at the iteration cap.
               Prints stage seconds, ESS/s, outer steps/s, split-R-hat against
               the reference's 1.05 gate, the posterior mean against the truth
@@ -118,8 +120,10 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               no larger than the plain version's own error (the reasons are
               printed); on every sample a gap below 1e-3; mean counts within
               5% of the plain version's; the warm batch's mean count under the
-              cold one's. K4r vs K4 per sample printed. At B = 256 and 64 (the
-              CLI's batches) K4r and the plain version are timed by CUDA events
+              cold one's. K4r vs K4 per sample printed. At B = 64 (rom's test
+              batch; the snapshot batch of 256 was cut for the time limit: its
+              plain version alone took ~54 s; phase 8 runs it through K4r) K4r
+              and the plain version are timed by CUDA events
               on the same inputs and held to the same per-sample 1e-3 gap and
               5% mean counts, with both count spreads, how many solves hit the
               cap (printed, not gated: the cap is the reference's own) and
@@ -133,8 +137,8 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               Laplacian at tol 0 (at least 1,000 iterations in all)
   8. FOM CLI  cli.main in-process at --resolution 32: fom, snapshots --n 256,
               rom --n-snapshots 256 --r 40; then snapshots --resolution 40 --n
-              256 (the reference CLI's default n), a grid whose strips outgrow
-              the card's shared memory. Each with the launch counts set to 0
+              64 (the reference CLI's default n, 256, cut for the time limit),
+              a grid whose strips outgrow the card's shared memory. Each with the launch counts set to 0
               before it and read after: K4r carries every batched solve at
               res32 (>= 1 launch for snapshots, >= 2 for rom) and K4c every one
               at res40 (>= 1), the other kernels none (K4 included),
@@ -149,21 +153,22 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               res40 sweep (961 x 641 grid padded to 968 x 768, cap 4,800): the
               route, K4c's shared memory (the Python count and the kernel's
               own, which must agree), how many clusters of 1-16 blocks the card
-              holds and grid_cluster's pick for B = 1, 8, 64, 256. One set of
-              256 conductivities; B = 8 and 64 are its first samples. K4c
+              holds and grid_cluster's pick for B = 1, 8, 64. One set of
+              64 conductivities; B = 8 is its first samples. K4c
               through pcg_stencil_grid at B = 8 against the plain version
               (every per-sample gap < 1e-3, mean counts within 5%, no sample
               at the cap that the plain version does not also hit); sample 0
               against a float64 direct solve (within max(1e-4, 1.5x the plain
               version's error)); one cold sample alone, its count equal to the
               B = 8 run's where grid_cluster picks one size for both; K4
-              through its launcher at B = 8 under the same gates; K4c against
-              K4 at B = 64 (gap < 1e-3, mean counts within 5%); K4c at B = 256,
-              its first 8 samples under the B = 8 gates. Every run timed by
+              through its launcher at B = 8 under the same gates; K4c at B = 64
+              (phase 8's batch), its first 8 samples under the B = 8 gates,
+              and against K4 at B = 64 (gap < 1e-3, mean counts within 5%). Every run timed by
               CUDA events with its least-work bound and streaming floor (K4c
               68 B a true node, K4 80 B a padded cell). Then every cluster
               size at B = 8 and 64 (gap < 1e-3 from the plain run or the
-              pick's), and whether grid_cluster's pick was the fastest
+              pick's), and whether grid_cluster's pick was the fastest. Cut
+              for the time limit: the batch of 256 (phase 8's sweep is 64)
  10. K5r, K5  the shift-cost probe at B = 64, tile 8, 256 iterations.
               First the route: shift_route's answer at res8 (K5r) and res16
               (K5) on this card, k5r_plan's pick beside the kernel's own count
@@ -193,14 +198,16 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               card with every FOM kernel's count set to 0 just before it and
               read just after. (a) pt_pcn on phase 3's build and data (rom_nn,
               noise 1e-2): 1,024 chains x 4 levels from lambda_min 0.05, the
-              ladder adapted, 4,000 steps (1,000 burn-in): the cold level's
+              ladder adapted, 1,200 steps (400 burn-in; cut from 4,000 /
+              1,000 for the time limit): the cold level's
               means within 5 MCSE of phase 3's pcn posterior and its sds
               within 10% (phase 4's gates), every swap rate in (0, 1), the
               ladder rising strictly to exactly 1 in every chain group, log Z
               and its std finite. (b) the reference bench's headline
               (bench.py:401-445): 4,096 chains x 5 levels, adapted ladder,
-              noise 1e-3, data simulated at phase 3's truth, 2,500 steps
-              (1,000 burn-in; the bench runs 15,000 / 2,000): samples/s,
+              noise 1e-3, data simulated at phase 3's truth, 1,200 steps
+              (500 burn-in; the bench runs 15,000 / 2,000; cut from 2,500 /
+              1,000 for the time limit): samples/s,
               min bulk ESS/s, split-R-hat beside the reference's 1.05, the
               mean ladder, swap rates, log Z and us per step printed; gated
               on finiteness, swap rates and the ladder's shape only. Then the
@@ -208,17 +215,20 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               (and its misfit), the exchange, the ladder, the accumulators.
               (c) pt_da_pcn on the fom likelihood on phase 6's build and
               data: 256 chains x 4 levels (a fine batch of 1,024), subchains
-              of 64, segments of 32, 32 outer steps (10 burn-in): K3r carries
+              of 64, segments of 32, 14 outer steps (4 burn-in; cut from 32 /
+              10 for the time limit): K3r carries
               every fine solve (>= outer steps + segments launches), K3 and
               K1 none; on the cold level outer accept > 0.6 and inner in
               (0.05, 0.9); no audited state at the cap; the PT gates of (a)
               but the posterior's. (d) pcn on the fom likelihood, phase 6's
-              data: 1,024 chains, 128 steps (64 burn-in), segments of 64:
+              data: 1,024 chains, 96 steps (48 burn-in; cut from 128 / 64),
+              segments of 64:
               K3r carries every solve, outputs finite, accept in (0.05,
               0.9), no audited state at the cap; its posterior mean against
               phase 6's da_pcn in MCSE units and beside (c)'s, printed, not
               gated. (e) pcn with infer_noise on phase 3's data, 1,024
-              chains, 1,000 steps (300 burn-in): finite outputs, the noise
+              chains, 600 steps (200 burn-in; cut from 1,000 / 300): finite
+              outputs, the noise
               posterior's quantiles ordered q05 < q50 < q95, printed beside
               the true 1e-2 with the shape-PPC p-value
  12. P12      the Laplace and gradient-sampler layer, each cell through
@@ -233,19 +243,27 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               phase 3's build and data (the rom_nn posterior at noise 1e-2
               that its pcn sampled), each cell's means within 5 combined MCSE
               of that pcn's and its sds within 10%: (a) laplace_mh, 4,096
-              chains, 1,000 steps (300 burn-in; the bench runs 15,000 /
+              chains, 600 steps (200 burn-in; the bench runs 15,000 /
               2,000), accept in (0.05, 1], the MAP's nlp and point printed; (b)
-              mala_lap, 4,096 chains, 600 steps (200 burn-in), accept in
-              (0.3, 0.85]; (c) at 1,024 chains gpcn and mala, 600 steps (200 burn-in), hmc (n_leap 8), 120
-              steps (40 burn-in), and hmc_lap (ChEES, its pick printed), 200
-              steps (100 burn-in); the four Laplace-seeded cells each take an
+              mala_lap, 4,096 chains, 400 steps (150 burn-in), accept in
+              (0.3, 0.85]; (c) at 1,024 chains gpcn, 450 steps (200 burn-in),
+              mala, 350 steps (150 burn-in), hmc (n_leap 8), 45 steps (20
+              burn-in), and hmc_lap
+              (ChEES, its pick printed), 120 steps (60 burn-in; its six
+              probes, 3,024 gradients, are most of its time); laplace_mh,
+              mala_lap, gpcn and mala, hmc, hmc_lap, pt_mala and (e) cut from
+              1,000 / 300, 600 / 200, 600 / 200, 120 / 40, 200 / 100, 600 /
+              200 and 20 / 6 for the time limit; the four Laplace-seeded cells share one
               8-start MAP (~26 s on an H100, its BFGS at the 200-iteration
-              cap in float32, as the reference's); (d) pt_mala,
-              1,024 chains x 4 levels, 600 steps (200 burn-in), the PT gates
+              cap in float32, as the reference's): each would compute the
+              same one (the same build, data, likelihood and seed), so the
+              first cell's is reused by the other three to make room for
+              phase 16; (d) pt_mala,
+              1,024 chains x 4 levels, 350 steps (150 burn-in), the PT gates
               of phase 11 and log Z within 4 combined sds of phase 11 (a)'s
               pt_pcn. On phase
               6's build and data: (e) da_pcn with MALA subchains on fom at
-              res8, 1,024 chains, subchains of 64, 20 outer steps (6
+              res8, 1,024 chains, subchains of 64, 12 outer steps (5
               burn-in): phase 6's gates (outer accept > 0.6, inner in (0.05,
               0.9), K3r carrying every fine solve, no audited state at the cap)
               and its mean within 5 MCSE of phase 6's da_pcn. (f) gpcn on fom
@@ -257,17 +275,19 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               card: misfit gradients against central differences, relative
               error <= 1e-6 (rom_nn) and <= 1e-5 (fom at tol 1e-10)
  13. approx   the approximation layer through its api entry points on the card, on
-              phase 3's build and data, phase 3's pcn (1,024 chains x 4,000
+              phase 3's build and data, phase 3's pcn (1,024 chains x 2,500
               steps) the reference posterior, at the bench's widths: (a) EKI
               on rom_nn, J = 1,024, an untimed warm run, then a timed one: the
               knots rise strictly to exactly 1.0, n_iters < 50, n_forward = J
               (n_iters + 1), the ensemble finite, each mean within one pcn
-              posterior sd of pcn's; (b) full-rank ADVI on rom_nn, 3,000 steps
-              x 32 draws, then psis_certify with 4,096 draws: the ELBO finite
+              posterior sd of pcn's; (b) full-rank ADVI on rom_nn, 400 steps
+              (cut from the bench's 3,000 for the time limit) x 32
+              draws, then psis_certify with 4,096 draws: the ELBO finite
               and its last-50 mean above its first-50, theta_chol lower
               triangular with a positive diagonal, the means within one pcn
               sd, PSIS ess > 0 and k-hat finite; (c) SVGD on rom_nn, 512
-              particles x 800 steps, annealed, then PSIS of its moment-matched
+              particles x 200 steps (cut from the bench's 800), annealed,
+              then PSIS of its moment-matched
               Gaussian with 4,096 draws: the misfit trace finite, the means
               within one pcn sd, k-hat printed, not gated (the reference's
               0.771 fails its own 0.7); (d) run_smc_evidence on rom_nn with
@@ -284,19 +304,20 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               over all groups); psis_certify of (b)'s fit with 4,096 draws,
               exactly 1; every output finite, the fom log Z printed beside
               (d)'s; (f) run_inversion(init="eki") and (init="vi"), pcn on
-              rom_nn, 1,024 chains, 1,000 steps (300 burn-in; cut for the time
+              rom_nn, 1,024 chains, 400 steps (150 burn-in; cut for the time
               limit): the "eki_init" / "vi_init" events logged and phase 12's
               moment gates against phase 3's pcn
  14. flow     the normalizing flow and NeuTra through their api entry points on
               the card, on phase 3's build (phase_flow's docstring holds the
               gates): (a) run_flow_vi_inversion at bench.py's flow_neutra widths
               on phase 11 (b)'s 1e-3 headline data (SMC on 4,096 particles,
-              8 mutations, at most 256 stages, then 3,000 MLE steps of a flow
+              8 mutations, at most 256 stages, then 1,000 MLE steps (the
+              bench's 3,000 cut for the time limit) of a flow
               of 6 couplings of width 32): SMC under 256 stages, the MLE trace
               rising, the flow's round trip within 1e-4; (b) psis_certify_flow,
               8,192 draws, plain and base-widened by 1.5: k-hat finite (printed
               beside the reference's 0.785), ESS > 0, log Z finite; (c)
-              run_neutra_inversion, 4,096 chains x 4,000 steps (1,000 burn-in,
+              run_neutra_inversion, 4,096 chains x 1,000 steps (400 burn-in,
               thin 4; cut from 10,000 / 2,000 for the time limit): accept in
               (0.05, 0.95), the means within one pt_pcn sd
               of the headline's cold level; (d) the identity reduction at 1,024
@@ -322,6 +343,16 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               step, every kept log k inside the box, the two means within one
               pcn sd); (f) run_pt_checkpointed and run_da_checkpointed stopped
               half-way and resumed, bit-identical to uninterrupted runs
+ 16. P16      multilevel delayed acceptance and the workflow around invert
+              (phase_mlda_workflow's docstring holds the gates): (a) mlda_pcn
+              on phase 6's res8 build and data with the FOM at res4 as the mid
+              rung, against phase 6's da_pcn (5 MCSE), K3r's launches per mesh
+              exactly 4 res4 and 1 res8 a top step plus the inits'; (b)
+              run_mlda_checkpointed stopped and resumed, bit-identical; (c)
+              predict_temperature over (a)'s draws at res8, one K3r launch;
+              (d) run_sbc_check of pcn on phase 3's rom_nn build; (e) a 3-sensor
+              design at res4 and a pipeline and pcn run on it; (f) a greedy
+              build at res4
 
 The last three lines are the kernel summary (JSON: time, launches, bound,
 plain time of each kernel), the nvidia-smi line, and
@@ -353,8 +384,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of phase output, headed by the seconds since the script
+    started (where the time limit goes)."""
+    print(f"[{phase} {time.perf_counter() - T_START:.1f}s] {msg}", flush=True)
 
 
 def phase_device():
@@ -464,39 +500,48 @@ def _time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+_DIRECT = {}  # (n, biot, k's bytes) -> (A, u*, the f32-rounded u*'s relative residual)
+
+
+def _direct_solve(fin, k: np.ndarray):
+    """The float64 sparse direct solve at conductivities k: (A, u*, the
+    relative residual of u* rounded to float32), computed once for each
+    mesh and k (the gates hold a kernel and its plain version against the
+    same solve)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    key = (fin.op.n, float(fin.op.biot), np.asarray(k, dtype=np.float64).tobytes())
+    if key not in _DIRECT:
+        As, Mext = fin.host.to_scipy_components()
+        mask = sum(A.diagonal() for A in As) > 0
+        F = fin.host.F_root
+        A = sum(float(ki) * Ai for ki, Ai in zip(k, As)) + fin.op.biot * Mext
+        A = (A + sp.diags(np.where(mask, 0.0, 1.0))).tocsc()
+        us = spla.spsolve(A, F)
+        _DIRECT[key] = (A, us, np.linalg.norm(F - A @ us.astype(np.float32)) / np.linalg.norm(F))
+    return _DIRECT[key]
+
+
 def _direct_rel_err(fin, ks: np.ndarray, u: np.ndarray) -> tuple[np.ndarray, np.ndarray, float]:
     """Per sample: ||u - u*|| / ||u*|| against the float64 sparse direct
     solve u*, and the f64 relative residual of u; and the max over samples
     of that residual for u* rounded to float32 (the floor any float32
     solution sits on)."""
-    import scipy.sparse as sp
-    import scipy.sparse.linalg as spla
-
-    As, Mext = fin.host.to_scipy_components()
-    mask = sum(A.diagonal() for A in As) > 0
     F = fin.host.F_root
     err, res, floor = [], [], 0.0
     for k, ub in zip(ks, u):
-        A = sum(float(ki) * Ai for ki, Ai in zip(k, As)) + fin.op.biot * Mext
-        A = (A + sp.diags(np.where(mask, 0.0, 1.0))).tocsc()
-        us = spla.spsolve(A, F)
+        A, us, fl = _direct_solve(fin, k)
         ub = ub.astype(np.float64)
         err.append(np.linalg.norm(ub - us) / np.linalg.norm(us))
         res.append(np.linalg.norm(F - A @ ub) / np.linalg.norm(F))
-        floor = max(floor, np.linalg.norm(F - A @ us.astype(np.float32)) / np.linalg.norm(F))
+        floor = max(floor, fl)
     return np.array(err), np.array(res), floor
 
 
 def _direct_qoi(fin, k: np.ndarray) -> np.ndarray:
     """The QoI of the float64 sparse direct solve at conductivities k."""
-    import scipy.sparse as sp
-    import scipy.sparse.linalg as spla
-
-    As, Mext = fin.host.to_scipy_components()
-    mask = sum(A.diagonal() for A in As) > 0
-    A = sum(float(ki) * Ai for ki, Ai in zip(k, As)) + fin.op.biot * Mext
-    A = (A + sp.diags(np.where(mask, 0.0, 1.0))).tocsc()
-    return fin.host.qoi @ spla.spsolve(A, fin.host.F_root)
+    return fin.host.qoi @ _direct_solve(fin, k)[1]
 
 
 LANES_BATCHES = (1, 128, B_CHECK, 1024)  # the res4 build's batches and the truth solve's
@@ -653,7 +698,7 @@ def phase_slice():
         fem=FEMConfig(biot=0.1, cg_tol=TOL, cg_maxiter=MAXITER),
         rom=ROMConfig(n_snapshots=256, basis_size=40, online_precision="highest"),
         surrogate=SurrogateConfig(hidden=(64, 64), n_train=1024, epochs=300),
-        mcmc=MCMCConfig(n_chains=1024, n_steps=4000, n_burn=1000, beta=0.25, noise_sigma=1e-2,
+        mcmc=MCMCConfig(n_chains=1024, n_steps=2500, n_burn=1000, beta=0.25, noise_sigma=1e-2,
                         likelihood="rom_nn", sampler="pcn"),
     )
     log = MetricsLogger()
@@ -698,7 +743,7 @@ def phase_slice():
                     ("ess_tail", inv.ess_tail), ("rhat", inv.rhat), ("data", inv.data)):
         if not torch.isfinite(t).all():
             fail(f"non-finite {name}")
-    if tuple(res.samples.shape) != (3000, 1024, 5):
+    if tuple(res.samples.shape) != (1500, 1024, 5):
         fail(f"samples shape {tuple(res.samples.shape)}")
     rom_tr, corr_tr = s["rom_rel_err"]["value"], s["corrected_rel_err"]["value"]
     if not corr_tr < rom_tr:
@@ -710,6 +755,11 @@ def phase_slice():
 
 K2_SEED = 1234
 K2_CHECK_STEPS, K2_CHECK_BURN = 200, 50
+# (b)/(c): the main path's run and the plain version's, cut from phase 3's
+# 2,500 / 1,000 steps for the time limit (over 4,000 steps the plain version
+# took ~50 s); the burn-in stays phase 3's, so beta adapts as far as pcn's
+# did (after 250 burn-in steps the kept accept rate was 0.21 against pcn's 0.23)
+K2_MAIN_STEPS, K2_MAIN_BURN = 1250, 1000
 K2_FLIP_GATE = 0.01  # share of chains whose accept sequences may differ
 K2_STATE_GATE = 1e-4  # |d theta|, |d log beta| on the chains that agree
 K2_PHI_GATE = 1e-3  # |d phi| / max(|phi|, 1) on the chains that agree
@@ -792,7 +842,7 @@ def phase_k2(cfg, pipe, inv):
     from bayesianinferencedl_tpu_torch.ops import _build
 
     mc = cfg.mcmc
-    C, T, NB = mc.n_chains, mc.n_steps, mc.n_burn
+    C, T, NB = mc.n_chains, K2_MAIN_STEPS, K2_MAIN_BURN
     cg = pipe.rom_pcg_iters
     gen = torch.Generator(device="cuda").manual_seed(mc.seed + 2)
     theta0 = pipe.prior.sample(gen, (C,))
@@ -859,7 +909,7 @@ def phase_k2(cfg, pipe, inv):
     e1.synchronize()
     launches = {"K2r": K2.r_launches, "K2": K2.launches}
     first_ms = e0.elapsed_time(e1)
-    eager_us = inv.wall_seconds / T * 1e6
+    eager_us = inv.wall_seconds / mc.n_steps * 1e6
     n_kept = (T - NB) * C
     say("K2", f"run_pcn_fused {T} steps ({NB} burn-in) x {C} chains: {first_ms:.3f} ms, launches "
         f"K2r {launches['K2r']}, K2 {launches['K2']}; the eager pcn step of run_inversion in this "
@@ -1260,7 +1310,7 @@ def phase_k3_res16():
     return dict(max_abs_err=max(abs_err, abs_t), times=times, n=op.n)
 
 
-DA_OUTER, DA_BURN = 60, 20  # cut from the reference bench's 500 / 150 outer steps
+DA_OUTER, DA_BURN = 24, 8  # cut from the reference bench's 500 / 150 outer steps (and from 60 / 20)
 RHAT_GATE = 1.05  # the reference bench's split-R-hat gate
 
 
@@ -1364,12 +1414,12 @@ K4_RES = 32
 K4_CAP = max(480, 120 * K4_RES)  # the reference CLI's _cg_maxiter in float32
 K4_CHECK_B = 32
 K4_DIRECT = 2  # samples held against the float64 direct solve
-K4_BATCHES = (256, 64)  # the snapshots/rom batch and rom's test batch
+K4_BATCHES = (64,)  # rom's test batch (the snapshot batch of 256 cut for the time limit)
 K4_STREAM_B = 64  # the batch at which K4 is timed beside K4r
 FLOOR_ITERS, FLOOR_B = 2000, 4  # the cap and batch of K4r's floor run (phase 7)
 K4_STREAM_RES = 40  # a mesh past K4r's reach on an H100 (res >= 39), so K4c's route
-K4_STREAM_N = 256  # the batch of phase 8's snapshot sweep there (the reference CLI's default --n)
-K4C_BATCHES = (8, 64, 256)  # K4c's timed batches at res40: the first 8 and 64 of the 256
+K4_STREAM_N = 64  # the batch of phase 8's snapshot sweep there (the reference CLI's default --n, 256, cut for the time limit)
+K4C_BATCHES = (8, 64)  # K4c's timed batches at res40: the first 8 of phase 8's 64, and all
 K4C_CAP = max(480, 120 * K4_STREAM_RES)  # the reference CLI's _cg_maxiter in float32: 4,800
 
 
@@ -1458,7 +1508,7 @@ def phase_k4():
     x0, _ = K.pcg_stencil_grid_reference(op.vals_grid(ks * 1.05), F2d, None, **kw)
     cases = (("K4r", "cold", k4r, v2, None), ("K4r", "warm", k4r, v2, x0),
              ("K4r", "cold B=1", k4r, v2[:1].contiguous(), None), ("K4", "cold", k4, v2, None))
-    max_abs, iters, sols = {"K4r": 0.0, "K4": 0.0}, {}, {}
+    max_abs, iters, sols, plain = {"K4r": 0.0, "K4": 0.0}, {}, {}, {}
     for kern, name, solve, v, x0c in cases:
         n_r, n_s = K.grid_resident_launches, K.grid_launches
         xk, itk = solve(v, x0c)
@@ -1466,7 +1516,9 @@ def phase_k4():
         launched = (K.grid_resident_launches - n_r, K.grid_launches - n_s)
         if launched != ((1, 0) if kern == "K4r" else (0, 1)):
             fail(f"{kern} {name}: launches K4r/K4 {launched}")
-        xp, itp = K.pcg_stencil_grid_reference(v, F2d, x0c, **kw)
+        if name not in plain:  # K4's cold case runs on K4r's inputs
+            plain[name] = K.pcg_stencil_grid_reference(v, F2d, x0c, **kw)
+        xp, itp = plain[name]
         if not torch.isfinite(xk).all():
             fail(f"{kern} {name}: non-finite solution")
         rel_s = _rel_gap(xk, xp)
@@ -1778,8 +1830,8 @@ def phase_k4c(k4):
     """K4c (csrc/pcg_stencil_grid_cluster.cu), the single layout's kernel past
     K4r's reach, at the shapes of its main path (phase 8's res40 sweep, cap
     4,800), through pcg_stencil_grid; K4 (csrc/pcg_stencil_grid.cu), off the
-    main path, through its launcher beside it. The batches are the first 8,
-    64 and all 256 of one set of conductivities."""
+    main path, through its launcher beside it. The batches are the first 8
+    and all 64 of one set of conductivities."""
     import torch
 
     from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
@@ -1877,36 +1929,33 @@ def phase_k4c(k4):
         f"per-sample gap max {g.max():.3e} ({int((g == 0).sum())} of 8 bit-identical)")
     del x48
 
-    # B = 64: K4c and K4 on the same inputs
-    v64 = v_all[: K4C_BATCHES[1]]
-    ms64, (x64, it64) = _time_once_ms(lambda: k4c(v64))
-    report("K4c", 64, ms64, it64, K4C_BYTES, nodes)
-    ms464, (x464, it464) = _time_once_ms(lambda: k4(v64))
-    report("K4", 64, ms464, it464, K4_BYTES, cells)
-    g, a, b = _rel_gap(x64, x464), it64.cpu().numpy(), it464.cpu().numpy()
-    say("K4c", f"cold B=64 (clusters of {picks[64]}), same inputs: K4 {ms464:.3f} ms, K4c {ms64:.3f} ms: K4c "
-        f"{ms464 / ms64:.2f}x faster; K4c vs K4 per-sample gap max {g.max():.3e} ({int((g == 0).sum())} of 64 "
-        f"bit-identical); counts mean {a.mean():.1f} vs {b.mean():.1f}, difference max {np.abs(a - b).max()}")
-    if not torch.isfinite(x64).all() or g.max() > 1e-3 or abs(a.mean() / b.mean() - 1) > 0.05:
-        fail(f"K4c B=64 vs K4: gap {g.max():.3e} (gate 1e-3), mean counts {a.mean():.2f} vs {b.mean():.2f} (5%)")
-    del x464
-
-    # B = 256, the main path's batch; its first 8 against the plain run
-    ms256, (x256, it256) = _time_once_ms(lambda: k4c(v_all))
-    report("K4c", 256, ms256, it256, K4C_BYTES, nodes)
-    say("K4c", f"cold B=256 (clusters of {picks[256]}): first 8 samples against the B=8 plain run:")
-    max_abs["K4c"] = max(max_abs["K4c"], _k4c_gates("K4c cold B=256 [:8]", x256[:8], it256[:8], xp, itp,
+    # B = 64, the main path's batch: its first 8 against the plain run, and
+    # K4 on the same inputs
+    B = K4C_BATCHES[-1]
+    msB, (xB, itB) = _time_once_ms(lambda: k4c(v_all))
+    report("K4c", B, msB, itB, K4C_BYTES, nodes)
+    say("K4c", f"cold B={B} (clusters of {picks[B]}): first 8 samples against the B=8 plain run:")
+    max_abs["K4c"] = max(max_abs["K4c"], _k4c_gates(f"K4c cold B={B} [:8]", xB[:8], itB[:8], xp, itp,
                                                     K4C_CAP))
-    a = it256.cpu().numpy()
-    say("K4c", f"cold B=256: counts min/mean/max {a.min()}/{a.mean():.1f}/{a.max()}, at the {K4C_CAP} cap "
+    a = itB.cpu().numpy()
+    say("K4c", f"cold B={B}: counts min/mean/max {a.min()}/{a.mean():.1f}/{a.max()}, at the {K4C_CAP} cap "
         f"{int((a >= K4C_CAP).sum())} (printed, not gated: the cap is the reference CLI's own); finite "
-        f"{bool(torch.isfinite(x256).all())}")
-    if not torch.isfinite(x256).all():
-        fail("K4c B=256: non-finite solution")
-    del x256
+        f"{bool(torch.isfinite(xB).all())}")
+    if not torch.isfinite(xB).all():
+        fail(f"K4c B={B}: non-finite solution")
+    ms4B, (x4B, it4B) = _time_once_ms(lambda: k4(v_all))
+    report("K4", B, ms4B, it4B, K4_BYTES, cells)
+    g, b = _rel_gap(xB, x4B), it4B.cpu().numpy()
+    say("K4c", f"cold B={B}, same inputs: K4 {ms4B:.3f} ms, K4c {msB:.3f} ms: K4c {ms4B / msB:.2f}x faster; "
+        f"K4c vs K4 per-sample gap max {g.max():.3e} ({int((g == 0).sum())} of {B} bit-identical); counts "
+        f"mean {a.mean():.1f} vs {b.mean():.1f}, difference max {np.abs(a - b).max()}")
+    if not torch.isfinite(x4B).all() or g.max() > 1e-3 or abs(a.mean() / b.mean() - 1) > 0.05:
+        fail(f"K4c B={B} vs K4: gap {g.max():.3e} (gate 1e-3), mean counts {a.mean():.2f} vs {b.mean():.2f} "
+             f"(5%)")
+    del x4B
 
     # the cluster sizes beside the pick, at B = 8 (against the plain run) and 64
-    for B, v, ref in ((8, v8, xp), (64, v64, x64)):
+    for B, v, ref in ((8, v8, xp), (K4C_BATCHES[-1], v_all, xB)):
         t = {}
         for c in K.GRID_CLUSTERS:
             t[c], (xc, _) = _time_once_ms(
@@ -2127,13 +2176,14 @@ def phase_k5(k3):
 
 
 PT_TEMPS, PT_LAMBDA_MIN = 4, 0.05  # (a) and (c): a 4-level geometric start from 0.05
-PT_HEAD = dict(n_chains=4096, n_temps=5, lambda_min=0.05, noise_sigma=1e-3, n_steps=2500,
-               n_burn=1000)  # (b): bench.py's headline, cut from 15,000 / 2,000 steps
-PT_DA = dict(n_chains=256, n_steps=32, n_burn=10, subchain=64)  # (c): 256 x 4 = 1,024 fine solves
+PT_A = dict(n_steps=1200, n_burn=400)  # (a): cut from 4,000 / 1,000 for the time limit
+PT_HEAD = dict(n_chains=4096, n_temps=5, lambda_min=0.05, noise_sigma=1e-3, n_steps=1200,
+               n_burn=500)  # (b): bench.py's headline, cut from 15,000 / 2,000 steps
+PT_DA = dict(n_chains=256, n_steps=14, n_burn=4, subchain=64)  # (c): 256 x 4 = 1,024 fine solves
 PT_DA_SEGMENT = 32  # run_inversion's segment for pt_da_pcn on fom
-FOM_PCN = dict(n_chains=1024, n_steps=128, n_burn=64)  # (d)
+FOM_PCN = dict(n_chains=1024, n_steps=96, n_burn=48)  # (d)
 FOM_PCN_SEGMENT = 64  # run_inversion's segment for pcn on fom
-NOISE_RUN = dict(n_steps=1000, n_burn=300)  # (e)
+NOISE_RUN = dict(n_steps=600, n_burn=200)  # (e): cut from 1,000 / 300
 PT_PARTS_REPS = 50  # timed repetitions of each part of a PT step
 
 
@@ -2240,13 +2290,12 @@ def phase_pt(pipe4, inv4, pipe8, inv8):
     k3r = 0
     # (a) pt_pcn against phase 3's pcn on its data: the unimodal posterior
     inv_a, n_a = counted(pipe4, inv4, sampler="pt_pcn", n_temps=PT_TEMPS, lambda_min=PT_LAMBDA_MIN,
-                         adapt_ladder=True)
+                         adapt_ladder=True, **PT_A)
     lam_a, swap_a = _pt_gates("(a)", inv_a)
     means, sds, z, sd_rel, rhats = _posterior_z(inv_a.result.samples, inv4.result.samples)
     say("PT", f"(a) pt_pcn rom_nn, {inv_a.result.samples.shape[1]} chains x {PT_TEMPS} levels, "
-        f"{pipe4.config.mcmc.n_steps} "
-        f"steps ({pipe4.config.mcmc.n_burn} burn-in): {inv_a.wall_seconds:.3f} s, "
-        f"{inv_a.wall_seconds / pipe4.config.mcmc.n_steps * 1e6:.1f} us/step, "
+        f"{PT_A['n_steps']} steps ({PT_A['n_burn']} burn-in): {inv_a.wall_seconds:.3f} s, "
+        f"{inv_a.wall_seconds / PT_A['n_steps'] * 1e6:.1f} us/step, "
         f"{inv_a.samples_per_sec:.1f} cold samples/s; launches {n_a}")
     say("PT", f"(a) cold-level mean {np.round(means[0], 4).tolist()} vs pcn "
         f"{np.round(means[1], 4).tolist()}; |diff| / MCSE {np.round(z, 2).tolist()}; sd "
@@ -2356,14 +2405,14 @@ def phase_pt(pipe4, inv4, pipe8, inv8):
 
 # phase 12: the Laplace and gradient-sampler layer (its steps cut for the time limit)
 # (a) bench.py's cfg_mh (bench.py:766) runs 15,000 / 2,000 steps
-P12_LAP_MH = dict(n_chains=4096, n_steps=1000, n_burn=300)
-P12_MALA_LAP = dict(n_chains=4096, n_steps=600, n_burn=200)  # (b): bench.py's mala_lap block
-P12_GPCN = dict(n_chains=1024, n_steps=600, n_burn=200)  # (c)
-P12_MALA = dict(n_chains=1024, n_steps=600, n_burn=200)  # (c)
-P12_HMC = dict(n_chains=1024, n_steps=120, n_burn=40, hmc_leap=8)  # (c): 8 gradients a step
-P12_CHEES = dict(n_chains=1024, n_steps=200, n_burn=100, hmc_leap=0)  # (c): hmc_lap, ChEES
-P12_PT = dict(n_chains=1024, n_temps=4, lambda_min=0.05, n_steps=600, n_burn=200)  # (d)
-P12_DA = dict(n_chains=1024, subchain=64, n_steps=20, n_burn=6)  # (e)
+P12_LAP_MH = dict(n_chains=4096, n_steps=600, n_burn=200)
+P12_MALA_LAP = dict(n_chains=4096, n_steps=400, n_burn=150)  # (b): bench.py's mala_lap block
+P12_GPCN = dict(n_chains=1024, n_steps=450, n_burn=200)  # (c)
+P12_MALA = dict(n_chains=1024, n_steps=350, n_burn=150)  # (c)
+P12_HMC = dict(n_chains=1024, n_steps=45, n_burn=20, hmc_leap=8)  # (c): 8 gradients a step
+P12_CHEES = dict(n_chains=1024, n_steps=120, n_burn=60, hmc_leap=0)  # (c): hmc_lap, ChEES
+P12_PT = dict(n_chains=1024, n_temps=4, lambda_min=0.05, n_steps=350, n_burn=150)  # (d)
+P12_DA = dict(n_chains=1024, subchain=64, n_steps=12, n_burn=5)  # (e)
 P12_DA_SEGMENT = 64  # run_inversion's segment for da_pcn on fom
 P12_GPCN_FOM = dict(n_chains=256, n_steps=200, n_burn=50)  # (f)
 P12_LOGZ_GATE = 4.0  # (d): |log Z - phase 11 (a)'s| in combined standard deviations
@@ -2506,8 +2555,26 @@ def phase_gradient(pipe4, inv4, pipe8, inv8, inv_pt):
     from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
     from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
 
+    import bayesianinferencedl_tpu_torch.api as api
+
     t_phase = time.perf_counter()
     _p12_f7(pipe4, inv4)
+    # the Laplace-seeded cells all run on phase 3's build, data and seed, so
+    # each would find the same MAP: the first cell's is computed (and timed),
+    # the others reuse it, its event logged again
+    map_laplace, shared = api._map_laplace, {}
+
+    def shared_map(pipe, like, mk_misfit, data, b0, gen, log):
+        if like not in shared:
+            lap = map_laplace(pipe, like, mk_misfit, data, b0, gen, log)
+            shared[like] = (lap, {k: v for k, v in log.summary()["map"].items() if k not in ("event", "t")})
+        else:
+            with log.timer("map_laplace"):
+                pass
+            log.log("map", **shared[like][1])
+        return shared[like][0]
+
+    api._map_laplace = shared_map
 
     def counted(pipe, ref, **mcmc):
         """run_inversion on ref's data and truth, every FOM kernel's count
@@ -2632,6 +2699,7 @@ def phase_gradient(pipe4, inv4, pipe8, inv8, inv_pt):
     if not torch.isfinite(res.samples).all() or not 0.05 < float(res.accept_rate.mean()) <= 1.0:
         fail("(f): non-finite samples or an accept rate outside (0.05, 1]")
 
+    api._map_laplace = map_laplace
     torch.set_float32_matmul_precision("highest")
     _p12_fd_check(pipe4)
     say("P12", f"K3r launches over phase 12: {k3r}; the phase took {time.perf_counter() - t_phase:.1f} s")
@@ -2640,12 +2708,12 @@ def phase_gradient(pipe4, inv4, pipe8, inv8, inv_pt):
 
 # phase 13: the approximation layer at the bench's widths (bench.py:409-410, 841-954)
 P13_EKI_J = 1024  # (a), (e): bench.py's eki block
-P13_VI = dict(n_steps=3000, n_mc=32)  # (b): bench.py's vi_advi block
-P13_SVGD = dict(n_particles=512, n_steps=800)  # (c): bench.py's svgd block
+P13_VI = dict(n_steps=400, n_mc=32)  # (b): bench.py's vi_advi block, its 3,000 steps cut for the time limit
+P13_SVGD = dict(n_particles=512, n_steps=200)  # (c): bench.py's svgd block, its 800 steps cut
 P13_SMC = dict(n_particles=4096, n_groups=8, n_mutations=5, ess_target=0.5, max_stages=64)  # (d)
 P13_SMC_FOM = dict(n_particles=1024, n_groups=4, n_mutations=5, ess_target=0.5, max_stages=64)  # (e)
 P13_PSIS = 4096  # draws of every certificate
-P13_INIT = dict(n_steps=1000, n_burn=300)  # (f): cut for the time limit
+P13_INIT = dict(n_steps=400, n_burn=150)  # (f): cut for the time limit
 P13_LOGZ_GATE = 4.0  # (d): |log Z - phase 11 (a)'s| in combined standard deviations
 
 
@@ -2816,15 +2884,15 @@ def phase_approx(pipe4, inv4, inv_pt):
 
 
 # phase 14: the normalizing flow and NeuTra at the bench's widths (bench.py:411-412, 956-1005)
-P14_FLOW = dict(n_couplings=6, hidden=32, pretrain_particles=4096, pretrain_steps=3000, n_mutations=8,
-                max_stages=256)  # (a): bench.py's flow_neutra block
+P14_FLOW = dict(n_couplings=6, hidden=32, pretrain_particles=4096, pretrain_steps=1000, n_mutations=8,
+                max_stages=256)  # (a): bench.py's flow_neutra block, its 3,000 MLE steps cut
 P14_PSIS = 8192  # (b): 2 x the bench's psis_draws
 P14_WIDEN = 1.5  # (b): the base-widened certificate
-P14_NEUTRA = dict(n_chains=4096, n_steps=4_000, n_burn=1_000, thin=4)  # (c): cut from 10,000 / 2,000
+P14_NEUTRA = dict(n_chains=4096, n_steps=1_000, n_burn=400, thin=4)  # (c): cut from 10,000 / 2,000
 P14_IDENT = 1024  # (d): base points of the identity reduction
 P14_FOM_PSIS = 4096  # (e)
 P14_FOM_NEUTRA = dict(n_chains=1024, n_steps=64, n_burn=32)  # (e)
-P14_NONE = dict(n_couplings=6, hidden=32, pretrain="none", n_steps=400, lr=0.01)  # (f): cut from 3,000
+P14_NONE = dict(n_couplings=6, hidden=32, pretrain="none", n_steps=250, lr=0.01)  # (f): cut from 3,000
 P14_ROUND_TRIP = 1e-4  # (a): |inverse(forward(Z)) - Z| and the log-determinants, float32
 P14_IDENT_GATE = 1e-5  # (d): relative
 P14_REF = {"k_hat": 0.785, "rhat": 1.1085}  # the reference's BENCH_r05 flow_neutra numbers
@@ -2928,7 +2996,7 @@ def _stop_children() -> None:
 def _p14_analytic_start():
     """Start (g)-(i) in a child process on the host's CPU, one thread: they
     are host-bound two- and five-dimensional problems, 60-70 s in all, which
-    run beside (a)-(f) instead of after them. atexit stops the child if this
+    run beside phases 11-14 instead of after them. atexit stops the child if this
     process ends first."""
     import atexit
     import os
@@ -2955,7 +3023,7 @@ def _p14_analytic_join(proc) -> None:
         fail(f"(g)-(i): the analytic cases' process exited {proc.returncode}")
 
 
-def phase_flow(pipe4, inv4, inv_head):
+def phase_flow(pipe4, inv4, inv_head, analytic):
     """Phase 14: the normalizing flow and NeuTra through their api entry points
     on the card, on phase 3's res4 build. (a)-(e) run on phase 11 (b)'s
     headline data (noise 1e-3, phase 3's truth), with its cold-level samples
@@ -2963,8 +3031,8 @@ def phase_flow(pipe4, inv4, inv_head):
     Returns K3r's launches over the phase.
 
     (a) run_flow_vi_inversion at bench.py's widths (6 couplings of width 32,
-        SMC on 4,096 particles with 8 mutations and at most 256 stages, 3,000
-        MLE steps): SMC reaches lambda = 1 under 256 stages, the MLE trace
+        SMC on 4,096 particles with 8 mutations and at most 256 stages, 1,000
+        MLE steps, the bench's 3,000 cut for the time limit): SMC reaches lambda = 1 under 256 stages, the MLE trace
         rises (its last 100 steps' mean above its first 100's), and on 4,096
         base draws inverse(forward(Z)) is within 1e-4 of Z and the two
         log-determinants within 1e-4 of each other.
@@ -2974,7 +3042,7 @@ def phase_flow(pipe4, inv4, inv_head):
         enforced: 0.785 fails it in JAX too), the log evidence beside phase 11
         (b)'s stepping-stone log Z.
     (c) run_neutra_inversion at the bench's 4,096 chains and thin 4, its
-        steps cut for the time limit (4,000 steps, 1,000 burn-in, for the
+        steps cut for the time limit (1,000 steps, 400 burn-in, for the
         bench's 10,000 / 2,000): accept in (0.05, 0.95), every sample
         finite, each coordinate's mean within one pt_pcn sd of the cold
         level's mean. Split-R-hat printed beside the reference's 1.1085.
@@ -2988,14 +3056,14 @@ def phase_flow(pipe4, inv4, inv_head):
         step (run_neutra_inversion adds none: the data are passed and the samples are
         pushed through the flow alone); accept in (0.05, 0.95).
     (f) pretrain="none": annealed reverse-KL flow-VI on phase 3's 1e-2 data,
-        400 steps (cut from the default 3,000) at lr 0.01: the ELBO rises
+        250 steps (cut from the default 3,000) at lr 0.01: the ELBO rises
         (last-50 mean above first-50) and each mean is within one pcn sd of
         phase 3's pcn. This is `vi --flow N --flow-pretrain none`.
     (g)-(i) the reference's analytic cases at its sizes and tolerances
         (_p14_analytic): the weighted MLE split, MLE on a population of
         atoms, NeuTra crossing two basins where plain pCN does not. They run
-        on the host's CPU in a child process started with the phase, beside
-        (a)-(f)."""
+        on the host's CPU in a child process (analytic) that main starts
+        before phase 11, beside phases 11-14."""
     import torch
 
     from bayesianinferencedl_tpu_torch.api import (
@@ -3007,7 +3075,6 @@ def phase_flow(pipe4, inv4, inv_head):
     from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
 
     t_phase = time.perf_counter()
-    analytic = _p14_analytic_start()
     pipe_h = _with_mcmc(pipe4, noise_sigma=PT_HEAD["noise_sigma"])
     data, truth = inv_head.data, inv_head.theta_true
     ref = inv_head.result.samples.double()
@@ -3148,7 +3215,7 @@ def phase_flow(pipe4, inv4, inv_head):
         fail(f"(f): flow-VI mean {err_f.max():.2f} pcn sds from pcn's")
 
     # (g)-(i) the reference's analytic cases, too long for the CPU tests,
-    # from the child started with the phase
+    # from the child started before phase 11
     _p14_analytic_join(analytic)
     say("P14", f"K3r launches over phase 14: {k3r}; the phase took {time.perf_counter() - t_phase:.1f} s")
     return k3r
@@ -3156,10 +3223,11 @@ def phase_flow(pipe4, inv4, inv_head):
 
 # phase 15: persistence, the online tiers, box priors and resumable chains
 P15_SHAPE = (4096, 40)  # (a): the headline's chains of one level x r
-P15_PCN = dict(n_steps=2000, n_burn=500)  # (b1): phase 3's cell, cut from 4,000 / 1,000 for the time limit
-P15_FAST = dict(n_steps=1000, n_burn=300)  # (c): a short pcn run on the fast build
-P15_BOX_PCN = dict(n_chains=1024, n_steps=1000, n_burn=300)  # (e): pcn on rom_nn
-P15_BOX_DA = dict(n_chains=1024, n_steps=12, n_burn=4, subchain=64)  # (e): da_pcn on fom
+P15_PCN = dict(n_steps=700, n_burn=350)  # (b1): phase 3's cell, cut from 4,000 / 1,000 for the time limit
+P15_HEAD = {**PT_HEAD, "n_steps": 500, "n_burn": 200}  # (b2): cut from 2,500 / 1,000
+P15_FAST = dict(n_steps=400, n_burn=150)  # (c): a short pcn run on the fast build
+P15_BOX_PCN = dict(n_chains=1024, n_steps=600, n_burn=200)  # (e): pcn on rom_nn, cut from 1,000 / 300
+P15_BOX_DA = dict(n_chains=1024, n_steps=8, n_burn=3, subchain=64)  # (e): da_pcn on fom, cut from 12 / 4
 # (f): each stopped at a segment boundary half-way, after its burn-in
 P15_PT = dict(n_steps=200, n_burn=50, segment=50, n_temps=4, lambda_min=0.05)  # 1,024 x 4, rom_nn
 P15_DA = dict(n_steps=6, n_burn=2, segment=3, subchain=64)  # res8, 1,024 chains
@@ -3213,11 +3281,14 @@ def phase_persist_precision(pipe4, inv4, slice_log, inv_head, pipe8, inv8):
     float64 (printed). (b) build_pipeline at "high" with phase 3's config:
     the holdout errors printed beside phase 3's and the reference's TPU
     figures; (b1) pcn on phase 3's data and cell, its means within 5 MCSE
-    of phase 3's pcn and its sds within 10% (2,000 steps, 500 burn-in, cut
-    from phase 3's 4,000 / 1,000 for the time limit); (b2) the headline pt_pcn on
-    phase 11 (b)'s data and steps, under phase 11's ladder and swap gates,
-    us a step, split-R-hat and log Z printed beside phase 11 (b)'s. (c) a
-    "fast" build and a short pcn run, printed only. (d) (b)'s pipeline saved
+    of phase 3's pcn and its sds within 10% (700 steps, 350 burn-in, cut
+    from 4,000 / 1,000 for the time limit); (b2) the headline pt_pcn on
+    phase 11 (b)'s data, 500 steps (200 burn-in; cut from 2,500 / 1,000
+    for the time limit),
+    under phase 11's ladder and swap gates, us
+    a step, split-R-hat and log Z printed beside phase 11 (b)'s. (c) a
+    "fast" build and a short pcn run (400 steps, 150 burn-in; cut from
+    1,000 / 300), printed only. (d) (b)'s pipeline saved
     and loaded on the card: the rom_nn batched forward bit-identical, the
     tier "high". (e) a log_uniform [0.1, 10] box prior on phase 6's res8
     build and data: pcn on rom_nn and da_pcn on fom (its subchains from
@@ -3305,13 +3376,13 @@ def phase_persist_precision(pipe4, inv4, slice_log, inv_head, pipe8, inv8):
         fail(f"(b1): sd {100 * sd_rel.max():.1f}% from phase 3's")
 
     # (b2) the headline pt_pcn on the "high" build, phase 11 (b)'s data and steps
-    head = _with_mcmc(pipe_h, sampler="pt_pcn", adapt_ladder=True, **PT_HEAD)
+    head = _with_mcmc(pipe_h, sampler="pt_pcn", adapt_ladder=True, **P15_HEAD)
     inv_b2, n = counted(lambda: run_inversion(head, data=inv_head.data, theta_true=inv_head.theta_true))
     k3r += n
     lam_b2, swap_b2 = _pt_gates("(b2)", inv_b2)
-    us, us_11 = (inv.wall_seconds / PT_HEAD["n_steps"] * 1e6 for inv in (inv_b2, inv_head))
+    us, us_11 = inv_b2.wall_seconds / P15_HEAD["n_steps"] * 1e6, inv_head.wall_seconds / PT_HEAD["n_steps"] * 1e6
     say("P15", f"(b2) headline pt_pcn at high, {PT_HEAD['n_chains']} x {PT_HEAD['n_temps']}, "
-        f"{PT_HEAD['n_steps']} steps: {us:.1f} us/step vs phase 11 (b)'s {us_11:.1f} ({us_11 / us:.3f}x); "
+        f"{P15_HEAD['n_steps']} steps: {us:.1f} us/step vs phase 11 (b)'s {us_11:.1f} ({us_11 / us:.3f}x); "
         f"split-rhat {float(inv_b2.rhat.max()):.4f} vs {float(inv_head.rhat.max()):.4f}; log Z "
         f"{inv_b2.log_evidence:.4f} +- {inv_b2.log_evidence_std:.4f} vs {inv_head.log_evidence:.4f} +- "
         f"{inv_head.log_evidence_std:.4f}; swap rates {np.round(swap_b2, 4).tolist()}; mean ladder "
@@ -3433,6 +3504,263 @@ def phase_persist_precision(pipe4, inv4, slice_log, inv_head, pipe8, inv8):
     return k3r
 
 
+P16_MLDA = dict(n_chains=1024, n_steps=10, n_burn=4, subchain=64, mlda_subchain=4)  # (a): cut from 16 / 6
+P16_MID_RES = 4  # (a): the mid rung's mesh (lanes layout) under phase 6's res8
+P16_SEGMENT = 32  # run_inversion's segment for mlda_pcn
+P16_CKPT = dict(n_steps=8, n_burn=2, segment=2, subchains=(16, 2))  # (b): 256 chains, stopped at 4
+P16_PREDICT = 256  # (c): thinned draws
+P16_SBC = dict(n_datasets=32, n_chains=31, n_steps=800, n_burn=400)  # (d): the reference's steps, J cut
+P16_SENSORS, P16_DRAWS = 3, 16  # (e)
+P16_SENSOR_PCN = dict(n_chains=1024, n_steps=400, n_burn=150)  # (e): cut from 600 / 200
+
+
+def phase_mlda_workflow(card, pipe4, pipe8, inv8):
+    """Phase 16: multilevel delayed acceptance and the inversion workflow on
+    the card, each entry point counted from 0 (K3r's launches split by mesh
+    through a wrapper of pcg_stencil_tile that reads F's length).
+
+    (a) run_inversion(mlda_pcn, init="eki") on phase 6's res8 build and
+    data, the mid rung the FOM at res4: 1,024 chains started from an EKI
+    ensemble on the fom likelihood (from prior draws 20 top steps were
+    measured 21 MCSE off da_pcn's means, not converged), subchains of 64 rom_nn pCN
+    steps, 4 mid steps per fine correction, 10 top steps (4 burn-in; cut
+    from 16 / 6 for the time limit),
+    segments of 32. Gates: the means within 5 combined MCSE of phase 6's
+    da_pcn (both sample the exact res8 FOM posterior), the top-level accept
+    above 0.6 and the base rate in (0.05, 0.9), no audited state at the
+    cap, and K3r exactly 4 res4 launches and 1 res8 launch a top step plus
+    each segment's init (1 of each), the EKI start's batched solves, the
+    warm-up's 2 steps and init, the audit's and the PPC's res8 solve. ms per top step and ESS/s printed beside
+    phase 6's da_pcn. (b) run_mlda_checkpointed on phase 6's misfits, 256
+    chains, subchains (16, 2), 8 top steps in segments of 2, stopped at 4
+    (a checkpoint of the uninterrupted run: K3r's bits for a sample depend
+    on its batch, so a stop off the segment grid re-solves states in other
+    batches than the uninterrupted run did) and resumed: bit-identical to
+    the uninterrupted run. (c)
+    predict_temperature over (a)'s kept draws, 256 thinned draws: exactly
+    one K3r launch; the draws' observables (fin.op.observe of the same
+    solve) within 1e-5 of the batched fom forward's, and a point on a mesh
+    node predicting that node's value to 1e-6. (d) run_sbc_check on phase
+    3's rom_nn build with pcn, J = 32 datasets x C = 31 chains, 800 steps
+    (400 burn-in; the reference's J = 128 cut for time): p_min > 1e-3 and
+    mean accept > 0.05. (e) design_sensors at res4 (3 sensors, 16 prior
+    draws, tol 1e-7): the EIG trace rising strictly, every gain > 0; then
+    build_pipeline(fin=with_sensor_qoi(...)) with phase 3's config and pcn
+    on rom_nn with m = 3 (1,024 chains x 400 steps, 150 burn-in) on data
+    simulated there: accept in (0.05, 0.9). (f) build_pipeline with
+    ROMConfig.method="greedy" and phase 3's config: the ROM's relative
+    error against the FOM on 64 log-uniform conductivities below 0.1 and
+    the host float64 basis's V^T V = I to 1e-10. Returns K3r's launches
+    over the phase."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from bayesianinferencedl_tpu_torch import api
+    from bayesianinferencedl_tpu_torch.infer.oed import design_sensors, solution_indices, with_sensor_qoi
+    from bayesianinferencedl_tpu_torch.infer.pcn import gaussian_misfit
+    from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+    from bayesianinferencedl_tpu_torch.rom.snapshots import sample_log_uniform
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+    from bayesianinferencedl_tpu_torch.utils.ppc import thin_samples
+
+    t_phase = time.perf_counter()
+    by_n = {}
+    tile = K.pcg_stencil_tile
+
+    def split_tile(vals4, F, *a, **kw):  # the batch's mesh, by F's length
+        by_n[F.shape[-1]] = by_n.get(F.shape[-1], 0) + 1
+        return tile(vals4, F, *a, **kw)
+
+    K.pcg_stencil_tile = split_tile
+    n4, n8 = pipe4.fin.op.n, pipe8.fin.op.n
+    k3r = 0
+
+    def counted(fn):
+        """(fn(), K3r launches, {n: launches}), every FOM kernel counted from 0."""
+        K.launches = K.tile_launches = K.tile_mma_launches = 0
+        by_n.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        if K.launches or K.tile_launches:
+            fail(f"K1 {K.launches} / K3 {K.tile_launches} launches where K3r carries the fom solves")
+        return out, K.tile_mma_launches, dict(by_n)
+
+    try:
+        # (a) mlda_pcn on phase 6's build and data
+        m = P16_MLDA
+        mc = _with_mcmc(pipe8, sampler="mlda_pcn", likelihood="fom", mlda_resolution=P16_MID_RES,
+                        da_coarse="rom_nn", da_inner="pcn", **m)
+        log = MetricsLogger()
+        inv, n, split = counted(lambda: api.run_inversion(mc, init="eki", data=inv8.data,
+                                                          theta_true=inv8.theta_true, metrics=log))
+        k3r += n
+        res = inv.result
+        T, seg = m["n_steps"], -(-m["n_steps"] // P16_SEGMENT)
+        n_eki = log.summary()["eki_init"]["n_forward"] // m["n_chains"]  # the EKI start's batched solves
+        want8 = n_eki + (1 + 2) + (T + seg) + 2  # EKI, warm-up (init + 2 steps), run, audit + PPC
+        want4 = (1 + 2 * m["mlda_subchain"]) + (m["mlda_subchain"] * T + seg)
+        outer, rates = float(res.accept_rate.mean()), res.level_rates.mean(1).cpu().numpy()
+        means, sds, z, sd_rel, rhats = _posterior_z(res.samples, inv8.result.samples)
+        step_ms = inv.wall_seconds * 1e3 / T
+        da_ms = inv8.wall_seconds * 1e3 / DA_OUTER
+        say("P16", f"[{card}] (a) mlda_pcn fom res{K3_RES}, mid res{P16_MID_RES}, {m['n_chains']} chains, "
+            f"subchains ({m['subchain']}, {m['mlda_subchain']}), {T} top steps ({m['n_burn']} burn-in): "
+            f"{inv.wall_seconds:.3f} s, {step_ms:.1f} ms a top step (phase 6's da_pcn {da_ms:.1f} ms an "
+            f"outer step), ESS/s {inv.ess_per_sec:.2f} (bulk ESS min {float(inv.ess.min()):.1f}); accept "
+            f"top {outer:.4f}, per level (base, mid, top) {np.round(rates, 4).tolist()}; evals a step "
+            f"{res.evals_per_step}; |diff| / MCSE vs da_pcn {np.round(z, 2).tolist()}, sd rel diff "
+            f"{np.round(sd_rel, 3).tolist()}; split-rhat {rhats[0]:.4f} (da_pcn {rhats[1]:.4f}); audit cap "
+            f"{inv.fom_iter_cap}, max {inv.fom_iter_max}, at cap {inv.fom_hit_cap_frac}")
+        say("P16", f"(a) K3r launches {n}: res{K3_RES} (n = {n8}) {split.get(n8, 0)} (expected {want8}, "
+            f"{n_eki} of them the EKI start's), "
+            f"res{P16_MID_RES} (n = {n4}) {split.get(n4, 0)} (expected {want4}: {m['mlda_subchain']} a top "
+            f"step and 1 a segment, the warm-up's {1 + 2 * m['mlda_subchain']})")
+        if not torch.isfinite(res.samples).all() or tuple(res.samples.shape) != (T - m["n_burn"], m["n_chains"], 5):
+            fail(f"(a): samples {tuple(res.samples.shape)} not finite or misshapen")
+        if z.max() > K2_MEAN_GATE:
+            fail(f"(a): means {z.max():.2f} MCSE from phase 6's da_pcn")
+        if not (outer > 0.6 and 0.05 < rates[0] < 0.9):
+            fail(f"(a): top accept {outer:.4f} not above 0.6 or base rate {rates[0]:.4f} outside (0.05, 0.9)")
+        if inv.fom_hit_cap_frac != 0:
+            fail(f"(a): {inv.fom_hit_cap_frac:.2%} of audited states at the cap")
+        if (split.get(n8, 0), split.get(n4, 0)) != (want8, want4) or n != want8 + want4:
+            fail(f"(a): K3r launches {split} (total {n}), expected res8 {want8} and res4 {want4}")
+
+        # (b) run_mlda_checkpointed stopped half-way and resumed
+        noise8 = pipe8.config.mcmc.noise_sigma
+        fin_mid = FiveParamFin.create(resolution=P16_MID_RES, biot=0.1, device="cuda", cg_tol=TOL,
+                                      cg_maxiter=MAXITER)
+        mid = api.batched_fom_observe(fin_mid)
+        misfits = tuple(gaussian_misfit(f, inv8.data, noise8) for f in (
+            pipe8.working_forward_fn("rom_nn"), lambda xs: mid(pipe8.prior.to_theta(xs)),
+            pipe8.working_forward_fn("fom")))
+        theta0 = pipe8.prior.sample(torch.Generator(device="cuda").manual_seed(81), (256,))
+        root = os.path.join("build", "smoke_p16")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        ck = P16_CKPT
+        run = lambda path, resume, n_steps: api.run_mlda_checkpointed(
+            misfits, pipe8.prior, theta0, torch.Generator(device="cuda").manual_seed(82), n_steps=n_steps,
+            n_burn=ck["n_burn"], subchains=ck["subchains"], segment=ck["segment"], ckpt_path=path,
+            resume=resume)
+        (full, crash, resumed), n_b, _ = counted(lambda: (
+            run(os.path.join(root, "full.npz"), False, ck["n_steps"]),
+            run(os.path.join(root, "crash.npz"), False, ck["n_steps"] // 2),
+            run(os.path.join(root, "crash.npz"), True, ck["n_steps"])))
+        k3r += n_b
+        fields = ("samples", "phi_trace", "beta", "accept_rate", "level_rates", "state.theta", "state.phi")
+        get = lambda r, f: getattr(r.state, f[6:]) if f.startswith("state.") else getattr(r, f)
+        same = {f: bool(torch.equal(get(full, f), get(resumed, f))) for f in fields}
+        say("P16", f"(b) run_mlda_checkpointed, 256 chains, subchains {ck['subchains']}, {ck['n_steps']} top "
+            f"steps in segments of {ck['segment']}, stopped at {ck['n_steps'] // 2} and resumed (K3r {n_b}); "
+            "bit-identical: " + ", ".join(f"{f} {v}" for f, v in same.items()))
+        if not all(same.values()):
+            fail("(b): the resumed MLDA run differs from the uninterrupted one")
+        shutil.rmtree(root, ignore_errors=True)
+
+        # (c) predict_temperature over (a)'s kept draws
+        fin8 = pipe8.fin
+        node = int(np.argmax(fin8.mesh.nodes[:, 1]))  # the top of the post
+        pts = np.vstack([[0.1, 2.3], [-2.5, 0.875], fin8.mesh.nodes[node]])
+        t0 = time.perf_counter()
+        pred, n_c, _ = counted(lambda: api.predict_temperature(pipe8, res.samples, points=pts,
+                                                               n_draws=P16_PREDICT, noise_sigma=noise8))
+        pred_s = time.perf_counter() - t0
+        k3r += n_c
+        x = thin_samples(res.samples, P16_PREDICT)
+        (u, y_fwd), n_c2, _ = counted(lambda: (
+            api.make_fom_solver(fin8, tol=fin8.cg_tol, maxiter=fin8.cg_maxiter)(torch.exp(pipe8.prior.to_theta(x))),
+            pipe8.batched_forward_fn("fom")(pipe8.prior.to_theta(x))))
+        k3r += n_c2
+        obs_gap = float(((fin8.op.observe(u) - y_fwd).abs().max() / y_fwd.abs().max()))
+        mean_gap = float(np.abs(pred.mean - u[:, torch.as_tensor(solution_indices(fin8), device=u.device)]
+                                .double().mean(0).cpu().numpy()).max())
+        node_gap = abs(pred.point_mean[-1] - pred.mean[node]) / abs(pred.mean[node])
+        say("P16", f"[{card}] (c) predict_temperature, {pred.n_draws} draws at res{K3_RES}: {pred_s * 1e3:.1f} ms "
+            f"host (K3r {n_c}); observables vs the batched fom forward {obs_gap:.3e} (gate 1e-5); field mean vs "
+            f"the same solve's {mean_gap:.3e}; node {node} predicted {pred.point_mean[-1]:.6f} vs its value "
+            f"{pred.mean[node]:.6f} ({node_gap:.3e}, gate 1e-6); points {pred.summary_rows()[:2]}")
+        if n_c != 1:
+            fail(f"(c): predict_temperature made {n_c} K3r launches, not 1")
+        if not obs_gap <= 1e-5 or not node_gap <= 1e-6 or not np.isfinite(pred.std).all():
+            fail(f"(c): observables {obs_gap:.3e} or the node's value {node_gap:.3e} off")
+
+        # (d) simulation-based calibration of pcn on phase 3's rom_nn build
+        t0 = time.perf_counter()
+        sbc, n_d, _ = counted(lambda: api.run_sbc_check(pipe4, "rom_nn", seed=16, **P16_SBC))
+        sbc_s = time.perf_counter() - t0
+        k3r += n_d
+        p_min, acc = float(sbc.p_values.min()), float(sbc.accept_rate.mean())
+        say("P16", f"[{card}] (d) run_sbc_check pcn rom_nn, J = {P16_SBC['n_datasets']} x C = "
+            f"{P16_SBC['n_chains']}, {P16_SBC['n_steps']} steps: {sbc_s:.2f} s, p-values "
+            f"{np.round(sbc.p_values.numpy(), 4).tolist()}, p_min {p_min:.4f}, accept {acc:.4f} (K3r {n_d})")
+        if not (p_min > 1e-3 and acc > 0.05):
+            fail(f"(d): p_min {p_min:.4g} or accept {acc:.4f} below the reference's gates")
+
+        # (e) sensor design at res4, then a pipeline on the designed sensors
+        t0 = time.perf_counter()
+        design = design_sensors(pipe4.fin, pipe4.prior, n_sensors=P16_SENSORS, noise_sigma=1e-2,
+                                n_draws=P16_DRAWS, gen=torch.Generator(device="cuda").manual_seed(0), tol=TOL,
+                                maxiter=MAXITER)
+        torch.cuda.synchronize()
+        design_s = time.perf_counter() - t0
+        fin_s = with_sensor_qoi(pipe4.fin, design.node_ids)
+        cfg_s = dataclasses.replace(pipe4.config, mcmc=dataclasses.replace(pipe4.config.mcmc, **P16_SENSOR_PCN))
+        t0 = time.perf_counter()
+        pipe_s, n_e, _ = counted(lambda: api.build_pipeline(cfg_s, device="cuda", fin=fin_s))
+        build_s = time.perf_counter() - t0
+        inv_s, n_e2, _ = counted(lambda: api.run_inversion(pipe_s))
+        k3r += n_e + n_e2
+        acc_s = float(inv_s.result.accept_rate.mean())
+        say("P16", f"[{card}] (e) design_sensors res4, {P16_SENSORS} sensors from {len(design.candidates)} "
+            f"candidates, {P16_DRAWS} draws: {design_s:.2f} s, nodes {design.node_ids.tolist()} at "
+            f"{np.round(design.xy, 4).tolist()}, EIG trace {np.round(design.eig_trace, 4).tolist()}, gains "
+            f"{np.round(design.gains, 4).tolist()}; build on the sensors {build_s:.2f} s (K3r {n_e}), n_obs "
+            f"{pipe_s.fin.op.n_obs}; pcn rom_nn m = 3 {inv_s.wall_seconds:.3f} s, accept {acc_s:.4f} (K3r "
+            f"{n_e2}, the truth solve)")
+        if not (np.all(np.diff(design.eig_trace) > 0) and np.all(design.gains > 0)):
+            fail("(e): the EIG trace does not rise strictly")
+        if pipe_s.fin.op.n_obs != P16_SENSORS or not 0.05 < acc_s < 0.9:
+            fail(f"(e): n_obs {pipe_s.fin.op.n_obs}, accept {acc_s:.4f} outside (0.05, 0.9)")
+
+        # (f) the greedy basis at res4
+        hostV = []
+        ortho = api.orthonormalize_host
+        api.orthonormalize_host = lambda S: hostV.append(ortho(S)) or hostV[-1]
+        cfg_g = dataclasses.replace(pipe4.config, rom=dataclasses.replace(pipe4.config.rom, method="greedy"))
+        log_g = MetricsLogger()
+        t0 = time.perf_counter()
+        try:
+            pipe_g, n_f, _ = counted(lambda: api.build_pipeline(cfg_g, device="cuda", metrics=log_g))
+        finally:
+            api.orthonormalize_host = ortho
+        build_g = time.perf_counter() - t0
+        k3r += n_f
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        k_test = sample_log_uniform(gen, 64, dtype=torch.float32)
+        (y_fom,), n_f2, _ = counted(lambda: (pipe_g.fin.op.observe(api.make_fom_solver(
+            pipe_g.fin, tol=TOL, maxiter=MAXITER)(k_test)),))
+        k3r += n_f2
+        rel = float(torch.linalg.norm(pipe_g.rom.forward(k_test) - y_fom) / torch.linalg.norm(y_fom))
+        V = hostV[0]
+        orth = float(np.abs(V.T @ V - np.eye(V.shape[1])).max())
+        sg = log_g.summary()
+        say("P16", f"[{card}] (f) greedy build res4, r = {pipe_g.rom.r} from {cfg_g.rom.greedy_candidates} "
+            f"candidates: {build_g:.2f} s (snapshots stage {sg['snapshots']['seconds']:.2f} s), K3r {n_f}; "
+            f"rom rel_err_vs_fom {rel:.4e} (gate 0.1); host V^T V - I max {orth:.3e} (gate 1e-10); holdout "
+            f"rom {sg['holdout_rel_err']['rom']:.4e} corrected {sg['holdout_rel_err']['corrected']:.4e}")
+        if not rel < 0.1 or not orth <= 1e-10 or sg["rom_built"]["method"] != "greedy":
+            fail(f"(f): rel err {rel:.4e} or V^T V {orth:.3e} off")
+    finally:
+        K.pcg_stencil_tile = tile
+    say("P16", f"K3r launches over phase 16: {k3r}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return k3r
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
                   ms: float, plain_ms: float, bound: tuple) -> dict:
     return {"name": name, "route": "cuda", "source": f"bayesianinferencedl_tpu_torch/csrc/{source}",
@@ -3440,25 +3768,39 @@ def _kernel_entry(name: str, source: str, replaces: str, launches: int, max_abs_
             "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
 
 
+PHASE_SECONDS: dict[str, float] = {}
+
+
+def _timed(name: str, fn, *args):
+    """fn(*args), its wall seconds kept under name for the closing line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 def main() -> None:
-    card = phase_device()
+    card = _timed("device", phase_device)
     import torch
 
-    phase_build()
-    lanes = phase_kernel()
-    slice_launches, cfg, pipe, inv, slice_log = phase_slice()
-    k2 = phase_k2(cfg, pipe, inv)
-    k3 = phase_k3()
-    k3_launches, pipe8, inv8 = phase_da()
-    k4 = phase_k4()
-    k4_launches = phase_fom_cli(k4)
-    k4c = phase_k4c(k4)
-    k5 = phase_k5(k3)
-    pt_launches, inv_pt, inv_head = phase_pt(pipe, inv, pipe8, inv8)
-    p12_launches = phase_gradient(pipe, inv, pipe8, inv8, inv_pt)
-    p13_launches = phase_approx(pipe, inv, inv_pt)
-    p14_launches = phase_flow(pipe, inv, inv_head)
-    p15_launches = phase_persist_precision(pipe, inv, slice_log, inv_head, pipe8, inv8)
+    _timed("build", phase_build)
+    lanes = _timed("lanes", phase_kernel)
+    slice_launches, cfg, pipe, inv, slice_log = _timed("slice", phase_slice)
+    k2 = _timed("K2", phase_k2, cfg, pipe, inv)
+    k3 = _timed("K3r", phase_k3)
+    k3_launches, pipe8, inv8 = _timed("DA", phase_da)
+    k4 = _timed("K4r", phase_k4)
+    k4_launches = _timed("CLI", phase_fom_cli, k4)
+    k4c = _timed("K4c", phase_k4c, k4)
+    k5 = _timed("K5", phase_k5, k3)
+    analytic = _p14_analytic_start()  # phase 14's host-CPU cases, beside phases 11-14
+    pt_launches, inv_pt, inv_head = _timed("PT", phase_pt, pipe, inv, pipe8, inv8)
+    p12_launches = _timed("P12", phase_gradient, pipe, inv, pipe8, inv8, inv_pt)
+    p13_launches = _timed("P13", phase_approx, pipe, inv, inv_pt)
+    p14_launches = _timed("P14", phase_flow, pipe, inv, inv_head, analytic)
+    p15_launches = _timed("P15", phase_persist_precision, pipe, inv, slice_log, inv_head, pipe8, inv8)
+    p16_launches = _timed("P16", phase_mlda_workflow, card, pipe, pipe8, inv8)
+    say("time", f"seconds by phase {json.dumps(PHASE_SECONDS)}; {sum(PHASE_SECONDS.values()):.1f} s in all")
     t1 = lanes["times"][B_CHECK]
     t3 = k3["times"][1024]
     t4r = k4["times"][K4_BATCHES[0]]
@@ -3483,12 +3825,15 @@ def main() -> None:
         # the headline's truth solve at res4), phase 12's (DA's fine
         # solves at res8, gpcn on fom at res4), phase 13's (EKI, SMC and
         # PSIS on fom at res4), phase 14's (the flow's PSIS and NeuTra on
-        # fom at res4) and phase 15's (the high and fast builds at res4, the
-        # box-prior da_pcn and the checkpointed DA's fine solves at res8)
+        # fom at res4), phase 15's (the high and fast builds at res4, the
+        # box-prior da_pcn and the checkpointed DA's fine solves at res8) and
+        # phase 16's (MLDA's mid rung at res4 and fine correction at res8,
+        # the checkpointed MLDA, the prediction at res8, the sensor and
+        # greedy builds at res4)
         _kernel_entry("pcg_stencil_tile_mma", "pcg_stencil_tile_mma.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385",
                       slice_launches["K3r"] + k3_launches + pt_launches + p12_launches + p13_launches
-                      + p14_launches + p15_launches,
+                      + p14_launches + p15_launches + p16_launches,
                       max(k3["max_abs_err"], lanes["max_abs"]["K3r"]), t3["ms"], t3["plain_ms"],
                       t3["bound"]),
         # K3, off the main path since K3r: timed on the same inputs, for the record

@@ -57,8 +57,9 @@ def test_rom_keys_error_and_npz(capsys, tmp_path):
     assert 0 < t["rel_err_vs_fom"] < 0.1, t
     with np.load(tmp_path / "j.npz") as jz, np.load(tmp_path / "t.npz") as tz:
         assert sorted(tz.files) == sorted(jz.files) and tz["V"].shape == jz["V"].shape
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tcli.main(["rom", "--device", "cpu", "--resolution", "1", "--method", "greedy"])
+    # the greedy basis, ported: the same keys, an error below 0.1
+    g = _run(tcli.main, argv + ["--device", "cpu", "--method", "greedy"], capsys)
+    assert set(g) == set(j) and g["method"] == "greedy" and 0 < g["rel_err_vs_fom"] < 0.1, g
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

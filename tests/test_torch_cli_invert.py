@@ -3,7 +3,8 @@ CPU: ``--dtype`` (the float64 pipeline at tol 1e-10 under the reference's
 cap of 4,000; float32, the default, at 1e-7 under max(480, 120 res)),
 ``--data`` (the ``fom --save-obs`` round trip, with ``theta_true`` null, as
 tests/test_external_data.py holds the JAX CLI), and ``build_pipeline``'s
-refusal of the greedy ROM basis, which is not ported. Both CLIs run on the
+refusal of a ROM method other than POD and the greedy basis (the greedy
+build itself: tests/test_torch_greedy.py). Both CLIs run on the
 same argv with their pipeline stubbed (what each hands ``build_pipeline``
 and ``run_inversion``, and how each prints the same inversion result), and
 the float64 FOM solve that makes the synthetic truth is held against the
@@ -44,8 +45,10 @@ SMALL = ["--device", "cpu", "--resolution", "1", "--n-snapshots", "32", "--r", "
 
 
 def test_build_pipeline_refuses_greedy():
-    cfg = PipelineConfig(mesh=MeshConfig(resolution=1), rom=ROMConfig(method="greedy"))
-    with pytest.raises(NotImplementedError, match="item 21"):
+    """The greedy basis is ported; what build_pipeline refuses now is a method
+    that is neither "pod" nor "greedy" (the reference would build POD)."""
+    cfg = PipelineConfig(mesh=MeshConfig(resolution=1), rom=ROMConfig(method="greedy_svd"))
+    with pytest.raises(ValueError, match="'pod' or 'greedy'"):
         api.build_pipeline(cfg, device="cpu")
 
 

@@ -166,17 +166,18 @@ def test_run_da_pcn_segmented_replays_reference_over_three_segments():
 
 
 def test_da_corrects_biased_coarse_to_fine_posterior():
-    """The reference test's sizes and tolerances, on the port's own draws."""
+    """The reference test's tolerances and kept draws (8x its chains for an
+    eighth of its kept steps), on the port's own draws."""
     _, t, mu, Cpost = _problem()
     gen = torch.Generator().manual_seed(0)
-    theta0 = t["prior"].sample(gen, (64,))
-    res = tda.run_da_pcn(t["fine"], t["coarse"], t["prior"], theta0, gen, n_steps=6000, n_burn=1000,
+    theta0 = t["prior"].sample(gen, (512,))
+    res = tda.run_da_pcn(t["fine"], t["coarse"], t["prior"], theta0, gen, n_steps=875, n_burn=250,
                          beta=0.4, subchain=4)
     samples = res.samples.reshape(-1, D).numpy()
     np.testing.assert_allclose(samples.mean(0), mu, atol=0.06)
     np.testing.assert_allclose(np.cov(samples.T), Cpost, atol=0.08)
     # the coarse posterior is elsewhere: pCN on it disagrees
-    res_c = run_pcn(t["coarse"], t["prior"], theta0, gen, n_steps=4000, n_burn=1000, beta=0.4)
+    res_c = run_pcn(t["coarse"], t["prior"], theta0, gen, n_steps=625, n_burn=250, beta=0.4)
     assert np.linalg.norm(res_c.samples.reshape(-1, D).numpy().mean(0) - mu) > 0.15
     assert 0.2 < float(res.accept_rate.mean()) < 0.999
 

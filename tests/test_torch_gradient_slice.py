@@ -92,9 +92,10 @@ def test_run_inversion_runs_each_new_sampler(pipe, sampler):
 
 
 def test_run_inversion_refusals(pipe):
-    assert api._UNPORTED == {"mlda_pcn": 19}
-    with pytest.raises(NotImplementedError, match="item 19"):
-        api.run_inversion(pipe, sampler="mlda_pcn", likelihood="fom")
+    # mlda_pcn is ported (tests/test_torch_mlda.py): it refuses any likelihood but fom
+    assert not hasattr(api, "_UNPORTED")
+    with pytest.raises(ValueError, match="likelihood='fom'"):
+        api.run_inversion(pipe, sampler="mlda_pcn", likelihood="rom_nn")
     with pytest.raises(NotImplementedError, match="pt_mala with the fom likelihood"):
         api.run_inversion(pipe, sampler="pt_mala", likelihood="fom")
     import dataclasses

@@ -11,7 +11,8 @@
    gives: rounding differences of ~1e-15 grow along a chain.
 2. tests/test_hmc.py's ChEES case on the port's own torch.Generator, at
    its tolerances: the interior pick on an anisotropic posterior and the
-   kept run's moments. Its other analytic cases are in
+   kept run's moments (2,048 chains, 500 trajectories, 250 burn-in: 512k
+   kept draws, where 700 / 300 kept 819k). Its other analytic cases are in
    test_torch_hmc_analytic.py."""
 
 import jax
@@ -220,8 +221,8 @@ def test_hmc_chees_auto_trajectory():
         return 0.5 / sigma**2 * torch.sum(r * r, -1)
 
     gen = torch.Generator().manual_seed(1)
-    res, info = thmc.run_hmc_chees(misfit, prior, prior.sample(gen, (2048,)), gen, n_steps=700,
-                                   n_burn=300, step=0.1)
+    res, info = thmc.run_hmc_chees(misfit, prior, prior.sample(gen, (2048,)), gen, n_steps=500,
+                                   n_burn=250, step=0.1)
     assert 1 < info["n_leap"] < info["candidates"][-1], info
     cpg = info["chees_per_grad"]
     assert cpg[info["candidates"].index(info["n_leap"])] >= max(cpg[0], cpg[-1])

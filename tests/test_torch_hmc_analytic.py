@@ -1,9 +1,11 @@
 """The analytic cases of tests/test_hmc.py on the port's HMC
 (infer/hmc.py) with its own torch.Generator, at that file's tolerances: the
 linear-Gaussian posterior at d = 16, HMC's ESS lead per gradient over MALA,
-and the Laplace frame with the segmented runner. The first two run 2,000
-and 1,000 trajectories where the reference runs 3,000 and 2,000, to keep
-the file within its time on one CPU thread; their gates are the
+and the Laplace frame with the segmented runner. The ESS comparison runs
+1,000 trajectories where the reference runs 2,000; the two posterior cases
+run 512 chains for 188 kept trajectories each (64 x 1,500 kept before, the
+reference 3,000 trajectories), the chains a batch and the loop eager, to
+keep the file within its time on one CPU thread; their gates are the
 reference's. The replays against JAX and the ChEES case are in
 test_torch_hmc.py."""
 
@@ -33,7 +35,7 @@ def _setup(d=16, m=24, sigma=0.5, seed=0):
 def test_hmc_matches_analytic_posterior():
     prior, misfit, mu, Cpost = _setup()
     gen = torch.Generator().manual_seed(0)
-    res = thmc.run_hmc(misfit, prior, prior.sample(gen, (64,)), gen, n_steps=2000, n_burn=500, step=0.1,
+    res = thmc.run_hmc(misfit, prior, prior.sample(gen, (512,)), gen, n_steps=313, n_burn=125, step=0.1,
                        n_leap=8)
     s = res.samples.reshape(-1, 16).numpy()
     np.testing.assert_allclose(s.mean(0), mu, atol=0.05)
@@ -56,9 +58,9 @@ def test_hmc_laplace_frame_and_segmented():
     prior, misfit, mu, Cpost = _setup(d=8, m=12)
     gen = torch.Generator().manual_seed(3)
     ref = (torch.from_numpy(mu), torch.from_numpy(np.linalg.cholesky(Cpost)))
-    res = thmc.run_hmc_segmented(misfit, prior, prior.sample(gen, (64,)), gen, n_steps=2000, n_burn=500,
-                                 step=0.5, n_leap=4, segment=256, ref=ref)
+    res = thmc.run_hmc_segmented(misfit, prior, prior.sample(gen, (512,)), gen, n_steps=313, n_burn=125,
+                                 step=0.5, n_leap=4, segment=64, ref=ref)
     s = res.samples.reshape(-1, 8).numpy()
     np.testing.assert_allclose(s.mean(0), mu, atol=0.05)
     np.testing.assert_allclose(np.cov(s.T), Cpost, atol=0.06)
-    assert res.samples.shape[0] == 1500
+    assert res.samples.shape[0] == 188

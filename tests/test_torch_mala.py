@@ -14,7 +14,10 @@
    torch.Generator, at that file's tolerances: the linear-Gaussian
    posterior in the prior's frame and in a deliberately mismatched one, the
    prior with no data, MALA's ESS lead over pCN at d = 16, the segmented
-   run, and the thinned shapes."""
+   run, and the thinned shapes. The posterior and prior cases run 8x the
+   reference's chains for an eighth of its kept steps (the same kept
+   draws; the chains are a batch and the loop eager, so steps cost the
+   time)."""
 
 import jax
 import jax.numpy as jnp
@@ -201,7 +204,7 @@ def _linear_gaussian(d=3, m=4, sigma=0.5, prior_sigma=1.0, seed=0):
 def test_mala_matches_analytic_posterior():
     misfit, prior, mu, Cpost = _linear_gaussian()
     gen = torch.Generator().manual_seed(0)
-    res = tmala.run_mala(misfit, prior, prior.sample(gen, (64,)), gen, n_steps=6000, n_burn=1000)
+    res = tmala.run_mala(misfit, prior, prior.sample(gen, (512,)), gen, n_steps=875, n_burn=250)
     s = res.samples.reshape(-1, 3).numpy()
     np.testing.assert_allclose(s.mean(0), mu, atol=0.05)
     np.testing.assert_allclose(np.cov(s.T), Cpost, atol=0.06)
@@ -216,7 +219,7 @@ def test_mala_exact_under_mismatched_preconditioner():
     A = rng.standard_normal((3, 3)) * 0.4 + np.eye(3)
     ref = (torch.from_numpy(rng.standard_normal(3) * 0.5), torch.from_numpy(np.linalg.cholesky(A @ A.T)))
     gen = torch.Generator().manual_seed(2)
-    res = tmala.run_mala(misfit, prior, prior.sample(gen, (64,)), gen, n_steps=6000, n_burn=1500,
+    res = tmala.run_mala(misfit, prior, prior.sample(gen, (512,)), gen, n_steps=940, n_burn=375,
                          ref=ref)
     s = res.samples.reshape(-1, 3).numpy()
     np.testing.assert_allclose(s.mean(0), mu, atol=0.05)
@@ -227,7 +230,7 @@ def test_mala_prior_invariance_no_data():
     prior = TPrior.iid(2, mean=1.0, sigma=0.7, dtype=torch.float64, device="cpu")
     misfit = lambda x: torch.zeros(x.shape[:-1], dtype=x.dtype) * x.sum(-1)
     gen = torch.Generator().manual_seed(2)
-    res = tmala.run_mala(misfit, prior, prior.sample(gen, (32,)), gen, n_steps=4000, n_burn=500)
+    res = tmala.run_mala(misfit, prior, prior.sample(gen, (256,)), gen, n_steps=563, n_burn=125)
     s = res.samples.reshape(-1, 2).numpy()
     np.testing.assert_allclose(s.mean(0), 1.0, atol=0.05)
     np.testing.assert_allclose(s.std(0), 0.7, atol=0.05)
@@ -246,12 +249,12 @@ def test_mala_beats_pcn_ess_on_concentrated_posterior():
 def test_mala_segmented_matches_single_run_stats():
     misfit, prior, mu, Cpost = _linear_gaussian()
     gen = torch.Generator().manual_seed(0)
-    res = tmala.run_mala_segmented(misfit, prior, prior.sample(gen, (64,)), gen, n_steps=6000,
-                                   n_burn=1000, segment=512)
+    res = tmala.run_mala_segmented(misfit, prior, prior.sample(gen, (512,)), gen, n_steps=875,
+                                   n_burn=250, segment=128)
     s = res.samples.reshape(-1, 3).numpy()
     np.testing.assert_allclose(s.mean(0), mu, atol=0.05)
     np.testing.assert_allclose(np.cov(s.T), Cpost, atol=0.06)
-    assert res.samples.shape == (5000, 64, 3)
+    assert res.samples.shape == (625, 512, 3)
     assert 0.3 < float(res.accept_rate.mean()) < 0.9
 
 

@@ -8,7 +8,8 @@
    splits, and must give every field of JAX's result to 1e-10.
 2. tests/test_tempering.py's case on the port's own torch.Generator, at
    its tolerances: the fine model's bimodal masses from subchains on the
-   biased, equal-well coarse model."""
+   biased, equal-well coarse model (4x its chains for a quarter of its
+   kept steps: the same kept draws)."""
 
 import jax
 import jax.numpy as jnp
@@ -72,8 +73,8 @@ def test_pt_da_mala_inner_exact_bimodal_masses():
     misfit_c, _, _ = _bimodal(0.0)
     prior = TPrior.iid(1, mean=0.0, sigma=1.0, dtype=torch.float64, device="cpu")
     gen = torch.Generator().manual_seed(2)
-    res = tt.run_pt_da(misfit_f, misfit_c, prior, prior.sample(gen, (64,)), gen, n_steps=4000,
-                       n_burn=1000, beta=0.05, subchain=4, n_temps=5, lambda_min=0.02, inner="mala")
+    res = tt.run_pt_da(misfit_f, misfit_c, prior, prior.sample(gen, (256,)), gen, n_steps=1000,
+                       n_burn=250, beta=0.05, subchain=4, n_temps=5, lambda_min=0.02, inner="mala")
     s = res.samples.reshape(-1).numpy()
     assert abs(float((s > 0).mean()) - mass_right) < 0.05
     assert abs(s.mean() - mean) < 0.1

@@ -4,7 +4,7 @@ uninterrupted run from the same generator state bit for bit (samples,
 final state, adapted step sizes, accept accounting), the cases of the
 reference's tests/test_resume.py on the port's own runs: pcn, da, pt,
 pt_da, mala and hmc, the odd-segment refusal and a burn-only run's empty
-arrays (mlda waits for its sampler). An uninterrupted checkpointed run
+arrays (mlda's resume: tests/test_torch_mlda.py). An uninterrupted checkpointed run
 also equals the sampler's segmented runner on the same generator, so the
 checkpoints change nothing of the draws. Float64, 16 chains, a linear
 Gaussian misfit in three dimensions, the reference's step counts."""

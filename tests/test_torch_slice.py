@@ -37,6 +37,24 @@ torch.set_num_threads(1)  # one intra-op thread a process: the test workers shar
 C, D = 32, 5
 
 
+def _run_dir(name: str) -> Path:
+    """A directory of this test run under the temporary directory, shared
+    by its worker processes."""
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID", str(os.getpid()))
+    root = Path(tempfile.gettempdir()) / f"{name}_{run}"
+    root.mkdir(parents=True, exist_ok=True)
+    return root
+
+
+# One JAX compilation cache for the test run: the port's files compile many of
+# the same reference programs (the builds, the forwards, the CLIs' samplers)
+# in several worker processes, and a worker that finds a program compiled by
+# another loads it instead. Every worker imports this module when it collects.
+jax.config.update("jax_compilation_cache_dir", str(_run_dir("bidl_jax_cache")))
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+
+
 def _cfg(cg_tol, cfg=tcfg, **mcmc):
     """The test's PipelineConfig, from the port's config module (default) or
     the JAX package's (``cfg=jcfg``): each side is built from its own."""
@@ -72,9 +90,7 @@ def jax_build(cfg, dtype):
     bare = dataclasses.replace(cfg, mcmc=jcfg.MCMCConfig(noise_sigma=1e-4 if cfg.mcmc.noise_sigma < 5e-4
                                                          else 1e-2))
     key = hashlib.sha256(f"{bare!r} {jnp.dtype(dtype).name}".encode()).hexdigest()[:16]
-    run = os.environ.get("PYTEST_XDIST_TESTRUNUID", str(os.getpid()))
-    root = Path(tempfile.gettempdir()) / f"bidl_jax_builds_{run}"
-    root.mkdir(parents=True, exist_ok=True)
+    root = _run_dir("bidl_jax_builds")
     path = root / f"{key}.npz"
     with open(root / f"{key}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # one builder; the others wait for its file
@@ -89,14 +105,17 @@ def jax_build(cfg, dtype):
 _BUILDS: dict = {}
 
 
-def cached_build_pipeline(cfg, *, device="cuda", dtype=torch.float32, metrics=None,
+def cached_build_pipeline(cfg, *, device="cuda", dtype=torch.float32, metrics=None, fin=None,
                           _build=api.build_pipeline):
     """api.build_pipeline, built once per process for each configuration: a
     repeat with the same fields but the MCMC ones (of which the build reads
     only noise_sigma) returns the first build under the asked-for config,
     and logs the first build's events into ``metrics`` again. The build is
     deterministic and no code of the port mutates a Pipeline, so the CLI
-    tests run their commands on one build instead of one each."""
+    tests run their commands on one build instead of one each. A build on a
+    given fin (a sensor design's) is not cached."""
+    if fin is not None:
+        return _build(cfg, device=device, dtype=dtype, metrics=metrics, fin=fin)
     key = (repr(dataclasses.replace(cfg, mcmc=tcfg.MCMCConfig(noise_sigma=cfg.mcmc.noise_sigma))),
            str(device), str(dtype))
     if key not in _BUILDS:
@@ -177,7 +196,8 @@ def test_port_build_and_inversion_on_cpu():
 
 def test_unported_options_raise(converted):
     _, tpipe = converted
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # mlda_pcn is ported; on this res1 pipeline its default mid rung (res2) is not coarser
+    with pytest.raises(ValueError, match="must be coarser"):
         api.run_inversion(tpipe, sampler="mlda_pcn", likelihood="fom")
     # the "high" tier (bf16x3) is ported: the build runs at it and says so
     cfg = _cfg(1e-7)

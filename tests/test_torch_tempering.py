@@ -11,7 +11,10 @@ reference, in float64 at small sizes unless a case says otherwise.
    subchains run: test_torch_pt_mala.py).
 4. The analytic cases of tests/test_tempering.py on the port's own
    torch.Generator, at that file's tolerances: the unimodal linear-Gaussian
-   posterior and the bimodal mode masses, for PT-pCN and tempered DA.
+   posterior and the bimodal mode masses, for PT-pCN and tempered DA, with
+   8x the reference's chains for an eighth of its kept steps (unimodal) and
+   4x for a quarter (bimodal): the same kept draws, the chains a batch and
+   the loop eager.
 5. The slice at res2: a JAX float32 pipeline carried over by
    convert.pipeline_from_arrays, run_pt_pcn on the real rom_nn misfit with
    replayed draws, within 1e-5 of JAX's, and both sides' log Z within 1e-4."""
@@ -290,7 +293,7 @@ def _hops(samples) -> float:
 def test_pt_matches_analytic_posterior_unimodal():
     misfit, prior, mu, Cpost = _linear_gaussian()
     gen = torch.Generator().manual_seed(0)
-    res = tt.run_pt_pcn(misfit, prior, prior.sample(gen, (64,)), gen, n_steps=6000, n_burn=1000,
+    res = tt.run_pt_pcn(misfit, prior, prior.sample(gen, (512,)), gen, n_steps=875, n_burn=250,
                         beta=0.4, n_temps=4, lambda_min=0.1)
     samples = res.samples.reshape(-1, 3).numpy()
     np.testing.assert_allclose(samples.mean(0), mu, atol=0.05)
@@ -302,14 +305,14 @@ def test_pt_recovers_bimodal_masses_where_pcn_fails():
     misfit, _, mass_right, mean = _bimodal_setup()
     prior = TPrior.iid(1, mean=0.0, sigma=1.0, dtype=torch.float64, device="cpu")
     gen = torch.Generator().manual_seed(2)
-    theta0 = prior.sample(gen, (64,))
-    res = tt.run_pt_pcn(misfit, prior, theta0, gen, n_steps=8000, n_burn=2000, beta=0.3, n_temps=5,
+    theta0 = prior.sample(gen, (256,))
+    res = tt.run_pt_pcn(misfit, prior, theta0, gen, n_steps=2000, n_burn=500, beta=0.3, n_temps=5,
                         lambda_min=0.02)
     s = res.samples.reshape(-1).numpy()
     assert abs(float((s > 0).mean()) - mass_right) < 0.05
     assert abs(s.mean() - mean) < 0.1
     # single-temperature pCN on the same budget: chains freeze in their well
-    res_1t = run_pcn(misfit, prior, theta0, gen, n_steps=8000, n_burn=2000, beta=0.3)
+    res_1t = run_pcn(misfit, prior, theta0, gen, n_steps=2000, n_burn=500, beta=0.3)
     assert _hops(res_1t.samples) < 1e-3
     assert _hops(res.samples) > 1e-3  # PT's cold chains hop
 
@@ -319,8 +322,8 @@ def test_pt_da_identity_coarse_matches_analytic():
     the cold level must match the analytic posterior."""
     misfit, prior, mu, Cpost = _linear_gaussian()
     gen = torch.Generator().manual_seed(0)
-    res = tt.run_pt_da(misfit, misfit, prior, prior.sample(gen, (64,)), gen, n_steps=2500,
-                       n_burn=500, beta=0.4, subchain=4, n_temps=3, lambda_min=0.1)
+    res = tt.run_pt_da(misfit, misfit, prior, prior.sample(gen, (512,)), gen, n_steps=375,
+                       n_burn=125, beta=0.4, subchain=4, n_temps=3, lambda_min=0.1)
     np.testing.assert_allclose(res.accept_rate.numpy(), 1.0)
     samples = res.samples.reshape(-1, 3).numpy()
     np.testing.assert_allclose(samples.mean(0), mu, atol=0.05)
@@ -335,8 +338,8 @@ def test_pt_da_exact_bimodal_masses_despite_biased_coarse():
     misfit_f, misfit_c, mass_right, mean = _bimodal_setup()
     prior = TPrior.iid(1, mean=0.0, sigma=1.0, dtype=torch.float64, device="cpu")
     gen = torch.Generator().manual_seed(2)
-    res = tt.run_pt_da(misfit_f, misfit_c, prior, prior.sample(gen, (64,)), gen, n_steps=4000,
-                       n_burn=1000, beta=0.3, subchain=4, n_temps=5, lambda_min=0.02)
+    res = tt.run_pt_da(misfit_f, misfit_c, prior, prior.sample(gen, (256,)), gen, n_steps=1000,
+                       n_burn=250, beta=0.3, subchain=4, n_temps=5, lambda_min=0.02)
     s = res.samples.reshape(-1).numpy()
     assert abs(float((s > 0).mean()) - mass_right) < 0.05
     assert abs(s.mean() - mean) < 0.1
