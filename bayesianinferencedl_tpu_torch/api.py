@@ -328,7 +328,8 @@ def make_prior(cfg_prior, dtype=torch.float32, device="cuda"):
                            dtype=dtype, device=device)
 
 
-def make_fom_solver(fin: FiveParamFin, *, tol: float, maxiter: int, with_iters: bool = False):
+def make_fom_solver(fin: FiveParamFin, *, tol: float, maxiter: int, with_iters: bool = False,
+                    deflate: bool = True):
     """Batched FOM solver ks (B, 5) -> u (B, n), optionally warm-started
     from x0 (B, n); with_iters=True returns (u, iters), the per-sample
     iteration counts (audit_fom_iters).
@@ -336,7 +337,9 @@ def make_fom_solver(fin: FiveParamFin, *, tol: float, maxiter: int, with_iters: 
     By the operator's dtype, as in the JAX package: float32 goes through
     the stencil kernels (K1 or K3r with the two-level deflation
     preconditioner; K4r / K4c, undeflated, on the largest meshes, where no basis
-    is built), float64 through the plain PCG of ``fem/solve.py``."""
+    is built), float64 through the plain PCG of ``fem/solve.py``.
+    deflate=False: plain Jacobi-PCG on the same kernels (K3r with no
+    basis)."""
     if fin.op.dtype != torch.float32:
         def solve(ks, x0=None):
             ks = torch.as_tensor(ks, dtype=fin.op.dtype, device=fin.op.device)
@@ -345,7 +348,7 @@ def make_fom_solver(fin: FiveParamFin, *, tol: float, maxiter: int, with_iters: 
             return (u, iters) if with_iters else u
 
         return solve
-    defl = fin.deflation_for_kernels()
+    defl = fin.deflation_for_kernels() if deflate else None
 
     def solve(ks, x0=None):
         u, iters = solve_fom_stencil(fin.op, ks, tol=tol, maxiter=maxiter, x0=x0, deflation=defl)
@@ -441,7 +444,7 @@ def build_pipeline(
         fom_solver = make_fom_solver(fin, tol=cfg.fem.cg_tol, maxiter=cfg.fem.cg_maxiter)
     defl = fin.deflation_for_kernels()
     log.log("fom_built", n_dof=fin.op.n_dof, n_padded=fin.op.n, m=None if defl is None else defl.m,
-            device=str(dev))
+            device=str(dev), assembler=fin.assembler)
 
     gen = torch.Generator(device=dev).manual_seed(cfg.rom.seed)
     k_snap = sample_log_uniform(gen, cfg.rom.n_snapshots, dtype=dtype)
@@ -1089,6 +1092,7 @@ def run_svgd_inversion(
     theta_true: Optional[torch.Tensor] = None,
     data: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    segment: Optional[int] = None,
     metrics: Optional[MetricsLogger] = None,
 ) -> tuple[SVGDResult, torch.Tensor, torch.Tensor, float]:
     """SVGD (infer/svgd.py): n_particles prior-frame draws transported along
@@ -1096,14 +1100,15 @@ def run_svgd_inversion(
     of the differentiable forward over all particles and two (J, J) x (J, d)
     products; ``run_inversion``'s data contract. Biased at finite J and
     without a density: certify its moment-matched Gaussian if needed.
-    Returns (SVGDResult, theta_true, data, wall_seconds) and logs the
-    "svgd" event."""
+    segment: the reference's scan chunk size, passed on to ``run_svgd``
+    (one eager loop: it changes nothing). Returns (SVGDResult, theta_true,
+    data, wall_seconds) and logs the "svgd" event."""
     gen, theta_true, data = _approx_setup(pipe, generator, theta_true, data)
     misfit_b = gaussian_misfit(pipe.working_forward_fn(likelihood, differentiable=True), data,
                                pipe.config.mcmc.noise_sigma)
     res, wall = _timed(pipe.device, lambda: run_svgd(
         misfit_b, pipe.prior, _child(gen), n_particles=n_particles, n_steps=n_steps, lr=lr,
-        anneal_steps=anneal_steps))
+        anneal_steps=anneal_steps, segment=segment))
     if metrics is not None:
         metrics.log("svgd", likelihood=likelihood, n_particles=n_particles, n_steps=n_steps,
                     n_forward=res.n_forward, misfit_final=float(res.misfit_trace[-1]),

@@ -613,7 +613,8 @@ def cmd_svgd(args) -> None:
     res, theta_true, data, wall = run_svgd_inversion(
         pipe, args.likelihood, n_particles=args.particles, n_steps=args.steps, lr=args.lr,
         anneal_steps=args.anneal if args.anneal >= 0 else None, data=obs,
-        generator=torch.Generator(device=pipe.device).manual_seed(args.seed), metrics=log,
+        generator=torch.Generator(device=pipe.device).manual_seed(args.seed),
+        segment=args.segment or None, metrics=log,
     )
     tr = res.misfit_trace.double().cpu().numpy()
     rec = {"likelihood": args.likelihood, "n_particles": args.particles, "n_steps": args.steps,
@@ -680,6 +681,202 @@ def cmd_sbc(args) -> None:
         "rank_counts": res.counts.cpu().numpy().tolist(),
         "accept_rate": round(float(res.accept_rate.mean()), 4),
     }))
+
+
+def _shard(args) -> None:
+    """--shard routes the chains over more than one device; on one device it
+    does nothing, as in the reference."""
+    if args.shard and torch.cuda.device_count() > 1:
+        raise NotImplementedError("--shard across more than one card is ROADMAP item 23 "
+                                  "(multi-GPU), not yet ported")
+
+
+def _build_ff(args, log):
+    from bayesianinferencedl_tpu_torch.api_full_field import build_full_field_pipeline
+
+    return build_full_field_pipeline(
+        resolution=args.resolution, biot=args.biot, dtype=_dtype(args), ell=args.ell,
+        sigma=args.sigma, n_features=args.n_features, n_snapshots=args.n_snapshots,
+        basis_size=args.r, k_basis_size=args.k_basis, basis=args.basis, n_train=args.n_train,
+        surrogate_steps=args.epochs * 10, seed=args.seed, metrics=log, device=args.device,
+    )
+
+
+def _load_obs(args, log=None):
+    if not getattr(args, "data", None):
+        return None
+    obs = torch.as_tensor(np.load(args.data)["data"])
+    if log is not None:
+        log.log("external_data", path=args.data, n_obs=int(obs.shape[-1]))
+    return obs
+
+
+def cmd_invert_ff(args) -> None:
+    """Full-field (nodal conductivity) inversion in RFF coefficient space
+    (api_full_field): the build, the sampler, the data-space fit of the
+    posterior mean against the prior mean's, and the PPC."""
+    from bayesianinferencedl_tpu_torch.api_full_field import (
+        predict_temperature_ff,
+        run_full_field_inversion,
+    )
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+    from bayesianinferencedl_tpu_torch.utils.ppc import noise_posterior, ppc_chi2_pvalue, ppc_shape_pvalue
+
+    log = MetricsLogger(args.metrics, run_config=vars(args))
+    _shard(args)
+    pipe = _build_ff(args, log)
+    obs = _load_obs(args, log)
+    dev = pipe.device
+    res, z_true, data, ess, r, wall = run_full_field_inversion(
+        pipe, likelihood=args.likelihood, sampler=args.sampler, data=obs, n_chains=args.chains,
+        n_steps=args.steps, n_burn=args.burn, beta=args.beta, noise_sigma=args.noise,
+        n_temps=args.n_temps, lambda_min=args.lambda_min, subchain=args.subchain,
+        da_inner=args.da_inner, adapt_ladder=args.adapt_ladder,
+        mlda_resolution=args.mlda_resolution, mlda_subchain=args.mlda_subchain,
+        hmc_leap=args.hmc_leap, mala_step=args.mala_step, lis_points=args.lis_points,
+        lis_rank=args.lis_rank, lis_tol=args.lis_tol, infer_noise=args.infer_noise,
+        generator=torch.Generator(device=dev).manual_seed(args.seed), metrics=log,
+    )
+    z_post = res.samples.mean(dim=(0, 1))
+    fwd = pipe.forward_fn(args.likelihood)
+    fit_post = float(torch.linalg.norm(fwd(z_post) - data))
+    fit_prior = float(torch.linalg.norm(fwd(torch.zeros_like(z_post)) - data))
+    ppc = sigma_post = None
+    if res.samples.shape[0]:
+        fwd_b = pipe.batched_forward_fn(args.likelihood)
+        g = lambda k: torch.Generator(device=dev).manual_seed(args.seed + k)
+        if args.infer_noise:
+            # an unknown noise: the scale-free shape PPC and the conjugate sigma posterior
+            ppc = ppc_shape_pvalue(fwd_b, res.samples, data, g(101))
+            _, sigma_post = noise_posterior(fwd_b, res.samples, data, g(102), a0=2.0,
+                                            b0=float(args.noise) ** 2)
+        else:
+            ppc = ppc_chi2_pvalue(fwd_b, res.samples, data, args.noise, g(101))
+    # with n_obs << n_features the field is identified in a few data
+    # directions only: the data-space fit is the recovery metric
+    out = {
+        "likelihood": args.likelihood,
+        "sampler": args.sampler,
+        "n_features": args.n_features,
+        "samples_per_sec": res.samples.shape[0] * res.samples.shape[1] / wall,
+        "ess_min": float(torch.min(ess)),
+        "accept_rate": float(torch.mean(res.accept_rate)),
+        "rhat_split_max": float(torch.max(r)),
+        "data_misfit_posterior_mean": fit_post,
+        "data_misfit_prior_mean": fit_prior,
+        "ppc_p_value": ppc["p_value"] if ppc else None,
+        **({"noise_sigma_post": sigma_post} if sigma_post is not None else {}),
+    }
+    if args.predict_at or args.predict_out:
+        sig = args.noise if sigma_post is None else sigma_post["sigma_q50"]
+        pred = predict_temperature_ff(pipe, res.samples, points=_parse_points(args.predict_at),
+                                      noise_sigma=sig)
+        if args.predict_at:
+            out["predictions"] = pred.summary_rows()
+        if args.predict_out:
+            pred.save_npz(args.predict_out)
+            out["prediction_field"] = args.predict_out
+        log.log("predict", n_draws=pred.n_draws, points=len(pred.summary_rows()))
+    print(json.dumps(out))
+
+
+def cmd_sbc_ff(args) -> None:
+    """Simulation-based calibration of the full-field sampler stack
+    (api_full_field.run_sbc_check_ff): J synthetic M-dimensional
+    inversions, rank uniformity per coefficient, the minimum p-value gated
+    on the Sidak threshold 1 - (1 - alpha)^(1/M)."""
+    from bayesianinferencedl_tpu_torch.api_full_field import run_sbc_check_ff
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    log = MetricsLogger(args.metrics, run_config=vars(args))
+    pipe = _build_ff(args, log)
+    res = run_sbc_check_ff(
+        pipe, args.likelihood, noise_sigma=args.noise, n_datasets=args.datasets,
+        n_chains=args.sbc_chains, n_steps=args.steps, n_burn=args.burn, n_bins=args.bins,
+        sampler=args.sampler, step=args.mala_step, n_leap=args.hmc_leap, n_temps=args.temps,
+        lambda_min=args.lambda_min, seed=args.seed, metrics=log,
+    )
+    p = res.p_values.double().cpu().numpy()
+    d = p.shape[0]
+    sidak = 1.0 - (1.0 - 0.01) ** (1.0 / d)
+    p_min = float(p.min())
+    print(json.dumps({
+        "likelihood": args.likelihood,
+        "sampler": args.sampler,
+        "noise_sigma": args.noise,
+        "n_features": d,
+        "n_datasets": args.datasets,
+        "n_posterior_draws": res.n_draws,
+        "p_min": round(p_min, 6),
+        "sidak_threshold_alpha01": round(sidak, 6),
+        "n_below_sidak": int((p < sidak).sum()),
+        "calibrated": bool(p_min > sidak),
+        "accept_rate": round(float(res.accept_rate.double().mean()), 4),
+    }))
+
+
+def cmd_evidence_ff(args) -> None:
+    """The log evidence of the full-field model by adaptive tempered SMC:
+    run once per --likelihood on the same --seed and difference."""
+    from bayesianinferencedl_tpu_torch.api_full_field import run_full_field_evidence
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    log = MetricsLogger(args.metrics, run_config=vars(args))
+    _shard(args)
+    pipe = _build_ff(args, log)
+    ev = run_full_field_evidence(
+        pipe, likelihood=args.likelihood, noise_sigma=args.noise, n_particles=args.particles,
+        n_groups=args.groups, n_mutations=args.mutations, ess_target=args.ess_target,
+        data=_load_obs(args), generator=torch.Generator(device=pipe.device).manual_seed(args.seed),
+        metrics=log,
+    )
+    print(json.dumps({
+        "likelihood": args.likelihood,
+        "n_features": args.n_features,
+        "estimator": "smc (adaptive tempered, unbiased in Z)",
+        "log_evidence": ev.log_evidence,
+        "log_evidence_std": ev.log_evidence_std,
+        "n_stages": ev.n_stages.cpu().tolist(),
+        "n_particles": args.particles,
+        "wall_seconds": ev.wall_seconds,
+    }))
+
+
+def cmd_select_ell(args) -> None:
+    """The full-field prior's correlation length by model evidence
+    (api_full_field.select_correlation_length): exact-FOM SMC Bayes factors
+    on the same observations, pooled over --n-datasets experiments."""
+    from bayesianinferencedl_tpu_torch.api_full_field import select_correlation_length
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    log = MetricsLogger(args.metrics, run_config=vars(args))
+    obs = _load_obs(args)
+    out = select_correlation_length(
+        args.ells, resolution=args.resolution, biot=args.biot, dtype=_dtype(args),
+        sigma=args.sigma, n_features=args.n_features, noise_sigma=args.noise,
+        ell_true=args.ell_true, data=obs, n_datasets=args.n_datasets,
+        n_particles=args.particles, n_groups=args.groups, n_mutations=args.mutations,
+        max_stages=args.max_stages, cg_maxiter=_cg_maxiter(args), seed=args.seed, metrics=log,
+        device=args.device,
+    )
+    rec = {k: out[k] for k in ("ells", "log_z", "log_z_std", "posterior", "ell_map")}
+    rec["n_datasets"] = args.n_datasets if obs is None else int(out["data"].shape[0])
+    print(json.dumps(rec))
+
+
+def _add_ff_build(p: argparse.ArgumentParser) -> None:
+    """The full-field build's flags (the reference's, with its defaults)."""
+    _add_common(p)
+    p.add_argument("--n-snapshots", type=int, default=256)
+    p.add_argument("--r", type=int, default=40)
+    p.add_argument("--k-basis", type=int, default=40)
+    p.add_argument("--basis", choices=["pod", "greedy"], default="pod",
+                   help="state basis: POD, or residual-indicator greedy selection over the snapshots")
+    p.add_argument("--n-features", type=int, default=64)
+    p.add_argument("--ell", type=float, default=1.0)
+    p.add_argument("--sigma", type=float, default=0.5)
+    p.add_argument("--n-train", type=int, default=1024)
+    p.add_argument("--epochs", type=int, default=300, help="surrogate steps / 10")
 
 
 def cmd_design(args) -> None:
@@ -750,6 +947,10 @@ def _add_build(p: argparse.ArgumentParser) -> None:
     p.add_argument("--online-precision", choices=["highest", "high", "fast"], default="highest",
                    help="the reduced solves' matmul tier: full fp32, bf16x3 (high) or one bf16 "
                         "pass (fast); the surrogate is trained on the same tier")
+    # the reference's building commands share --out; only surrogate writes it
+    p.add_argument("--out", type=str, default=None,
+                   help="surrogate: save (MLP params, Ahat, V) as an npz in the JAX package's "
+                        "layout; the other commands ignore it, as the reference does")
 
 
 def _add_invert(p: argparse.ArgumentParser) -> None:
@@ -830,8 +1031,6 @@ def main(argv=None) -> None:
 
     p = sub.add_parser("surrogate", help="config 4: build + the corrected model's gradient check")
     _add_build(p)
-    p.add_argument("--out", type=str, default=None,
-                   help="save (MLP params, Ahat, V) as an npz in the JAX package's layout")
     p.set_defaults(fn=cmd_surrogate)
 
     for name, fn, help_ in (("invert", cmd_invert, "offline build + pCN inversion"),
@@ -901,6 +1100,9 @@ def main(argv=None) -> None:
                    help="likelihood ramp length (default steps // 2; 0 disables it)")
     p.add_argument("--data", type=str, default=None, help=data_help)
     p.add_argument("--psis", type=int, default=0, metavar="K", help=psis_help)
+    p.add_argument("--segment", type=int, default=0, metavar="S",
+                   help="the reference's scan chunk size (0 = auto); one eager loop runs every "
+                   "step, so it changes nothing")
     p.set_defaults(fn=cmd_svgd)
 
     p = sub.add_parser("sbc", help="simulation-based calibration of a sampler and likelihood")
@@ -940,6 +1142,88 @@ def main(argv=None) -> None:
     p.add_argument("--mutations", type=int, default=5, help="pCN sweeps per tempering stage")
     p.add_argument("--ess-target", type=float, default=0.5, help="ESS/N kept per stage")
     p.set_defaults(fn=cmd_evidence)
+
+    p = sub.add_parser("invert-ff", help="full-field (nodal k) inversion")
+    _add_ff_build(p)
+    p.add_argument("--chains", type=int, default=1024)
+    p.add_argument("--steps", type=int, default=5000)
+    p.add_argument("--burn", type=int, default=1000)
+    p.add_argument("--beta", type=float, default=0.3)
+    p.add_argument("--noise", type=float, default=1e-3)
+    p.add_argument("--likelihood", choices=["fom", "rom", "rom_nn"], default="rom_nn")
+    p.add_argument("--sampler", default="pcn",
+                   choices=["pcn", "laplace_mh", "gpcn", "pt_pcn", "pt_mala", "da_pcn", "pt_da_pcn",
+                            "mlda_pcn", "mala", "mala_lap", "hmc", "hmc_lap", "lis_pcn"])
+    p.add_argument("--n-temps", type=int, default=5)
+    p.add_argument("--lambda-min", type=float, default=0.02)
+    p.add_argument("--adapt-ladder", action="store_true", help="tune the PT ladder in burn-in")
+    # 64, as the reference CLI passes, while run_full_field_inversion defaults to 8
+    p.add_argument("--subchain", type=int, default=64)
+    p.add_argument("--da-inner", choices=["pcn", "mala"], default="pcn")
+    p.add_argument("--mlda-resolution", type=int, default=2, help="mlda_pcn mid-rung mesh")
+    p.add_argument("--mlda-subchain", type=int, default=4,
+                   help="mlda_pcn mid-rung steps per fine correction")
+    p.add_argument("--hmc-leap", type=int, default=8, help="leapfrog steps; 0 = ChEES (rom/rom_nn)")
+    p.add_argument("--mala-step", type=float, default=0.1, help="initial MALA/HMC step size")
+    p.add_argument("--lis-points", type=int, default=16, help="lis_pcn: Jacobian points")
+    p.add_argument("--lis-rank", type=int, default=None, help="lis_pcn: cap on the subspace rank")
+    p.add_argument("--lis-tol", type=float, default=0.1, help="lis_pcn: eigenvalue cutoff")
+    p.add_argument("--data", type=str, default=None, help=data_help)
+    p.add_argument("--infer-noise", action="store_true",
+                   help="integrate the noise out under InvGamma(2, noise^2); report its posterior")
+    p.add_argument("--shard", action="store_true",
+                   help="route over every card (does nothing on one card)")
+    p.add_argument("--predict-at", action="append", default=None, metavar="X,Y",
+                   help="posterior-predictive temperature at a point (repeatable)")
+    p.add_argument("--predict-out", type=str, default=None,
+                   help="save the posterior temperature-field prediction as npz")
+    p.set_defaults(fn=cmd_invert_ff)
+
+    p = sub.add_parser("sbc-ff", help="simulation-based calibration of the full-field sampler stack")
+    _add_ff_build(p)
+    p.add_argument("--noise", type=float, default=1e-2)
+    p.add_argument("--likelihood", choices=["fom", "rom", "rom_nn"], default="rom_nn")
+    p.add_argument("--sampler", choices=["pcn", "mala", "hmc", "pt_pcn"], default="pcn")
+    p.add_argument("--mala-step", type=float, default=0.1)
+    p.add_argument("--hmc-leap", type=int, default=8)
+    p.add_argument("--temps", type=int, default=5)
+    p.add_argument("--lambda-min", type=float, default=0.02)
+    p.add_argument("--datasets", type=int, default=128)
+    p.add_argument("--sbc-chains", type=int, default=31)
+    p.add_argument("--steps", type=int, default=1500)
+    p.add_argument("--burn", type=int, default=1000)
+    p.add_argument("--bins", type=int, default=8)
+    p.set_defaults(fn=cmd_sbc_ff)
+
+    p = sub.add_parser("evidence-ff", help="full-field model evidence (adaptive tempered SMC)")
+    _add_ff_build(p)
+    p.add_argument("--noise", type=float, default=1e-3)
+    p.add_argument("--likelihood", choices=["fom", "rom", "rom_nn"], default="rom_nn")
+    p.add_argument("--particles", type=int, default=4096, help="total SMC population")
+    p.add_argument("--groups", type=int, default=8, help="independent populations (error bar)")
+    p.add_argument("--mutations", type=int, default=5, help="pCN sweeps per tempering stage")
+    p.add_argument("--ess-target", type=float, default=0.5, help="ESS/N kept per stage")
+    p.add_argument("--data", type=str, default=None, help=data_help)
+    p.add_argument("--shard", action="store_true", help="does nothing on one card")
+    p.set_defaults(fn=cmd_evidence_ff)
+
+    p = sub.add_parser("select-ell", help="the full-field prior's correlation length by evidence")
+    _add_common(p)
+    p.add_argument("--ells", type=float, nargs="+", required=True, help="candidate lengths")
+    p.add_argument("--n-features", type=int, default=64)
+    p.add_argument("--sigma", type=float, default=0.5)
+    p.add_argument("--noise", type=float, default=1e-2)
+    p.add_argument("--ell-true", type=float, default=None,
+                   help="simulate observations from this ell (omit with --data)")
+    p.add_argument("--n-datasets", type=int, default=1,
+                   help="independent simulated experiments pooled (log Z summed)")
+    p.add_argument("--data", type=str, default=None,
+                   help="observation npz (key 'data', shape (n_obs,) or (E, n_obs))")
+    p.add_argument("--particles", type=int, default=4096)
+    p.add_argument("--groups", type=int, default=8)
+    p.add_argument("--mutations", type=int, default=5)
+    p.add_argument("--max-stages", type=int, default=128)
+    p.set_defaults(fn=cmd_select_ell)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -242,6 +242,7 @@ def run_da_pcn(
     n_burn: int = 0,
     beta=0.25,
     subchain: int = 8,
+    adapt: bool = True,
     adapt_t0: float = 0.0,
     inner: str = "pcn",
     normals: Optional[torch.Tensor] = None,
@@ -252,8 +253,8 @@ def run_da_pcn(
     outer steps. inner: "pcn" subchains, or "mala" (gradient-informed; the
     coarse misfit must be differentiable, and beta is then the initial step
     size h). During burn-in the inner step size of each chain adapts
-    (``adapt_inner``); the sampling phase runs the frozen kernel. beta:
-    scalar or per-chain (C,).
+    (``adapt_inner``) unless ``adapt`` is False; the sampling phase runs the
+    frozen kernel. beta: scalar or per-chain (C,).
 
     normals (n_steps, subchain, C, d), uniforms (n_steps, subchain, C) and
     outer_uniforms (n_steps, C): optional pre-drawn draws for every outer
@@ -272,9 +273,10 @@ def run_da_pcn(
     for t in range(n_burn):
         state, acc_out, acc_inner = da_step(
             misfit_fine, kernel, torch.exp(log_beta), subchain, state, gen, **draws(t))
-        eta = 0.5 / (1.0 + t + adapt_t0) ** 0.6
-        log_beta, ema = adapt_inner(inner, log_beta, ema, acc_inner.to(dtype) / subchain, acc_out,
-                                    eta, kernel.target)
+        if adapt:
+            eta = 0.5 / (1.0 + t + adapt_t0) ** 0.6
+            log_beta, ema = adapt_inner(inner, log_beta, ema, acc_inner.to(dtype) / subchain,
+                                        acc_out, eta, kernel.target)
     if n_burn > 0:
         state = state._replace(n_accept=torch.zeros_like(state.n_accept))
 

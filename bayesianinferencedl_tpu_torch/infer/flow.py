@@ -208,6 +208,7 @@ def run_flow_vi(
     ref=None,
     params: Optional[CouplingFlow] = None,
     n_summary: int = 4096,
+    segment: Optional[int] = None,
     eps: Optional[torch.Tensor] = None,
     summary_Z: Optional[torch.Tensor] = None,
 ) -> FlowVIResult:
@@ -225,7 +226,9 @@ def run_flow_vi(
 
     Draws from gen, in order: the identity flow's couplings (without
     params), each step's normals (n_mc, d), the n_summary summary draws.
-    eps (n_steps, n_mc, d) and summary_Z (n_summary, d) pass them in."""
+    eps (n_steps, n_mc, d) and summary_Z (n_summary, d) pass them in.
+    ``segment``, the reference's scan chunk size, is accepted and changes
+    nothing: one eager loop runs every step."""
     if n_steps <= 0:
         raise ValueError("run_flow_vi needs n_steps > 0")
     d = prior.dim

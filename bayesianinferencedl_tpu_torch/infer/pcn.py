@@ -95,12 +95,14 @@ def run_pcn(
     n_burn: int = 0,
     beta=0.25,
     thin: int = 1,
+    adapt: bool = True,
     adapt_t0: float = 0.0,
     normals: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
 ) -> PCNResult:
-    """Run pCN chains from theta0 (C, d): ``n_burn`` adaptive burn-in steps,
-    then every ``thin``-th state of the remaining steps is kept. beta:
+    """Run pCN chains from theta0 (C, d): ``n_burn`` burn-in steps, adaptive
+    unless ``adapt`` is False (then beta stays as given), then every
+    ``thin``-th state of the remaining steps is kept. beta:
     scalar or per-chain (C,). adapt_t0: the global index of the first step,
     which a segmented run passes so the Robbins-Monro clock runs on
     across segments. normals (n_steps, C, d) / uniforms (n_steps, C):
@@ -116,8 +118,9 @@ def run_pcn(
     lo, hi = math.log(1e-4), math.log(0.9999)
     for t in range(n_burn):
         state, acc = pcn_step(misfit_fn, prior, torch.exp(log_beta), state, gen, **draws(t))
-        eta = 0.5 / (1.0 + t + adapt_t0) ** 0.6
-        log_beta = torch.clamp(log_beta + eta * (acc.to(dtype) - TARGET_ACCEPT), lo, hi)
+        if adapt:
+            eta = 0.5 / (1.0 + t + adapt_t0) ** 0.6
+            log_beta = torch.clamp(log_beta + eta * (acc.to(dtype) - TARGET_ACCEPT), lo, hi)
     if n_burn > 0:
         state = state._replace(n_accept=torch.zeros_like(state.n_accept))
 

@@ -85,8 +85,11 @@ def run_svgd(
     n_particles: int = 512,
     n_steps: int = 800,
     lr: float = 0.05,
+    lr_decay: float = LR_DECAY,
     anneal_steps: Optional[int] = None,
     theta0: Optional[torch.Tensor] = None,
+    ref=None,
+    segment: Optional[int] = None,
 ) -> SVGDResult:
     """Transport J = n_particles draws to the posterior by SVGD. misfit_fn
     is batched and differentiable, on working coordinates.
@@ -94,17 +97,24 @@ def run_svgd(
     anneal_steps: the likelihood ramp's length (default n_steps // 2; 0
     disables it). theta0: the initial ensemble (J, d) in working
     coordinates, which overrides n_particles; else J standard normals from
-    gen in the prior's whitened frame. One eager loop runs every step (the
-    reference's scan segments have no counterpart)."""
+    gen in the whitened frame. The step size decays linearly from lr to
+    lr * lr_decay. ref=(mean, chol): the whitened frame the particles move
+    in (default the prior's), as in ADVI and the samplers; the target stays
+    the posterior (the JAX package scores 0.5 |Y|^2 in the ref frame, which
+    is the prior term only when ref is the prior's frame). One eager loop
+    runs every step: ``segment``, the reference's scan chunk size, is
+    accepted and changes nothing."""
     dtype, dev = prior.mean.dtype, prior.mean.device
     d = prior.dim
+    ref_mean, ref_chol = ref if ref is not None else (prior.mean, prior.chol)
+    Li = None if ref is None else inv_chol(prior.chol)
     if anneal_steps is None:
         anneal_steps = n_steps // 2
     if theta0 is None:
         Y = torch.randn((n_particles, d), generator=gen, dtype=dtype, device=dev)
     else:
         with fp32_matmul():
-            Y = (torch.as_tensor(theta0, dtype=dtype, device=dev) - prior.mean) @ inv_chol(prior.chol).T
+            Y = (torch.as_tensor(theta0, dtype=dtype, device=dev) - ref_mean) @ inv_chol(ref_chol).T
     J = int(Y.shape[0])  # a given theta0 sets J, and n_forward counts what ran
     opt = adam_init([Y])
 
@@ -115,18 +125,19 @@ def run_svgd(
                 else torch.ones((), dtype=dtype, device=dev))
         with torch.enable_grad(), fp32_matmul():
             Yg = Y.detach().requires_grad_()
-            theta = prior.mean + Yg @ prior.chol.T
+            theta = ref_mean + Yg @ ref_chol.T
             phi = misfit_fn(theta)
-            nlp = beta * phi + 0.5 * torch.sum(Yg * Yg, dim=-1)
+            w = Yg if Li is None else (theta - prior.mean) @ Li.T
+            nlp = beta * phi + 0.5 * torch.sum(w * w, dim=-1)
             (grad,) = torch.autograd.grad(torch.sum(nlp), Yg)
         direction = _stein_direction(Y, -grad, J)
-        lr_t = lr * (1.0 - (1.0 - LR_DECAY) * frac / max(n_steps, 1))
+        lr_t = lr * (1.0 - (1.0 - lr_decay) * frac / max(n_steps, 1))
         # Adam minimises: the negative Stein direction is the gradient
         opt = adam_update([Y], [-direction], opt, lr_t)
         trace.append(torch.mean(phi.detach()))
 
     with fp32_matmul():
-        particles = prior.mean + Y @ prior.chol.T
+        particles = ref_mean + Y @ ref_chol.T
     return SVGDResult(
         particles=particles, mean=torch.mean(particles, dim=0),
         std=torch.std(particles, dim=0, correction=0),

@@ -251,6 +251,7 @@ def run_pt_pcn(
     beta=0.25,
     n_temps: int = 4,
     lambda_min: float = 0.05,
+    adapt: bool = True,
     adapt_t0: float = 0.0,
     adapt_ladder: bool = False,
     ladder=None,
@@ -263,8 +264,8 @@ def run_pt_pcn(
     misfit_fn: the untempered, batched data misfit Phi, (B, d) -> (B,); each
     step evaluates it once on all K*G proposals. theta0: (G, d) cold inits or
     (K, G, d) resume states. beta: scalar or (K, G); every level adapts its
-    per-chain step size toward 0.234 acceptance during burn-in.
-    adapt_ladder: also tune each group's ladder during burn-in, driving every
+    per-chain step size toward 0.234 acceptance during burn-in (unless
+    ``adapt`` is False). adapt_ladder: also tune each group's ladder during burn-in, driving every
     adjacent pair's swap acceptance toward TARGET_SWAP with the cold level
     pinned at 1 (the geometric ladder from lambda_min, or ``ladder``, is the
     starting point); frozen afterwards. adapt_t0: the global index of the
@@ -293,8 +294,9 @@ def run_pt_pcn(
         state, acc = pcn_step(phi_all, prior, torch.exp(log_beta), state, gen,
                               normals=pick(normals, t), uniforms=pick(uniforms, t), lam=lambdas)
         t_global = t + adapt_t0
-        eta = 0.5 / (1.0 + t_global) ** 0.6 if t < n_burn else 0.0
-        log_beta = torch.clamp(log_beta + eta * (acc.to(dtype) - TARGET_ACCEPT), *_LOG_BETA)
+        if adapt:
+            eta = 0.5 / (1.0 + t_global) ** 0.6 if t < n_burn else 0.0
+            log_beta = torch.clamp(log_beta + eta * (acc.to(dtype) - TARGET_ACCEPT), *_LOG_BETA)
         if K > 1:
             u_sw = pick(swap_uniforms, t)
             if u_sw is None:
@@ -432,6 +434,7 @@ def run_pt_da(
     subchain: int = 8,
     n_temps: int = 4,
     lambda_min: float = 0.05,
+    adapt: bool = True,
     adapt_t0: float = 0.0,
     inner: str = "pcn",
     adapt_ladder: bool = False,
@@ -456,7 +459,8 @@ def run_pt_da(
     "pcn", or "mala" (tempered drift-clipped MALA subchains on
     lambda_j Phi_c(theta(y)) + ||y||^2 / 2 in the prior's frame; the coarse
     misfit must be differentiable and beta is the initial step size h).
-    adapt_ladder / ladder / adapt_t0 as in ``run_pt_pcn``. normals (n_steps, subchain, K, G, d), uniforms
+    adapt (False freezes the inner step sizes), adapt_ladder / ladder / adapt_t0 as in
+    ``run_pt_pcn``. normals (n_steps, subchain, K, G, d), uniforms
     (n_steps, subchain, K, G), outer_uniforms and swap_uniforms
     (n_steps, K, G): optional pre-drawn draws, burn-in first."""
     K = n_temps
@@ -486,9 +490,10 @@ def run_pt_da(
             uniforms=pick(uniforms, t), outer_uniform=pick(outer_uniforms, t), lam=lambdas)
         n_in = n_in + n_in_step
         t_global = t + adapt_t0
-        eta = 0.5 / (1.0 + t_global) ** 0.6 if t < n_burn else 0.0
-        log_beta, ema = adapt_inner(inner, log_beta, ema, n_in_step.to(dtype) / subchain, acc, eta,
-                                    kernel.target)
+        if adapt:
+            eta = 0.5 / (1.0 + t_global) ** 0.6 if t < n_burn else 0.0
+            log_beta, ema = adapt_inner(inner, log_beta, ema, n_in_step.to(dtype) / subchain, acc,
+                                        eta, kernel.target)
         if K > 1:
             u_sw = pick(swap_uniforms, t)
             if u_sw is None:

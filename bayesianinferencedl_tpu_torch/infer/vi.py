@@ -30,8 +30,8 @@ from bayesianinferencedl_tpu_torch.infer.samplers import inv_chol
 from bayesianinferencedl_tpu_torch.models.surrogate import adam_init, adam_update
 from bayesianinferencedl_tpu_torch.utils.precision import fp32_matmul
 
-# the step size decays linearly from lr to lr * LR_DECAY over the run (the
-# reference's lr_decay default, shared with SVGD's loop)
+# the default of lr_decay: the step size decays linearly from lr to lr * lr_decay
+# over the run (the reference's default, shared with SVGD's)
 LR_DECAY = 0.05
 
 
@@ -78,8 +78,10 @@ def run_advi(
     n_mc: int = 32,
     rank: str = "full",
     lr: float = 0.05,
+    lr_decay: float = LR_DECAY,
     theta0: Optional[torch.Tensor] = None,
     ref=None,
+    segment: Optional[int] = None,
     eps: Optional[torch.Tensor] = None,
 ) -> VIResult:
     """Fit q = N(mu, L L^T) in the whitened ref frame by maximising the
@@ -87,12 +89,13 @@ def run_advi(
     misfit_fn is batched and differentiable, on working coordinates.
 
     rank: "full" (dense lower-triangular L) or "meanfield" (diagonal). The
-    step size decays linearly from lr to lr * LR_DECAY over the run (the
+    step size decays linearly from lr to lr * lr_decay over the run (the
     final iterate is the estimate). theta0 starts mu (default the frame's
     centre); L starts at the identity. eps (n_steps, n_mc, d): pre-drawn
     normals for every step, else drawn from gen in step order. One eager
-    loop runs every step (the reference's scan segments change nothing
-    but the program size, so they have no counterpart)."""
+    loop runs every step: ``segment``, the reference's scan chunk size, is
+    accepted and changes nothing (its segments run on the global step
+    index, so neither does it there)."""
     if rank not in ("full", "meanfield"):
         raise ValueError(f"rank must be 'full' or 'meanfield', got {rank!r}")
     d = prior.dim
@@ -126,7 +129,7 @@ def run_advi(
             loss = loss_of(mu, raw, e)
             grads = torch.autograd.grad(loss, (mu, raw))
         frac = torch.tensor(t, dtype=dtype, device=dev) / max(n_steps, 1)
-        opt = adam_update(params, list(grads), opt, lr * (1.0 - (1.0 - LR_DECAY) * frac))
+        opt = adam_update(params, list(grads), opt, lr * (1.0 - (1.0 - lr_decay) * frac))
         elbo.append(-loss.detach())  # the ELBO up to the dropped entropy constant
 
     mu, raw = params

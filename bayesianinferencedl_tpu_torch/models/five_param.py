@@ -28,6 +28,17 @@ from bayesianinferencedl_tpu_torch.ops.pcg_stencil import layout_for, solve_fom_
 from bayesianinferencedl_tpu_torch.utils.device import resolve_device
 
 
+def assemble_host(mesh: FinMesh, pad_to: int = 128) -> tuple[FinFEMDiaHost, str]:
+    """(the stencil host operator of the mesh's fin, "native" or "numpy"):
+    the native C++ assembler where ``make`` is there (``native/``, built at
+    first use; a build that fails raises), else the NumPy assembler."""
+    from bayesianinferencedl_tpu_torch.native import assemble_fin_dia_native, native_available
+
+    if native_available():
+        return assemble_fin_dia_native(mesh.resolution, pad_to=pad_to), "native"
+    return assemble_fin_dia(mesh, pad_to=pad_to), "numpy"
+
+
 @dataclass
 class FiveParamFin:
     """Thermal fin with 5 piecewise-constant conductivities (stencil layout)."""
@@ -37,6 +48,7 @@ class FiveParamFin:
     op: StencilOperator
     cg_tol: float = 1e-10
     cg_maxiter: int = 3000
+    assembler: str = "numpy"  # which host assembler built ``host``: "native" or "numpy"
     _deflation: Optional[DeflationBasis] = field(default=None, repr=False)
 
     @classmethod
@@ -46,23 +58,29 @@ class FiveParamFin:
         biot: float = 0.1,
         dtype=torch.float32,
         device="cuda",
+        pad_to: int = 128,
         cg_tol: float = 1e-10,
         cg_maxiter: int = 3000,
     ) -> "FiveParamFin":
         """The fin on ``device``: the card unless the caller asks for "cpu";
-        without a card "cuda" raises."""
+        without a card "cuda" raises. The host operator comes from the native
+        C++ assembler (``native/``, built at first use) where ``make`` is
+        there, else from the NumPy assembler (its oracle); ``assembler``
+        records which."""
         device = resolve_device(device)
         mesh = build_fin_mesh(resolution)
-        host = assemble_fin_dia(mesh)
+        host, assembler = assemble_host(mesh, pad_to=pad_to)
         op = StencilOperator.from_host(host, biot=biot, dtype=dtype, device=device)
-        return cls(mesh=mesh, host=host, op=op, cg_tol=cg_tol, cg_maxiter=cg_maxiter)
+        return cls(mesh=mesh, host=host, op=op, cg_tol=cg_tol, cg_maxiter=cg_maxiter,
+                   assembler=assembler)
 
-    def deflation_basis(self) -> DeflationBasis:
-        """The two-level deflation basis (m = 128 modes), built once
+    def deflation_basis(self, m: Optional[int] = None) -> DeflationBasis:
+        """The two-level deflation basis (m modes, default 128), built once
         (host f64 eigensolve) and cached on the fin."""
         if self._deflation is None:
             self._deflation = DeflationBasis.create(
-                self.host, biot=self.op.biot, dtype=self.op.dtype, device=self.op.device
+                self.host, biot=self.op.biot, m=128 if m is None else m, dtype=self.op.dtype,
+                device=self.op.device,
             )
         return self._deflation
 

@@ -206,22 +206,35 @@ def train_surrogate(
     batch_size: int = 128,
     steps: int = 5000,
     seed: int = 0,
+    val_frac: float = 0.1,
+    params=None,
+    idx: torch.Tensor | None = None,
 ) -> tuple[TrainedSurrogate, torch.Tensor]:
     """Train the ROM-error surrogate on (log k, e) pairs. Returns the model
     at its best-validation snapshot and the per-step training losses. The
-    last tenth of the rows is the validation split; with fewer than ten
-    rows the training rows validate themselves."""
+    last ``val_frac`` of the rows is the validation split; where that is no
+    row (val_frac=0, or too few rows) the training rows validate
+    themselves, so the best-training snapshot is returned, as the JAX
+    package's code does. params: initial [(W (in, out), b), ...] in place of
+    the seeded draw; idx (steps, batch_size): pre-drawn minibatch rows (as
+    ``_train_loop`` takes them), so another generator's run can be
+    replayed."""
     dtype, dev = log_ks.dtype, log_ks.device
     gen = torch.Generator(device=dev).manual_seed(seed)
-    mlp = MLP((log_ks.shape[1], *hidden, errors.shape[1]), activation,
-              generator=gen, dtype=dtype, device=dev)
+    if params is None:
+        mlp = MLP((log_ks.shape[1], *hidden, errors.shape[1]), activation,
+                  generator=gen, dtype=dtype, device=dev)
+    else:
+        mlp = MLP.from_params([(torch.as_tensor(W, dtype=dtype, device=dev),
+                                torch.as_tensor(b, dtype=dtype, device=dev)) for W, b in params],
+                              activation)
     norm = Normalizer.fit(log_ks, errors)
-    n_val = log_ks.shape[0] // 10
+    n_val = int(val_frac * log_ks.shape[0])
     x, y = log_ks, errors
     if n_val == 0:
         n_val = log_ks.shape[0]
         x, y = torch.cat([log_ks, log_ks]), torch.cat([errors, errors])
-    best, losses, _ = _train_loop(mlp, norm, x, y, gen, lr, batch_size, steps, n_val)
+    best, losses, _ = _train_loop(mlp, norm, x, y, gen, lr, batch_size, steps, n_val, idx)
     with torch.no_grad():
         for p, q in zip(mlp.params(), best):
             p.copy_(q)

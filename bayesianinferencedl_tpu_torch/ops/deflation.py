@@ -53,17 +53,25 @@ class DeflationBasis:
         m: int = 128,
         dtype=torch.float32,
         device="cuda",
+        basis: str = "eig",
     ) -> "DeflationBasis":
         """Build from a FinFEMDiaHost; all algebra in host float64, the result
-        on ``device`` (the card unless the caller asks for "cpu"). The
-        eigenmodes fall back to cosine modes if the eigensolve fails."""
+        on ``device`` (the card unless the caller asks for "cpu"). basis
+        "eig" takes the eigenmodes, falling back to cosine modes if the
+        eigensolve fails; "cosine" takes the cosine modes."""
+        if basis not in ("eig", "cosine"):
+            raise ValueError(f"basis must be 'eig' or 'cosine', got {basis!r}")
         device = resolve_device(device)
         As, Mext = host.to_scipy_components()
         mask = sum(A.diagonal() for A in As) > 0  # stiffness-domain rows
 
-        try:
-            W = _eig_modes(As, Mext, biot, mask, m)
-        except RuntimeError:  # ARPACK non-convergence or a singular LU
+        W = None
+        if basis == "eig":
+            try:
+                W = _eig_modes(As, Mext, biot, mask, m)
+            except RuntimeError:  # ARPACK non-convergence or a singular LU
+                W = None
+        if W is None:
             W = _cosine_modes(host, mask, m)
         W[~mask] = 0.0  # scrub QR's ~1e-16 dust off the structurally-zero rows
 
@@ -82,16 +90,56 @@ class DeflationBasis:
         with fp32_matmul():
             return torch.einsum("bi,imk->bmk", ks, self.C[:5]) + biot * self.C[5][None]
 
-    def coarse_inverses(self, ks: torch.Tensor, biot: float) -> torch.Tensor:
+    def coarse_inverses(self, ks: torch.Tensor, biot: float, n_iters: int = 24) -> torch.Tensor:
         """(B, 5) -> (B, m, m) inverses of the SPD coarse matrices by a
         batched Cholesky factorisation. B(k) is SPD for positive k. The
         factorisation's status stays on the device, so that a chain step
         that solves the FOM never waits on the host: a sample whose factor
         failed gets an all-NaN inverse (the JAX package's Newton-Schulz
         iteration diverges there), and ``solve_fom_stencil`` returns NaN
-        for it."""
-        L, info = torch.linalg.cholesky_ex(self.coarse_matrices(ks, biot))
-        return torch.where((info == 0)[:, None, None], torch.cholesky_inverse(L), torch.nan)
+        for it. n_iters, the JAX package's Newton-Schulz iteration count, is
+        accepted and unused: the Cholesky inverse has no iterations."""
+        return _spd_inverse(self.coarse_matrices(ks, biot))
+
+    def coarse_matrices_from_vals(self, op, vals: torch.Tensor, chunk: int = 64) -> torch.Tensor:
+        """Exact coarse matrices of an operator that is not affine (the nodal
+        full-field operator): each sample's assembled planes vals (B, n, 7)
+        projected through the basis, B_ij = w_i . A(vals) w_j, as m stencil
+        applies (``op.matvec``'s arithmetic) and one product per sample,
+        symmetrised (the float32 products are not exactly symmetric).
+        ``chunk`` samples at a time: the (chunk, m, n) block of products is
+        all the memory it takes."""
+        Wt = self.Wt.to(vals.dtype)
+        n, h = op.n, op.max_offset
+        Wp = torch.nn.functional.pad(Wt, (h, h))
+        shifted = [Wp[:, h + off: h + off + n] for off in op.offsets]  # w_j[. + off_s]
+        out = []
+        with fp32_matmul():
+            for i in range(0, vals.shape[0], chunk):
+                v = vals[i:i + chunk, None]  # (c, 1, n, 7)
+                # rows A w_j, the stencil matvec accumulated in place: one
+                # (c, m, n) block, read and written once a plane
+                AW = v[..., 0] * shifted[0]
+                for s in range(1, len(shifted)):
+                    AW.addcmul_(v[..., s], shifted[s])
+                Bk = torch.matmul(Wt, AW.transpose(-1, -2))  # B[i, j] = w_i . (A w_j)
+                out.append(0.5 * (Bk + Bk.transpose(-1, -2)))
+        return torch.cat(out) if out else vals.new_zeros((0, self.m, self.m))
+
+    def coarse_inverses_from_vals(self, op, vals: torch.Tensor, n_iters: int = 24,
+                                  chunk: int = 64) -> torch.Tensor:
+        """The inverses of ``coarse_matrices_from_vals`` (B, m, m), by the
+        batched Cholesky of ``coarse_inverses``, NaN where a factorisation
+        fails (n_iters, as there, unused)."""
+        return torch.cat([_spd_inverse(self.coarse_matrices_from_vals(op, vals[i:i + chunk], chunk))
+                          for i in range(0, vals.shape[0], chunk)] or [vals.new_zeros((0, self.m, self.m))])
+
+
+def _spd_inverse(Bk: torch.Tensor) -> torch.Tensor:
+    """Batched Cholesky inverse of SPD (B, m, m); all-NaN where the
+    factorisation fails."""
+    L, info = torch.linalg.cholesky_ex(Bk)
+    return torch.where((info == 0)[:, None, None], torch.cholesky_inverse(L), torch.nan)
 
 
 def _eig_modes(As, Mext, biot: float, mask: np.ndarray, m: int) -> np.ndarray:

@@ -723,11 +723,14 @@ def solve_fom_stencil(
     the "lanes" layout through the kernel ``lanes_route`` names (K3r or K1),
     "sublanes" through K3r, "single" through K4r or K4c (``grid_route``).
 
-    op: fem.dia.StencilOperator; ks: (B, 5). Returns (u (B, n), iters (B,)).
-    x0: optional (B, n) warm starts.
+    op: fem.dia.StencilOperator and ks (B, 5), or the nodal
+    fem.dia_nonaffine.NodalStencilOperator and ks (B, n) nodal fields.
+    Returns (u (B, n), iters (B,)). x0: optional (B, n) warm starts.
     deflation: optional ops.deflation.DeflationBasis for K1 and K3r; its
     per-sample coarse inverses are a batched Cholesky before the launch
-    unless ``coarse_inv`` (B, m, m) is given. A sample whose coarse inverse
+    unless ``coarse_inv`` (B, m, m) is given: of the affine combination
+    where ks is (B, 5), else of each sample's planes projected through the
+    basis (``coarse_inverses_from_vals``), as the JAX package picks. A sample whose coarse inverse
     is not finite (a failed factorisation) gets a NaN solution: the guards on
     alpha and beta would otherwise leave it at its start, finite and wrong.
     The "single" layout, as in the JAX package, neither applies nor computes
@@ -741,12 +744,19 @@ def solve_fom_stencil(
         x2d, iters = pcg_stencil_grid(op.vals_grid(ks), op.to_grid(op.F_root), x02d, tol=tol,
                                       maxiter=maxiter, shape0=op.grid_shape0)
         return op.from_grid(x2d), iters
-    vals4 = upper_planes(op.vals(ks))
+    vals = op.vals(ks)
+    vals4 = upper_planes(vals)
     Wt = Binv = None
     if deflation is not None:
         Wt = deflation.Wt_bf16
-        Binv = coarse_inv if coarse_inv is not None else deflation.coarse_inverses(ks, op.biot)
+        if coarse_inv is not None:
+            Binv = coarse_inv
+        elif ks.shape[-1] == deflation.C.shape[0] - 1:  # the affine five-parameter path
+            Binv = deflation.coarse_inverses(ks, op.biot)
+        else:
+            Binv = deflation.coarse_inverses_from_vals(op, vals)
         Binv = Binv.to(op.dtype).contiguous()
+    del vals
     if x0 is not None:
         x0 = x0.contiguous()
     if layout == "lanes" and lanes_route(op.n, 0 if Wt is None else Wt.shape[0]) == "K1":

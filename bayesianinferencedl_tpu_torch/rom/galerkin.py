@@ -137,15 +137,17 @@ class ReducedOperator:
         return amat, AT
 
     def solve_pcg(self, ks: torch.Tensor, P0: torch.Tensor, n_iters: int = 25,
-                  precision: str = "highest") -> torch.Tensor:
+                  precision: str = "highest", differentiable: bool = False) -> torch.Tensor:
         """Reduced solves by preconditioned CG with a FIXED iteration count:
         (C, 5) -> (C, r). No factorisation: A(k) p for the whole batch is one
         (C, r) @ (r, 6r) matmul against [Ahat_1^T .. Ahat_5^T | Mhat^T] plus
         a weighted sum, and the preconditioner is one (C, r) @ (r, r)
         matmul; both products run at the tier ``precision`` ("highest",
         "high" or "fast", ``utils.precision.tier_matmul``), the inner
-        products in float32. Not differentiable through the solve:
-        ``solve_pcg_diff`` is."""
+        products in float32. Not differentiable through the solve unless
+        ``differentiable`` (then it is ``solve_pcg_diff``)."""
+        if differentiable:
+            return self.solve_pcg_diff(ks, P0, n_iters, precision)
         ks = self._k(ks)
         amat, _ = self._pcg_operands(ks, precision)
         with fp32_matmul():

@@ -205,8 +205,9 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               ladder rising strictly to exactly 1 in every chain group, log Z
               and its std finite. (b) the reference bench's headline
               (bench.py:401-445): 4,096 chains x 5 levels, adapted ladder,
-              noise 1e-3, data simulated at phase 3's truth, 1,200 steps
-              (500 burn-in; the bench runs 15,000 / 2,000; cut from 2,500 /
+              noise 1e-3, data simulated at phase 3's truth, 1,000 steps
+              (400 burn-in; the bench runs 15,000 / 2,000; cut from 1,200 /
+              500 to make room for phase 17, and before that from 2,500 /
               1,000 for the time limit): samples/s,
               min bulk ESS/s, split-R-hat beside the reference's 1.05, the
               mean ladder, swap rates, log Z and us per step printed; gated
@@ -245,7 +246,8 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               of that pcn's and its sds within 10%: (a) laplace_mh, 4,096
               chains, 600 steps (200 burn-in; the bench runs 15,000 /
               2,000), accept in (0.05, 1], the MAP's nlp and point printed; (b)
-              mala_lap, 4,096 chains, 400 steps (150 burn-in), accept in
+              mala_lap, 4,096 chains, 300 steps (110 burn-in; 400 / 150
+              before phase 17 came), accept in
               (0.3, 0.85]; (c) at 1,024 chains gpcn, 450 steps (200 burn-in),
               mala, 350 steps (150 burn-in), hmc (n_leap 8), 45 steps (20
               burn-in), and hmc_lap
@@ -280,8 +282,9 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               on rom_nn, J = 1,024, an untimed warm run, then a timed one: the
               knots rise strictly to exactly 1.0, n_iters < 50, n_forward = J
               (n_iters + 1), the ensemble finite, each mean within one pcn
-              posterior sd of pcn's; (b) full-rank ADVI on rom_nn, 400 steps
-              (cut from the bench's 3,000 for the time limit) x 32
+              posterior sd of pcn's; (b) full-rank ADVI on rom_nn, 300 steps
+              (cut from the bench's 3,000, and from 400 to make room for
+              phase 17) x 32
               draws, then psis_certify with 4,096 draws: the ELBO finite
               and its last-50 mean above its first-50, theta_chol lower
               triangular with a positive diagonal, the means within one pcn
@@ -311,8 +314,9 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               the card, on phase 3's build (phase_flow's docstring holds the
               gates): (a) run_flow_vi_inversion at bench.py's flow_neutra widths
               on phase 11 (b)'s 1e-3 headline data (SMC on 4,096 particles,
-              8 mutations, at most 256 stages, then 1,000 MLE steps (the
-              bench's 3,000 cut for the time limit) of a flow
+              8 mutations, at most 256 stages, then 700 MLE steps (the
+              bench's 3,000 cut for the time limit, and 1,000 to make room
+              for phase 17) of a flow
               of 6 couplings of width 32): SMC under 256 stages, the MLE trace
               rising, the flow's round trip within 1e-4; (b) psis_certify_flow,
               8,192 draws, plain and base-widened by 1.5: k-hat finite (printed
@@ -353,6 +357,16 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               (d) run_sbc_check of pcn on phase 3's rom_nn build; (e) a 3-sensor
               design at res4 and a pipeline and pcn run on it; (f) a greedy
               build at res4
+ 17. P17      the full-field slice, K3r on nodal planes (phase_full_field's
+              docstring holds the gates): (a) build_full_field_pipeline at
+              invert-ff's defaults; (b) K3r against its plain version on the
+              build's 256 snapshot fields, the coarse projection against a
+              host float64 one, K3r timed at B = 256 and 1,024; (c) pcn on
+              rom_nn; (d) da_pcn on fom, K3r one launch an outer step; (e)
+              mlda_pcn with a res2 rung, lis_pcn, evidence-ff and
+              select-ell, invert-ff through the CLI, at cut sizes; (f)
+              make_fom_solver(deflate=False), refine_steps and the native
+              assembler
 
 The last three lines are the kernel summary (JSON: time, launches, bound,
 plain time of each kernel), the nvidia-smi line, and
@@ -2177,8 +2191,8 @@ def phase_k5(k3):
 
 PT_TEMPS, PT_LAMBDA_MIN = 4, 0.05  # (a) and (c): a 4-level geometric start from 0.05
 PT_A = dict(n_steps=1200, n_burn=400)  # (a): cut from 4,000 / 1,000 for the time limit
-PT_HEAD = dict(n_chains=4096, n_temps=5, lambda_min=0.05, noise_sigma=1e-3, n_steps=1200,
-               n_burn=500)  # (b): bench.py's headline, cut from 15,000 / 2,000 steps
+PT_HEAD = dict(n_chains=4096, n_temps=5, lambda_min=0.05, noise_sigma=1e-3, n_steps=1000,
+               n_burn=400)  # (b): bench.py's headline, cut from 15,000 / 2,000 steps
 PT_DA = dict(n_chains=256, n_steps=14, n_burn=4, subchain=64)  # (c): 256 x 4 = 1,024 fine solves
 PT_DA_SEGMENT = 32  # run_inversion's segment for pt_da_pcn on fom
 FOM_PCN = dict(n_chains=1024, n_steps=96, n_burn=48)  # (d)
@@ -2406,7 +2420,7 @@ def phase_pt(pipe4, inv4, pipe8, inv8):
 # phase 12: the Laplace and gradient-sampler layer (its steps cut for the time limit)
 # (a) bench.py's cfg_mh (bench.py:766) runs 15,000 / 2,000 steps
 P12_LAP_MH = dict(n_chains=4096, n_steps=600, n_burn=200)
-P12_MALA_LAP = dict(n_chains=4096, n_steps=400, n_burn=150)  # (b): bench.py's mala_lap block
+P12_MALA_LAP = dict(n_chains=4096, n_steps=300, n_burn=110)  # (b): bench.py's mala_lap block
 P12_GPCN = dict(n_chains=1024, n_steps=450, n_burn=200)  # (c)
 P12_MALA = dict(n_chains=1024, n_steps=350, n_burn=150)  # (c)
 P12_HMC = dict(n_chains=1024, n_steps=45, n_burn=20, hmc_leap=8)  # (c): 8 gradients a step
@@ -2708,7 +2722,7 @@ def phase_gradient(pipe4, inv4, pipe8, inv8, inv_pt):
 
 # phase 13: the approximation layer at the bench's widths (bench.py:409-410, 841-954)
 P13_EKI_J = 1024  # (a), (e): bench.py's eki block
-P13_VI = dict(n_steps=400, n_mc=32)  # (b): bench.py's vi_advi block, its 3,000 steps cut for the time limit
+P13_VI = dict(n_steps=300, n_mc=32)  # (b): bench.py's vi_advi block, its 3,000 steps cut for the time limit
 P13_SVGD = dict(n_particles=512, n_steps=200)  # (c): bench.py's svgd block, its 800 steps cut
 P13_SMC = dict(n_particles=4096, n_groups=8, n_mutations=5, ess_target=0.5, max_stages=64)  # (d)
 P13_SMC_FOM = dict(n_particles=1024, n_groups=4, n_mutations=5, ess_target=0.5, max_stages=64)  # (e)
@@ -2884,7 +2898,7 @@ def phase_approx(pipe4, inv4, inv_pt):
 
 
 # phase 14: the normalizing flow and NeuTra at the bench's widths (bench.py:411-412, 956-1005)
-P14_FLOW = dict(n_couplings=6, hidden=32, pretrain_particles=4096, pretrain_steps=1000, n_mutations=8,
+P14_FLOW = dict(n_couplings=6, hidden=32, pretrain_particles=4096, pretrain_steps=700, n_mutations=8,
                 max_stages=256)  # (a): bench.py's flow_neutra block, its 3,000 MLE steps cut
 P14_PSIS = 8192  # (b): 2 x the bench's psis_draws
 P14_WIDEN = 1.5  # (b): the base-widened certificate
@@ -3031,8 +3045,9 @@ def phase_flow(pipe4, inv4, inv_head, analytic):
     Returns K3r's launches over the phase.
 
     (a) run_flow_vi_inversion at bench.py's widths (6 couplings of width 32,
-        SMC on 4,096 particles with 8 mutations and at most 256 stages, 1,000
-        MLE steps, the bench's 3,000 cut for the time limit): SMC reaches lambda = 1 under 256 stages, the MLE trace
+        SMC on 4,096 particles with 8 mutations and at most 256 stages, 700
+        MLE steps, the bench's 3,000 cut for the time limit, then 1,000 to
+        make room for phase 17): SMC reaches lambda = 1 under 256 stages, the MLE trace
         rises (its last 100 steps' mean above its first 100's), and on 4,096
         base draws inverse(forward(Z)) is within 1e-4 of Z and the two
         log-determinants within 1e-4 of each other.
@@ -3761,6 +3776,435 @@ def phase_mlda_workflow(card, pipe4, pipe8, inv8):
     return k3r
 
 
+# (c), (d): the reference's full-field DA test's noise (tests/test_full_field_pipeline.py:213),
+# its unimodal regime; at invert-ff's default 1e-3 the posterior is multimodal and a
+# 24-step DA run's outer accept read 0.305 (PERF.md). (e)'s invert-ff runs at 1e-3.
+P17_NOISE = 1e-2
+P17_TIMED = (256, 1024)  # K3r on nodal planes: the snapshot sweep's batch and the dataset's
+P17_PCN = dict(n_chains=1024, n_steps=600, n_burn=300)  # (c): cut from invert-ff's 5,000 / 1,000
+P17_DA = dict(n_chains=1024, n_steps=24, n_burn=8, subchain=8)  # (d): cut from 5,000 / 1,000
+P17_DA_SEGMENT = 64  # run_full_field_inversion's segment for da_pcn on fom
+P17_MLDA = dict(n_chains=256, n_steps=6, n_burn=2, subchain=8, mlda_subchain=2, mlda_resolution=2)
+P17_MLDA_SEGMENT = 32  # run_full_field_inversion's segment for mlda_pcn
+P17_LIS = dict(n_chains=256, n_steps=300, n_burn=100, lis_points=16)  # (e)
+P17_SMC = dict(n_particles=1024, n_groups=4, n_mutations=5, max_stages=64)  # (e): evidence-ff on fom
+P17_ELL = dict(ells=(0.5, 1.0), ell_true=1.0, resolution=2, n_particles=512, n_groups=4,
+               n_mutations=2, max_stages=32, noise_sigma=1e-2)  # (e): select-ell, cut
+P17_CLI = ["invert-ff", "--n-snapshots", "64", "--n-train", "256", "--epochs", "20", "--chains", "256",
+           "--steps", "200", "--burn", "100"]  # (e): invert-ff through the CLI at cut sizes
+# the JSON keys of the reference CLI's invert-ff (its cmd_invert_ff)
+P17_CLI_KEYS = {"likelihood", "sampler", "n_features", "samples_per_sec", "ess_min", "accept_rate",
+                "rhat_split_max", "data_misfit_posterior_mean", "data_misfit_prior_mean", "ppc_p_value"}
+P17_UNDEFLATED_B = 256  # (f)
+P17_B_GATE = 1e-5  # (b): the card's coarse matrices against a host float64 projection, relative
+
+
+def _nodal_direct(pipe, G64, host, k64: np.ndarray) -> np.ndarray:
+    """The float64 sparse direct solve of the nodal operator at the nodal
+    conductivities k64 (its planes assembled on the host from G in float64)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from bayesianinferencedl_tpu_torch.rom.nonaffine import _nodal_vals_host
+
+    vals = _nodal_vals_host(G64, host.offsets, k64) + pipe.biot * host.ext_mass + host.fixed
+    n = host.n
+    rows, cols, data = [], [], []
+    for s, off in enumerate(host.offsets):
+        r = np.arange(n)
+        c = r + int(off)
+        ok = (c >= 0) & (c < n) & (vals[:, s] != 0)
+        rows.append(r[ok])
+        cols.append(c[ok])
+        data.append(vals[ok, s])
+    A = sp.csr_matrix((np.concatenate(data), (np.concatenate(rows), np.concatenate(cols))), shape=(n, n))
+    return spla.spsolve(A.tocsc(), host.F_root)
+
+
+def phase_full_field(card):
+    """Phase 17: the full-field slice (api_full_field) on the card, K3r on
+    nodal planes. Every FOM kernel's count is set to 0 before each entry
+    point and read after it.
+
+    (a) build_full_field_pipeline at invert-ff's defaults (res4, 64 RFF
+    features, ell 1, sigma 0.5, 256 snapshots, r 40, k basis 40, 1,024 +
+    128 error rows, a (128, 128) tanh MLP over 3,000 steps): the stage
+    seconds, each stage's K3r launches (one batched solve in each of the
+    snapshot, dataset and holdout stages), every "fom_solve" event's
+    highest iteration count against the cap and its failed factorisations,
+    the assembler, the ROM and corrected holdout errors. Gates: the
+    native assembler, K3r carrying exactly those 3 solves (K1 and K3 none),
+    no solve at the cap and none failed, the corrected holdout error below
+    the ROM's. (b) K3r against pcg_stencil_reference on the build's 256
+    snapshot conductivities, both with the same Binv from
+    coarse_inverses_from_vals: every per-sample gap <= 1e-4, counts within
+    16 a sample (phase 2's gates), none at the cap, 2 samples within 1e-4
+    of a float64 direct solve of the nodal operator; the card's coarse
+    matrices against a host float64 projection of the same planes on 4
+    samples (relative <= 1e-5); 0 failed factorisations. K3r and the plain
+    version timed by CUDA events at B = 256 and 1,024 (the dataset's
+    conductivities), with the coarse projection and inverse timed apart,
+    the least-work bound and the streaming floor (phase 5's). (c)
+    run_full_field_inversion, pcn on rom_nn, 1,024 chains, 600 steps (300
+    burn-in; cut from invert-ff's 5,000 / 1,000 for the time limit), noise
+    1e-2 (the regime of the reference's own full-field DA test; at
+    invert-ff's 1e-3 the posterior is multimodal, see P17_NOISE), seed 0:
+    accept in (0.05, 0.9), split-R-hat printed, the
+    posterior mean's data misfit below the prior mean's, K3r exactly 1
+    launch (the truth solve). (d) da_pcn on fom, subchains of 8, the same
+    seed (so the same truth and data), 1,024 chains, 24 outer steps (8
+    burn-in; cut from 5,000 / 1,000): K3r exactly one launch an outer step
+    plus the truth solve's, the warm-up's (its init and 2 steps), each
+    segment's init and the audit's; outer accept > 0.6, inner in (0.05,
+    0.9); no audited state at the cap; means within 5 MCSE of (c)'s. (e)
+    at cut sizes, each with its seconds: mlda_pcn on (c)'s data with the
+    mid rung at res2 (256 chains, subchains (8, 2), 6 top steps, 2
+    burn-in), K3r's launches by mesh exactly as the run's structure says;
+    lis_pcn on rom_nn (256 chains, 300 steps, 100 burn-in, 16 Jacobian
+    points); run_full_field_evidence on fom (1,024 particles in 4 groups, 5
+    mutations): log Z finite and K3r exactly 2 + 5 x the most stages of a
+    group; select_correlation_length over ell 0.5 and 1.0 at res2 (cut
+    from res4; 512 particles in 4 groups, 2 mutations, at most 32 stages,
+    noise 1e-2): each log Z finite and K3r exactly 1 + the sum over the
+    ells of 1 + 2 x the most stages; invert-ff through cli.main (64
+    snapshots, 256 error rows, 200 surrogate steps, 256 chains x 200 steps;
+    cut): its JSON keys the reference's. (f) make_fom_solver(deflate=False)
+    at res4 on 256 log-uniform conductivities through K3r undeflated (1
+    launch) against the plain version (every gap <= 1e-4, mean counts
+    within 5%, none at the cap); solve_fom with refine_steps=1 on one
+    conductivity, its float64 residual no higher than without; the res4
+    FiveParamFin on the native assembler, its host arrays equal to the
+    NumPy assembler's (1e-14, summation order). Returns K3r's launches on
+    the entry points (the comparisons of (b) not counted), its gap from the
+    plain version and the nodal timings."""
+    import dataclasses
+
+    import torch
+
+    from bayesianinferencedl_tpu_torch import api, api_full_field as aff, cli
+    from bayesianinferencedl_tpu_torch.fem.dia import assemble_fin_dia
+    from bayesianinferencedl_tpu_torch.fem.dia_nonaffine import assemble_nodal_coeff
+    from bayesianinferencedl_tpu_torch.fem.solve import solve_fom
+    from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin, assemble_host
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+    from bayesianinferencedl_tpu_torch.rom.nonaffine import _stencil_apply_host
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    tag = "P17"
+    k3r = 0
+
+    def reset():
+        K.launches = K.tile_launches = K.tile_mma_launches = 0
+
+    def read(what):
+        torch.cuda.synchronize()
+        if K.launches or K.tile_launches:
+            fail(f"{tag} {what}: K1 {K.launches} / K3 {K.tile_launches} launches where K3r carries "
+                 f"the fom solves")
+        return K.tile_mma_launches
+
+    class Counting(MetricsLogger):
+        """Every event carries K3r's launch count when it was logged."""
+
+        def log(self, event, **fields):
+            torch.cuda.synchronize()
+            return super().log(event, k3r=K.tile_mma_launches, **fields)
+
+    # (a) the build at invert-ff's defaults
+    reset()
+    log = Counting()
+    t0 = time.perf_counter()
+    pipe = aff.build_full_field_pipeline(metrics=log)
+    t_build = time.perf_counter() - t0
+    n_build = read("(a) build")
+    k3r += n_build
+    stages, prev = [], 0
+    for e in log.events:
+        if "seconds" in e:
+            stages.append(f"{e['event']} {e['seconds']:.2f} s / K3r {e['k3r'] - prev}")
+            prev = e["k3r"]
+    ev = {e["event"]: e for e in log.events}
+    solves = [e for e in log.events if e["event"] == "fom_solve"]
+    hold = ev["holdout_rel_err"]
+    say(tag, f"[{card}] (a) build_full_field_pipeline at invert-ff's defaults (res{pipe.op.resolution}, "
+        f"n = {pipe.op.n}, M = {pipe.prior.dim}, m = {pipe.deflation.m}): {t_build:.2f} s; stages: "
+        + "; ".join(stages))
+    say(tag, f"(a) assembler {ev['fom_built']['assembler']}; fom_solve events (batch, max iters / cap, "
+        f"at cap, failed): " + ", ".join(f"({e['batch']}, {e['max_iters']}/{e['cap']}, {e['n_at_cap']}, "
+                                          f"{e['n_failed']})" for e in solves)
+        + f"; ROM rel err {ev['rom_rel_err']['value']:.4e}, corrected (train) "
+        f"{ev['corrected_rel_err']['value']:.4e}; holdout ROM {hold['rom']:.4e}, corrected "
+        f"{hold['corrected']:.4e}; K3r launches {n_build}")
+    if ev["fom_built"]["assembler"] != "native":
+        fail(f"{tag} (a): the host operator came from the {ev['fom_built']['assembler']} assembler")
+    if [e["batch"] for e in solves] != [256, 1024, 128] or n_build != 3:
+        fail(f"{tag} (a): K3r {n_build} launches for the solves {[e['batch'] for e in solves]}, "
+             f"expected 3 for (256, 1024, 128)")
+    if any(e["n_at_cap"] or e["n_failed"] for e in solves):
+        fail(f"{tag} (a): a build solve hit the cap or failed its coarse factorisation")
+    if not hold["corrected"] < hold["rom"]:
+        fail(f"{tag} (a): holdout corrected {hold['corrected']:.4e} not below the ROM's {hold['rom']:.4e}")
+
+    # (b) K3r against its plain version on nodal planes
+    op, defl, dev = pipe.op, pipe.deflation, pipe.device
+    host, _ = assemble_host(pipe.mesh)
+    G64 = assemble_nodal_coeff(pipe.mesh, host)
+    M = pipe.prior.dim
+    ks_by_B = {
+        256: torch.exp(pipe.field.sample(torch.Generator(device=dev).manual_seed(0), 256)),
+        1024: torch.exp(pipe.field.theta(torch.randn(
+            (1024, M), generator=torch.Generator(device=dev).manual_seed(1), device=dev))),
+    }
+    times, max_abs = {}, 0.0
+    for B in P17_TIMED:
+        ks = ks_by_B[B]
+        vals = op.vals(ks)
+        vals4 = K.upper_planes(vals)
+        Binv = defl.coarse_inverses_from_vals(op, vals).contiguous()
+        n_bad = int((~torch.isfinite(Binv).all(dim=(1, 2))).sum())
+        kw = dict(offsets=op.offsets[K.DIAG_SLOT + 1:], tol=pipe.cg_tol, maxiter=pipe.cg_maxiter,
+                  Wt=defl.Wt_bf16, Binv=Binv, check_every=CHECK_EVERY)
+        x_r, it_r = K.pcg_stencil_tile(vals4, op.F_root, None, **kw)
+        xp, itp = K.pcg_stencil_reference(vals4, op.F_root, None, **kw)
+        torch.cuda.synchronize()
+        if not torch.isfinite(x_r).all():
+            fail(f"{tag} (b) B={B}: non-finite K3r solution")
+        rel_s = (torch.linalg.norm(x_r - xp, dim=1) / torch.linalg.norm(xp, dim=1)).cpu().numpy()
+        gap = (x_r - xp).abs().max().item()
+        max_abs = max(max_abs, gap)
+        it, ip = it_r.cpu().numpy(), itp.cpu().numpy()
+        d_it = np.abs(it - ip)
+        say(tag, f"(b) B={B} nodal planes (cluster of {_cluster(B)}): K3r vs plain per-sample rel max "
+            f"{rel_s.max():.3e} (max abs {gap:.3e}); iters K3r min/median/max {it.min()}/"
+            f"{int(np.median(it))}/{it.max()}, plain {ip.min()}/{int(np.median(ip))}/{ip.max()}, cap "
+            f"{pipe.cg_maxiter}; per-sample count difference max {d_it.max()}; failed coarse "
+            f"factorisations {n_bad}")
+        if n_bad:
+            fail(f"{tag} (b) B={B}: {n_bad} coarse factorisations failed")
+        if rel_s.max() > REL_GATE or d_it.max() > CHECK_EVERY:
+            fail(f"{tag} (b) B={B}: K3r vs plain {rel_s.max():.3e} (gate {REL_GATE:g}) or count "
+                 f"difference {d_it.max()} (gate {CHECK_EVERY})")
+        if it.max() >= pipe.cg_maxiter or ip.max() >= pipe.cg_maxiter:
+            fail(f"{tag} (b) B={B}: a solve at the {pipe.cg_maxiter}-iteration cap")
+        if B == 256:
+            errs = []
+            for b in range(2):
+                us = _nodal_direct(pipe, G64, host, ks[b].double().cpu().numpy())
+                errs.append(np.linalg.norm(x_r[b].double().cpu().numpy() - us) / np.linalg.norm(us))
+            say(tag, f"(b) K3r vs the float64 direct solve of the nodal operator (2 samples): "
+                f"{np.round(errs, 8).tolist()}")
+            if max(errs) > REL_GATE:
+                fail(f"{tag} (b): K3r {max(errs):.3e} from the float64 direct solve (gate {REL_GATE:g})")
+            Bc = defl.coarse_matrices_from_vals(op, vals[:4]).double().cpu().numpy()
+            Wt64 = defl.Wt.double().cpu().numpy()
+            v64 = vals[:4].double().cpu().numpy()
+            Bh = [Wt64 @ _stencil_apply_host(v64[b], host.offsets, Wt64.T) for b in range(4)]
+            rel_B = max(np.linalg.norm(Bc[b] - 0.5 * (Bh[b] + Bh[b].T)) / np.linalg.norm(Bh[b])
+                        for b in range(4))
+            say(tag, f"(b) coarse matrices, card vs host float64 projection of the same planes (4 "
+                f"samples): relative {rel_B:.3e} (gate {P17_B_GATE:g})")
+            if rel_B > P17_B_GATE:
+                fail(f"{tag} (b): the card's coarse projection {rel_B:.3e} from the host's")
+        del x_r, xp
+        r_ms = _time_ms(lambda: K.pcg_stencil_tile(vals4, op.F_root, None, **kw), 5)
+        c_ms = _time_ms(lambda: defl.coarse_inverses_from_vals(op, vals), 5)
+        p_ms = _time_ms(lambda: K.pcg_stencil_reference(vals4, op.F_root, None, **kw), 3)
+        bound, floor = _k1_bound(B, op.n, defl.m, it), _stream_floor(K3R_BYTES, op.n, it)
+        times[B] = dict(ms=r_ms, plain_ms=p_ms, coarse_ms=c_ms, bound=bound, floor=floor,
+                        iters_mean=float(it.mean()))
+        say(tag, f"(b) B={B}: K3r {r_ms:.3f} ms, plain torch {p_ms:.3f} ms, the coarse projection "
+            f"and inverses {c_ms:.3f} ms; mean count {it.mean():.2f}; least-work bound "
+            f"{bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / r_ms:.2f}% of it; streaming floor "
+            f"({K3R_BYTES} B per node, sample and iteration) {floor:.3f} ms, "
+            f"{100 * floor / r_ms:.1f}% of it")
+
+    # (c) pcn on rom_nn
+    reset()
+    seed0 = lambda: torch.Generator(device=dev).manual_seed(0)
+    res_c, z_true, data, ess_c, rh_c, wall_c = aff.run_full_field_inversion(
+        pipe, noise_sigma=P17_NOISE, generator=seed0(), **P17_PCN)
+    n_c = read("(c) pcn")
+    k3r += n_c
+    fwd = pipe.batched_forward_fn("rom_nn")
+    z_post = res_c.samples.mean(dim=(0, 1))
+    fit_post = float(torch.linalg.norm(fwd(z_post[None])[0] - data))
+    fit_prior = float(torch.linalg.norm(fwd(torch.zeros_like(z_post)[None])[0] - data))
+    acc_c = float(res_c.accept_rate.mean())
+    T_c, C_c = res_c.samples.shape[:2]
+    say(tag, f"(c) pcn rom_nn, {C_c} chains, {P17_PCN['n_steps']} steps ({P17_PCN['n_burn']} burn-in), "
+        f"noise {P17_NOISE:g}: {wall_c:.3f} s, {1e3 * wall_c / P17_PCN['n_steps']:.2f} ms a step, "
+        f"{T_c * C_c / wall_c:.0f} kept samples/s; accept {acc_c:.4f}; split-rhat max "
+        f"{float(rh_c.max()):.4f}; bulk ESS min {float(ess_c.min()):.1f}; data misfit of the posterior "
+        f"mean {fit_post:.4e} vs the prior mean's {fit_prior:.4e}; K3r launches {n_c}")
+    if not 0.05 < acc_c < 0.9 or not fit_post < fit_prior or n_c != 1:
+        fail(f"{tag} (c): accept {acc_c:.4f}, misfit {fit_post:.4e} vs {fit_prior:.4e}, K3r {n_c} "
+             f"(expected 1, the truth solve)")
+
+    # (d) da_pcn on fom
+    reset()
+    log_d = MetricsLogger()
+    d = P17_DA
+    res_d, _, data_d, ess_d, rh_d, wall_d = aff.run_full_field_inversion(
+        pipe, likelihood="fom", sampler="da_pcn", noise_sigma=P17_NOISE, generator=seed0(),
+        metrics=log_d, **d)
+    n_d = read("(d) da_pcn")
+    k3r += n_d
+    T = d["n_steps"]
+    seg = -(-T // P17_DA_SEGMENT)
+    want = 1 + (1 + 2) + (seg + T) + 1  # truth, warm-up (init + 2 steps), run, audit
+    audit = log_d.summary()["fom_iter_audit"]
+    outer, inner = float(res_d.accept_rate.mean()), float(res_d.inner_accept_rate.mean())
+    means, sds, zz, sd_rel, rhats = _posterior_z(res_d.samples, res_c.samples)
+    say(tag, f"(d) da_pcn fom, {d['n_chains']} chains, subchains of {d['subchain']}, {T} outer steps "
+        f"({d['n_burn']} burn-in): {wall_d:.3f} s, {1e3 * wall_d / T:.1f} ms an outer step; outer accept "
+        f"{outer:.4f}, inner {inner:.4f}; split-rhat {rhats[0]:.4f}; audit cap {audit['cap']}, max "
+        f"{audit['max_iters']}, at cap {audit['hit_cap_frac']}; |mean diff| / MCSE vs (c) max "
+        f"{zz.max():.2f} (median {np.median(zz):.2f}); K3r launches {n_d} (expected {want}: {T} outer "
+        f"steps, the truth solve, the warm-up's 3, {seg} segment init, the audit)")
+    if not torch.equal(data_d, data):
+        fail(f"{tag} (d): the data differ from (c)'s")
+    if n_d != want or outer <= 0.6 or not 0.05 < inner < 0.9 or audit["hit_cap_frac"] > 0:
+        fail(f"{tag} (d): K3r {n_d} (expected {want}), outer {outer:.4f}, inner {inner:.4f}, audit "
+             f"{audit}")
+    if zz.max() > 5.0:
+        fail(f"{tag} (d): a posterior mean {zz.max():.2f} MCSE from (c)'s")
+
+    # (e) at cut sizes
+    by_n = {}
+    tile = K.pcg_stencil_tile
+
+    def split_tile(vals4, F, *a, **kw):  # the batch's mesh, by F's length
+        by_n[F.shape[-1]] = by_n.get(F.shape[-1], 0) + 1
+        return tile(vals4, F, *a, **kw)
+
+    K.pcg_stencil_tile = split_tile
+    try:
+        reset()
+        m = P17_MLDA
+        t0 = time.perf_counter()
+        res_m, *_ = aff.run_full_field_inversion(pipe, likelihood="fom", sampler="mlda_pcn", data=data,
+                                                 z_true=z_true, noise_sigma=P17_NOISE, generator=seed0(), **m)
+        t_m = time.perf_counter() - t0
+        n_m = read("(e) mlda_pcn")
+        k3r += n_m
+        T, ms = m["n_steps"], m["mlda_subchain"]
+        seg = -(-T // P17_MLDA_SEGMENT)
+        n2 = next(n for n in by_n if n != op.n) if len(by_n) > 1 else None
+        want_fine = (1 + 2) + (seg + T) + 1  # warm-up (init + 2 steps), run, audit
+        want_mid = (1 + 2 * ms) + (ms * T + seg)
+        say(tag, f"(e) mlda_pcn fom, mid rung res{m['mlda_resolution']}, {m['n_chains']} chains, "
+            f"subchains ({m['subchain']}, {ms}), {T} top steps: {t_m:.2f} s; accept top "
+            f"{float(res_m.accept_rate.mean()):.4f}, per level {np.round(res_m.level_rates.mean(1).cpu().numpy(), 4).tolist()}; "
+            f"K3r launches res{pipe.op.resolution} {by_n.get(op.n, 0)} (expected {want_fine}), "
+            f"res{m['mlda_resolution']} {by_n.get(n2, 0)} (expected {want_mid})")
+        if by_n.get(op.n, 0) != want_fine or by_n.get(n2, 0) != want_mid:
+            fail(f"{tag} (e) mlda_pcn: K3r launches by mesh {by_n}")
+    finally:
+        K.pcg_stencil_tile = tile
+
+    reset()
+    t0 = time.perf_counter()
+    log_l = MetricsLogger()
+    res_l, *_ = aff.run_full_field_inversion(pipe, sampler="lis_pcn", data=data, z_true=z_true,
+                                             noise_sigma=P17_NOISE, generator=seed0(), metrics=log_l,
+                                             **P17_LIS)
+    t_l = time.perf_counter() - t0
+    lis_ev = log_l.summary()
+    acc_l = float(res_l.accept_rate.mean())
+    say(tag, f"(e) lis_pcn rom_nn, {P17_LIS['n_chains']} chains x {P17_LIS['n_steps']} steps: "
+        f"{t_l:.2f} s (MAP + Laplace {lis_ev['map_laplace']['seconds']:.2f} s, LIS build "
+        f"{lis_ev['build_lis']['seconds']:.2f} s, rank {lis_ev['lis_built']['rank']}); accept {acc_l:.4f}")
+    if not torch.isfinite(res_l.samples).all() or not 0.0 < acc_l < 1.0:
+        fail(f"{tag} (e) lis_pcn: accept {acc_l:.4f} or non-finite samples")
+    k3r += read("(e) lis_pcn")
+
+    reset()
+    t0 = time.perf_counter()
+    ev_f = aff.run_full_field_evidence(pipe, likelihood="fom", noise_sigma=P17_NOISE, generator=seed0(),
+                                       **P17_SMC)
+    n_e = read("(e) evidence")
+    k3r += n_e
+    want = 2 + P17_SMC["n_mutations"] * int(ev_f.n_stages.max())
+    say(tag, f"(e) evidence-ff on fom, {P17_SMC['n_particles']} particles in {P17_SMC['n_groups']} "
+        f"groups: {time.perf_counter() - t0:.2f} s; log Z {ev_f.log_evidence:.4f} +- "
+        f"{ev_f.log_evidence_std:.4f}, stages {ev_f.n_stages.cpu().tolist()}; K3r launches {n_e} "
+        f"(expected {want})")
+    if not np.isfinite(ev_f.log_evidence) or n_e != want:
+        fail(f"{tag} (e) evidence: log Z {ev_f.log_evidence}, K3r {n_e} (expected {want})")
+
+    reset()
+    t0 = time.perf_counter()
+    log_s = MetricsLogger()
+    e = P17_ELL
+    sel = aff.select_correlation_length(e["ells"], ell_true=e["ell_true"], resolution=e["resolution"],
+                                        noise_sigma=e["noise_sigma"], n_particles=e["n_particles"],
+                                        n_groups=e["n_groups"], n_mutations=e["n_mutations"],
+                                        max_stages=e["max_stages"], metrics=log_s)
+    n_s = read("(e) select-ell")
+    k3r += n_s
+    stages = [max(x["n_stages"]) for x in log_s.events if x["event"] == "ff_smc_evidence"]
+    want = 1 + sum(1 + e["n_mutations"] * s for s in stages)
+    say(tag, f"(e) select-ell at res{e['resolution']} over ell {list(e['ells'])} (truth {e['ell_true']}): "
+        f"{time.perf_counter() - t0:.2f} s; log Z {sel['log_z']} +- {sel['log_z_std']}, posterior "
+        f"{sel['posterior']}, ell_map {sel['ell_map']}; most stages {stages}; K3r launches {n_s} "
+        f"(expected {want})")
+    if not np.all(np.isfinite(sel["log_z"])) or n_s != want:
+        fail(f"{tag} (e) select-ell: log Z {sel['log_z']}, K3r {n_s} (expected {want})")
+
+    reset()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(P17_CLI)
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    n_cli = read("(e) invert-ff")
+    k3r += n_cli
+    say(tag, f"(e) {' '.join(P17_CLI)}: {time.perf_counter() - t0:.2f} s; {json.dumps(rec)}; K3r "
+        f"launches {n_cli}")
+    if set(rec) != P17_CLI_KEYS or not np.isfinite(rec["data_misfit_posterior_mean"]):
+        fail(f"{tag} (e) invert-ff: keys {sorted(rec)} are not the reference's {sorted(P17_CLI_KEYS)}")
+
+    # (f) the undeflated solver, refinement and the native assembler
+    fin = FiveParamFin.create(resolution=4, device="cuda", cg_tol=TOL, cg_maxiter=MAXITER)
+    ref = assemble_fin_dia(fin.mesh, pad_to=128)
+    gaps = {f: float(np.abs(getattr(fin.host, f) - getattr(ref, f)).max())
+            for f in ("comp_vals", "ext_mass", "fixed", "F_root", "qoi", "qoi_root")}
+    say(tag, f"(f) FiveParamFin res4 assembler {fin.assembler}; host arrays vs the NumPy assembler, "
+        f"max abs {max(gaps.values()):.3e}")
+    if fin.assembler != "native" or max(gaps.values()) > 1e-14:
+        fail(f"{tag} (f): assembler {fin.assembler}, gaps {gaps}")
+    rng = np.random.default_rng(17)
+    ks_np = np.exp(rng.uniform(np.log(0.1), np.log(10.0), (P17_UNDEFLATED_B, 5)))
+    ks = torch.tensor(ks_np, dtype=torch.float32, device=dev)
+    reset()
+    u, it = api.make_fom_solver(fin, tol=TOL, maxiter=MAXITER, deflate=False, with_iters=True)(ks)
+    n_f = read("(f) make_fom_solver(deflate=False)")
+    k3r += n_f
+    vals4 = K.upper_planes(fin.op.vals(ks))
+    up, ip = K.pcg_stencil_reference(vals4, fin.op.F_root, None, offsets=fin.op.offsets[K.DIAG_SLOT + 1:],
+                                     tol=TOL, maxiter=MAXITER, check_every=CHECK_EVERY)
+    rel_s = (torch.linalg.norm(u - up, dim=1) / torch.linalg.norm(up, dim=1)).cpu().numpy()
+    it, ip = it.cpu().numpy(), ip.cpu().numpy()
+    max_abs = max(max_abs, (u - up).abs().max().item())
+    say(tag, f"(f) make_fom_solver(deflate=False) res4 B={P17_UNDEFLATED_B}: K3r launches {n_f}; vs plain "
+        f"per-sample rel max {rel_s.max():.3e}; mean count {it.mean():.1f} vs plain {ip.mean():.1f}, max "
+        f"{it.max()} (cap {MAXITER})")
+    if n_f != 1 or rel_s.max() > REL_GATE or abs(it.mean() / ip.mean() - 1) > 0.05 or it.max() >= MAXITER:
+        fail(f"{tag} (f) undeflated: K3r {n_f}, gap {rel_s.max():.3e}, counts {it.mean():.1f} vs "
+             f"{ip.mean():.1f}")
+    A, _, _ = _direct_solve(fin, ks_np[0])
+    resid = []
+    for steps in (0, 1):
+        us = solve_fom(fin.op, ks[0], tol=1e-6, maxiter=MAXITER, refine_steps=steps).double().cpu().numpy()
+        resid.append(np.linalg.norm(fin.host.F_root - A @ us) / np.linalg.norm(fin.host.F_root))
+    say(tag, f"(f) solve_fom tol 1e-6: float64 relative residual {resid[0]:.3e} without refinement, "
+        f"{resid[1]:.3e} with refine_steps=1")
+    if resid[1] > resid[0]:
+        fail(f"{tag} (f): refinement raised the float64 residual")
+    say(tag, f"K3r launches over the phase's entry points: {k3r}")
+    return dict(launches=k3r, max_abs_err=max_abs, times=times)
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
                   ms: float, plain_ms: float, bound: tuple) -> dict:
     return {"name": name, "route": "cuda", "source": f"bayesianinferencedl_tpu_torch/csrc/{source}",
@@ -3800,6 +4244,7 @@ def main() -> None:
     p14_launches = _timed("P14", phase_flow, pipe, inv, inv_head, analytic)
     p15_launches = _timed("P15", phase_persist_precision, pipe, inv, slice_log, inv_head, pipe8, inv8)
     p16_launches = _timed("P16", phase_mlda_workflow, card, pipe, pipe8, inv8)
+    p17 = _timed("P17", phase_full_field, card)
     say("time", f"seconds by phase {json.dumps(PHASE_SECONDS)}; {sum(PHASE_SECONDS.values()):.1f} s in all")
     t1 = lanes["times"][B_CHECK]
     t3 = k3["times"][1024]
@@ -3829,13 +4274,15 @@ def main() -> None:
         # box-prior da_pcn and the checkpointed DA's fine solves at res8) and
         # phase 16's (MLDA's mid rung at res4 and fine correction at res8,
         # the checkpointed MLDA, the prediction at res8, the sensor and
-        # greedy builds at res4)
+        # greedy builds at res4) and phase 17's (the full-field build, truth
+        # solves, DA's fine solves, MLDA's rungs at res4 and res2, the
+        # evidence and the ell selection on nodal planes, the undeflated solver)
         _kernel_entry("pcg_stencil_tile_mma", "pcg_stencil_tile_mma.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385",
                       slice_launches["K3r"] + k3_launches + pt_launches + p12_launches + p13_launches
-                      + p14_launches + p15_launches + p16_launches,
-                      max(k3["max_abs_err"], lanes["max_abs"]["K3r"]), t3["ms"], t3["plain_ms"],
-                      t3["bound"]),
+                      + p14_launches + p15_launches + p16_launches + p17["launches"],
+                      max(k3["max_abs_err"], lanes["max_abs"]["K3r"], p17["max_abs_err"]), t3["ms"],
+                      t3["plain_ms"], t3["bound"]),
         # K3, off the main path since K3r: timed on the same inputs, for the record
         _kernel_entry("pcg_stencil_tile", "pcg_stencil_tile.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385", 0,
