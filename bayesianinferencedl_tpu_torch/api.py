@@ -118,13 +118,13 @@ from bayesianinferencedl_tpu_torch.infer.tempering import (
 )
 from bayesianinferencedl_tpu_torch.infer.vi import VIResult, run_advi, vi_sample
 from bayesianinferencedl_tpu_torch.models.corrected import CorrectedForward
-from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin, on_kernels
 from bayesianinferencedl_tpu_torch.models.surrogate import MLP, Normalizer, TrainedSurrogate, train_surrogate
 from bayesianinferencedl_tpu_torch.ops.pcg_stencil import solve_fom_stencil
 from bayesianinferencedl_tpu_torch.rom.galerkin import ReducedOperator
 from bayesianinferencedl_tpu_torch.rom.greedy import greedy_basis, orthonormalize_host
-from bayesianinferencedl_tpu_torch.rom.pod import pod_basis_host
-from bayesianinferencedl_tpu_torch.rom.snapshots import sample_log_uniform
+from bayesianinferencedl_tpu_torch.rom.pod import pod_basis, pod_basis_host
+from bayesianinferencedl_tpu_torch.rom.snapshots import generate_snapshots, sample_log_uniform
 from bayesianinferencedl_tpu_torch.utils.checkpoint import load_checkpoint, np_dtype, read_meta, save_checkpoint
 from bayesianinferencedl_tpu_torch.utils.device import resolve_device
 from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
@@ -334,13 +334,14 @@ def make_fom_solver(fin: FiveParamFin, *, tol: float, maxiter: int, with_iters: 
     from x0 (B, n); with_iters=True returns (u, iters), the per-sample
     iteration counts (audit_fom_iters).
 
-    By the operator's dtype, as in the JAX package: float32 goes through
-    the stencil kernels (K1 or K3r with the two-level deflation
-    preconditioner; K4r / K4c, undeflated, on the largest meshes, where no basis
-    is built), float64 through the plain PCG of ``fem/solve.py``.
-    deflate=False: plain Jacobi-PCG on the same kernels (K3r with no
-    basis)."""
-    if fin.op.dtype != torch.float32:
+    By the operator's type and dtype, as in the JAX package
+    (``five_param.on_kernels``): a float32 stencil operator goes through the
+    stencil kernels (K1 or K3r with the two-level deflation preconditioner;
+    K4r / K4c, undeflated, on the largest meshes, where no basis is built);
+    any other (float64, or the ELL layout in any dtype) through the plain
+    PCG of ``fem/solve.py``. deflate=False: plain Jacobi-PCG on the same
+    kernels (K3r with no basis)."""
+    if not on_kernels(fin.op):
         def solve(ks, x0=None):
             ks = torch.as_tensor(ks, dtype=fin.op.dtype, device=fin.op.device)
             u, iters, _ = pcg_fom(fin.op, ks, fin.op.F_root.expand(ks.shape[0], -1), tol=tol,
@@ -416,11 +417,16 @@ def build_pipeline(
     """The offline build on ``device`` (the card unless the caller asks for
     ``"cpu"``; without a card "cuda" raises). Every batched FOM solve
     (snapshots, training dataset, holdout) is one call of K1, K3r or K4r /
-    K4c, by the mesh size. ROMConfig.method "pod" takes the POD basis of
-    the snapshots, "greedy" the greedy basis (``rom/greedy.py``) over the
-    first ``greedy_candidates`` of them, one FOM solve a basis vector; both
-    are projected in host float64. Holdout errors are logged as the
-    ``holdout_rel_err`` event.
+    K4c, by the mesh size (``make_fom_solver``). ROMConfig.method "pod"
+    takes the POD basis of the snapshots, "greedy" the greedy basis
+    (``rom/greedy.py``) over the first ``greedy_candidates`` of them, one FOM
+    solve a basis vector; both are projected in host float64. A fin whose
+    host has no float64 algebra (the ELL layout: no ``to_scipy_components``)
+    takes the JAX package's device route instead: its snapshots from
+    ``generate_snapshots`` (the plain PCG), the POD by ``pod_basis`` and the
+    projection by ``ReducedOperator.project`` in the working dtype, the
+    greedy basis as built; the ``rom_built`` event's ``f64_offline`` says
+    which. Holdout errors are logged as the ``holdout_rel_err`` event.
 
     fin: a prebuilt fin instead of the config's, the seam for other
     observation operators, e.g. the pointwise sensors of an optimal design
@@ -448,19 +454,26 @@ def build_pipeline(
 
     gen = torch.Generator(device=dev).manual_seed(cfg.rom.seed)
     k_snap = sample_log_uniform(gen, cfg.rom.n_snapshots, dtype=dtype)
+    host_algebra = hasattr(fin.host, "to_scipy_components")
     with log.timer("snapshots"):
         if cfg.rom.method == "greedy":
             # one solve a selected candidate, each a batch of one through the kernels
             gres = greedy_basis(fin.op, k_snap[: cfg.rom.greedy_candidates], cfg.rom.basis_size,
                                 solve=lambda k: fom_solver(k[None])[0])
             # the device Gram-Schmidt's float32 cross-terms go in a host f64 QR
-            V = orthonormalize_host(gres.snapshots)
-        else:
+            V = orthonormalize_host(gres.snapshots) if host_algebra else gres.V
+        elif host_algebra:
             V, _ = pod_basis_host(fom_solver(k_snap), cfg.rom.basis_size)
+        else:
+            S = generate_snapshots(fin.op, k_snap, tol=cfg.fem.cg_tol, maxiter=cfg.fem.cg_maxiter)
+            V = pod_basis(S, cfg.rom.basis_size).V
         _sync(dev)
     with log.timer("project_rom"):
-        rom = ReducedOperator.project_host(fin.host, cfg.fem.biot, V, dtype=dtype, device=dev)
-    log.log("rom_built", r=rom.r, method=cfg.rom.method, f64_offline=True)
+        if host_algebra:
+            rom = ReducedOperator.project_host(fin.host, cfg.fem.biot, V, dtype=dtype, device=dev)
+        else:
+            rom = ReducedOperator.project(fin.op, V)
+    log.log("rom_built", r=rom.r, method=cfg.rom.method, f64_offline=host_algebra)
 
     P0 = rom.preconditioner()
     # deployed reduced-PCG iteration count: the r/2 knee, bumped to 3r/4

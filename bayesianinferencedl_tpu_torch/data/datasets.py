@@ -7,9 +7,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from bayesianinferencedl_tpu_torch.fem.solve import pcg_fom
 from bayesianinferencedl_tpu_torch.rom.galerkin import ReducedOperator
-from bayesianinferencedl_tpu_torch.rom.snapshots import sample_log_uniform
+from bayesianinferencedl_tpu_torch.rom.snapshots import generate_snapshots, sample_log_uniform
 
 
 class ErrorDataset(NamedTuple):
@@ -35,18 +34,14 @@ def generate_error_dataset(
 ) -> ErrorDataset:
     """ks log-uniform on [lo, hi]^5. fom_solver: batched ks -> u (B, n)
     (K1, K3r, K4r or K4c through ``api.make_fom_solver``); default the plain
-    PCG of ``fem/solve.py`` at ``tol`` and ``maxiter``, over ``chunk``
-    samples at a time if given (memory only: the values do not depend on
-    it). rom_forward: batched ks -> y (B, m), default the Cholesky
+    PCG of ``fem/solve.py`` at ``tol`` and ``maxiter`` (``generate_snapshots``),
+    over ``chunk`` samples at a time if given (memory only: the values do
+    not depend on it). rom_forward: batched ks -> y (B, m), default the Cholesky
     ``rom.forward``; pass the deployed ``rom.fast_forward`` so the surrogate
     learns the error of the path the chains evaluate."""
     ks = sample_log_uniform(gen, n_samples, lo=lo, hi=hi, dtype=op.dtype)
     if fom_solver is None:
-        step = chunk or max(n_samples, 1)
-        fom_solver = lambda k: torch.cat([
-            pcg_fom(op, k[i:i + step], op.F_root.expand(k[i:i + step].shape[0], -1), tol=tol,
-                    maxiter=maxiter)[0]
-            for i in range(0, k.shape[0], step)])
+        fom_solver = lambda k: generate_snapshots(op, k, tol=tol, maxiter=maxiter, chunk=chunk)
     y_fom = op.observe(fom_solver(ks))
     y_rom = (rom_forward or rom.forward)(ks)
     return ErrorDataset(log_k=torch.log(ks), error=y_fom - y_rom, y_fom=y_fom, y_rom=y_rom)

@@ -12,4 +12,9 @@
   torch version and its own entry point.
 - k2r_phases: where K2r's time goes on the card (clocks per phase of an
   instrumented copy, sweeps over the chains, r and cg_iters).
+- multigrid: the geometric multigrid-preconditioned flexible CG on (B, X0,
+  Y0) stencil planes, in plain torch as the JAX package's is plain XLA; its
+  crossover against the stencil kernels on an H100 is in PERF.md. Nothing
+  in ``api`` calls it: ``MGHierarchy.create(res, biot).solve(ks)``.
+- svgd_khat: SVGD's moment-matched PSIS k-hat over seeds, on the card.
 """

@@ -47,9 +47,12 @@ def mesh_node_grid_ids(mesh) -> np.ndarray:
 
 
 def solution_indices(fin) -> np.ndarray:
-    """(n_nodes,) index into the solver's u vector of each mesh node (the
-    port's operator is always the stencil layout)."""
-    return mesh_node_grid_ids(fin.mesh)
+    """(n_nodes,) index into the solver's u vector of each mesh node: the
+    structured-grid ids for the stencil layout, the identity for the ELL
+    layout, which numbers u by mesh node."""
+    if hasattr(fin.op, "vals_grid"):
+        return mesh_node_grid_ids(fin.mesh)
+    return np.arange(fin.mesh.n_nodes, dtype=np.int64)
 
 
 def boundary_candidates(fin) -> np.ndarray:

@@ -1,6 +1,12 @@
 """The 5-parameter thermal fin: piecewise-constant conductivity (one k_i per
-subfin pair + post), affine stencil assembly, FOM forward and QoI, and the
+subfin pair + post), affine assembly, FOM forward and QoI, and the
 derivatives of the data misfit.
+
+Two operator layouts, as in the JAX package: "dia", the 7-diagonal stencil
+on the full structured grid (``fem/dia.py``), which the kernels carry, and
+"ell", the compacted gather layout on the mesh's own nodes
+(``fem/operators.py``), the oracle path and the seam for a fin without a
+structured grid, which always goes through the plain PCG.
 
 Two solves, as in the JAX package:
 
@@ -10,21 +16,25 @@ Two solves, as in the JAX package:
 - ``solve_batch``/``forward_batch``/``forward`` are batched sweeps through
   the stencil kernels (``ops.pcg_stencil.solve_fom_stencil``): K1 or K3r with
   the two-level deflation preconditioner, or K4r / K4c on the largest meshes,
-  where no deflation basis is built.
+  where no deflation basis is built; an ELL fin, or a fin in another dtype
+  than float32, takes the plain PCG (``on_kernels``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from bayesianinferencedl_tpu_torch.geometry.mesh import FinMesh, build_fin_mesh
+from bayesianinferencedl_tpu_torch.fem.assemble import FinFEMHost, assemble_fin
 from bayesianinferencedl_tpu_torch.fem.dia import FinFEMDiaHost, StencilOperator, assemble_fin_dia
+from bayesianinferencedl_tpu_torch.fem.operators import FinOperator
 from bayesianinferencedl_tpu_torch.ops.deflation import DeflationBasis
-from bayesianinferencedl_tpu_torch.fem.solve import pcg_fom, solve_fom
+from bayesianinferencedl_tpu_torch.fem.solve import solve_fom
 from bayesianinferencedl_tpu_torch.ops.pcg_stencil import layout_for, solve_fom_stencil
+from bayesianinferencedl_tpu_torch.rom.snapshots import generate_snapshots
 from bayesianinferencedl_tpu_torch.utils.device import resolve_device
 
 
@@ -39,13 +49,21 @@ def assemble_host(mesh: FinMesh, pad_to: int = 128) -> tuple[FinFEMDiaHost, str]
     return assemble_fin_dia(mesh, pad_to=pad_to), "numpy"
 
 
+def on_kernels(op) -> bool:
+    """Whether the batched stencil kernels carry this operator's FOM solves:
+    a stencil operator (one with grid planes) in float32. Any other goes
+    through the plain PCG of ``fem/solve.py``; the route is the operator's
+    type, never a caught failure."""
+    return hasattr(op, "vals_grid") and op.dtype == torch.float32
+
+
 @dataclass
 class FiveParamFin:
-    """Thermal fin with 5 piecewise-constant conductivities (stencil layout)."""
+    """Thermal fin with 5 piecewise-constant conductivities."""
 
     mesh: FinMesh
-    host: FinFEMDiaHost
-    op: StencilOperator
+    host: Union[FinFEMDiaHost, FinFEMHost]
+    op: Union[StencilOperator, FinOperator]
     cg_tol: float = 1e-10
     cg_maxiter: int = 3000
     assembler: str = "numpy"  # which host assembler built ``host``: "native" or "numpy"
@@ -61,22 +79,33 @@ class FiveParamFin:
         pad_to: int = 128,
         cg_tol: float = 1e-10,
         cg_maxiter: int = 3000,
+        layout: str = "dia",
     ) -> "FiveParamFin":
         """The fin on ``device``: the card unless the caller asks for "cpu";
-        without a card "cuda" raises. The host operator comes from the native
-        C++ assembler (``native/``, built at first use) where ``make`` is
-        there, else from the NumPy assembler (its oracle); ``assembler``
-        records which."""
+        without a card "cuda" raises. layout "dia" (the default): the stencil
+        operator, its host from the native C++ assembler (``native/``, built
+        at first use) where ``make`` is there, else from the NumPy assembler
+        (its oracle); "ell": the ELL operator from ``fem/assemble.py``
+        (NumPy). ``assembler`` records which built the host."""
+        if layout not in ("dia", "ell"):
+            raise ValueError(f"layout must be 'dia' or 'ell', got {layout!r}")
         device = resolve_device(device)
         mesh = build_fin_mesh(resolution)
-        host, assembler = assemble_host(mesh, pad_to=pad_to)
-        op = StencilOperator.from_host(host, biot=biot, dtype=dtype, device=device)
+        if layout == "dia":
+            host, assembler = assemble_host(mesh, pad_to=pad_to)
+            op = StencilOperator.from_host(host, biot=biot, dtype=dtype, device=device)
+        else:
+            host, assembler = assemble_fin(mesh, pad_to=pad_to), "numpy"
+            op = FinOperator.from_host(host, biot=biot, dtype=dtype, device=device)
         return cls(mesh=mesh, host=host, op=op, cg_tol=cg_tol, cg_maxiter=cg_maxiter,
                    assembler=assembler)
 
-    def deflation_basis(self, m: Optional[int] = None) -> DeflationBasis:
+    def deflation_basis(self, m: Optional[int] = None) -> Optional[DeflationBasis]:
         """The two-level deflation basis (m modes, default 128), built once
-        (host f64 eigensolve) and cached on the fin."""
+        (host f64 eigensolve) and cached on the fin; None for the ELL layout,
+        which has no structured grid."""
+        if not hasattr(self.host, "to_scipy_components"):
+            return None
         if self._deflation is None:
             self._deflation = DeflationBasis.create(
                 self.host, biot=self.op.biot, m=128 if m is None else m, dtype=self.op.dtype,
@@ -86,18 +115,15 @@ class FiveParamFin:
 
     def deflation_for_kernels(self) -> Optional[DeflationBasis]:
         """The basis the batched kernels apply: None on K4's "single" layout,
-        which neither applies nor builds one."""
+        which neither applies nor builds one, and for the ELL layout."""
         return None if layout_for(self.op.n) == "single" else self.deflation_basis()
 
     def solve_batch(self, ks: torch.Tensor) -> torch.Tensor:
         """(B, 5) conductivities -> (B, n) full-order solution fields: the
-        stencil kernels in float32, the plain PCG of ``fem/solve.py`` in
-        float64 (the split of ``api.make_fom_solver``)."""
-        if self.op.dtype != torch.float32:
-            ks = torch.as_tensor(ks, dtype=self.op.dtype, device=self.op.device)
-            u, _, _ = pcg_fom(self.op, ks, self.op.F_root.expand(ks.shape[0], -1), tol=self.cg_tol,
-                              maxiter=self.cg_maxiter)
-            return u
+        stencil kernels for a float32 stencil fin, the plain PCG of
+        ``fem/solve.py`` otherwise (the split of ``api.make_fom_solver``)."""
+        if not on_kernels(self.op):
+            return generate_snapshots(self.op, ks, tol=self.cg_tol, maxiter=self.cg_maxiter)
         u, _ = solve_fom_stencil(
             self.op, ks, tol=self.cg_tol, maxiter=self.cg_maxiter,
             deflation=self.deflation_for_kernels(),

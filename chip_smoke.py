@@ -367,6 +367,13 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               select-ell, invert-ff through the CLI, at cut sizes; (f)
               make_fom_solver(deflate=False), refine_steps and the native
               assembler
+ 18. P18      the ELL oracle layout, the hand-coded adjoint and the
+              multigrid FCG (phase_ell_multigrid's docstring holds the
+              gates): (a) ELL at res8 against the SciPy oracle in float64 and
+              against K3r in float32; (b) the adjoints against autograd on
+              both layouts at res4 in float64; (c) an ELL build_pipeline at
+              res4 beside the stencil build; (d) MG-FCG against K3r (res8,
+              res16) and K4r (res32), times, counts and errors
 
 The last three lines are the kernel summary (JSON: time, launches, bound,
 plain time of each kernel), the nvidia-smi line, and
@@ -1086,6 +1093,7 @@ def _k3_setup(res):
     t0 = time.perf_counter()
     fin = FiveParamFin.create(resolution=res, biot=0.1, device="cuda", cg_tol=TOL, cg_maxiter=MAXITER)
     defl = fin.deflation_basis()
+    _K3_FINS[res] = fin
     op = fin.op
     say("K3r", f"res{res} n={op.n} offsets={op.offsets[4:]} m={defl.m}; fin + deflation basis "
         f"{time.perf_counter() - t0:.2f} s; solve_fom_stencil takes layout "
@@ -4205,6 +4213,235 @@ def phase_full_field(card):
     return dict(launches=k3r, max_abs_err=max_abs, times=times)
 
 
+# phase 18: the ELL layout, the adjoint oracle and the multigrid FCG
+P18_ELL_RES = 8
+P18_ELL64 = dict(B=8, tol=1e-10, maxiter=6000)  # (a): float64 against the SciPy oracle
+P18_ELL64_GATE = 1e-8
+P18_ELL32_B = 64  # (a): float32 against K3r
+P18_ELL32_GATE = 1e-4  # the QoI, relative
+P18_ADJ_RES = 4  # (b)
+P18_ADJ_GATE = 1e-8
+# (c): phase 3's mesh, snapshots and basis; the surrogate cut (it does not enter the holdout ROM error)
+P18_BUILD = dict(n_snapshots=256, basis_size=40, n_train=256, epochs=20, hidden=(32, 32))
+P18_BUILD_GATE = 2.0  # the ELL holdout ROM error at most this times the stencil build's
+P18_MG = ((8, 256), (16, 64), (32, 16))  # (d): the JAX package's crossover shapes (res, B)
+P18_MG_MAXITER = 150
+P18_MG_DIRECT = 2  # samples a shape against the float64 direct solve
+_K3_FINS = {}  # res -> phase 5's stencil fin (its deflation basis built), reused by phase 18
+
+
+def _p18_fin(res):
+    """The float32 stencil fin at res with its deflation basis where the
+    kernels apply one: phase 5's where it built one, else a new one."""
+    from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+
+    if res not in _K3_FINS:
+        fin = FiveParamFin.create(resolution=res, biot=0.1, device="cuda", cg_tol=TOL, cg_maxiter=MAXITER)
+        fin.deflation_for_kernels()
+        _K3_FINS[res] = fin
+    return _K3_FINS[res]
+
+
+def phase_ell_multigrid(card):
+    """Phase 18: the ELL oracle layout, the hand-coded adjoint and the
+    multigrid FCG on the card. Every FOM kernel's count is set to 0 before
+    each entry point and read after it; an ELL fin and the multigrid must
+    reach none, a stencil fin in float32 must reach K3r or K4r.
+
+    (a) ELL at res8 through api.make_fom_solver (the plain PCG of
+    fem/solve.py): float64, B = 8, tol 1e-10, within 1e-8 of the port's
+    SciPy oracle (fem/oracle.py) on 2 samples; float32, B = 64, tol 1e-7,
+    the QoI within 1e-4 (relative) of the stencil fin's K3r solve on the
+    same ks, the fields compared at the mesh nodes (infer.oed.
+    solution_indices); times and mean counts of both printed. (b) At res4
+    in float64 on the card, adjoint_gradient and adjoint_gn_hvp within 1e-8
+    (relative) of the fin's autograd gradient and gn_hvp, on both layouts.
+    (c) build_pipeline(fin=<ELL fin>) at res4 in float32 with phase 3's
+    mesh, 256 snapshots and r = 40 (surrogate cut to (32, 32), 256 samples,
+    20 epochs), beside the stencil build from the same config and seeds:
+    the ELL build takes the device route (f64_offline False) and its
+    holdout ROM error is at most 2x the stencil build's; orthonormality_error
+    of both bases printed (float32's method of snapshots loses the trailing
+    modes' orthonormality, as the JAX package's does). (d) MGHierarchy.solve
+    (float32, tol 1e-7, maxiter 150) at res8 B = 256, res16 B = 64 and
+    res32 B = 16, the same ks through make_fom_solver's kernel (K3r
+    deflated at res8 and res16, K4r at res32, cap max(1500, 120 res)) and
+    at res8 and res16 K3r undeflated (Jacobi-PCG): on 2 samples a shape
+    the multigrid's error against the float64 direct solve at most
+    max(1e-4, 1.5x the kernel's) per sample; counts, samples at the cap,
+    ms (one call after a warm-up, by CUDA events) and solves/s printed, no
+    speed gate. Returns the kernels' launches over the phase and the
+    crossover rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from bayesianinferencedl_tpu_torch import api
+    from bayesianinferencedl_tpu_torch.config import (
+        FEMConfig, MCMCConfig, MeshConfig, PipelineConfig, ROMConfig, SurrogateConfig,
+    )
+    from bayesianinferencedl_tpu_torch.experimental.multigrid import MGHierarchy
+    from bayesianinferencedl_tpu_torch.fem import oracle
+    from bayesianinferencedl_tpu_torch.infer.oed import solution_indices
+    from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+    from bayesianinferencedl_tpu_torch.rom.pod import orthonormality_error
+    from bayesianinferencedl_tpu_torch.utils.adjoint import adjoint_gn_hvp, adjoint_gradient
+    from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
+
+    t_phase = time.perf_counter()
+    counters = {"K1": "launches", "K3": "tile_launches", "K3r": "tile_mma_launches", "K4": "grid_launches",
+                "K4r": "grid_resident_launches", "K4c": "grid_cluster_launches"}
+    launches = {"K3r": 0, "K4r": 0}
+    rng = np.random.default_rng(18)
+    log_uniform = lambda B: np.exp(rng.uniform(np.log(0.1), np.log(10.0), (B, 5)))
+    rel = lambda a, b: float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    def counted(fn, want=None):
+        """(fn()'s result, its ms by CUDA events), every FOM kernel counted
+        from 0: none may launch but ``want``, which must; its count is added
+        to the phase's."""
+        for attr in counters.values():
+            setattr(K, attr, 0)
+        ms, out = _time_once_ms(fn)
+        got = {k: getattr(K, attr) for k, attr in counters.items()}
+        if any(n for k, n in got.items() if k != want) or (want is not None and not got[want]):
+            fail(f"P18: kernel launches {got}, expected only {want}")
+        if want is not None:
+            launches[want] += got[want]
+        return out, ms
+
+    # (a) ELL at res8
+    c = P18_ELL64
+    ell64 = FiveParamFin.create(resolution=P18_ELL_RES, biot=0.1, dtype=torch.float64, device="cuda",
+                                layout="ell", cg_tol=c["tol"], cg_maxiter=c["maxiter"])
+    ks64 = log_uniform(c["B"])
+    solve64 = api.make_fom_solver(ell64, tol=c["tol"], maxiter=c["maxiter"], with_iters=True)
+    (u64, it64), ms64 = counted(lambda: solve64(ks64))
+    nd = ell64.op.n_dof
+    errs = []
+    for i in range(2):
+        ur = oracle.solve(ell64.mesh, ks64[i], 0.1)
+        errs.append(float(np.linalg.norm(u64[i, :nd].cpu().numpy() - ur) / np.linalg.norm(ur)))
+    say("P18", f"[{card}] (a) ELL res{P18_ELL_RES} (n = {ell64.op.n}, {nd} nodes, L = "
+        f"{ell64.op.cols.shape[1]}) float64 B={c['B']} tol {c['tol']:g}: {ms64:.1f} ms, counts mean "
+        f"{float(it64.float().mean()):.1f} max {int(it64.max())}; error vs the SciPy oracle "
+        f"{[f'{e:.3e}' for e in errs]} (gate {P18_ELL64_GATE:g})")
+    if max(errs) > P18_ELL64_GATE or int(it64.max()) >= c["maxiter"]:
+        fail(f"(a): ELL float64 error {max(errs):.3e} or a sample at the cap")
+    ell32 = FiveParamFin.create(resolution=P18_ELL_RES, biot=0.1, device="cuda", layout="ell", cg_tol=TOL,
+                                cg_maxiter=MAXITER)
+    dia = _p18_fin(P18_ELL_RES)
+    ks32 = torch.tensor(log_uniform(P18_ELL32_B), dtype=torch.float32, device="cuda")
+    s_ell = api.make_fom_solver(ell32, tol=TOL, maxiter=MAXITER, with_iters=True)
+    s_dia = api.make_fom_solver(dia, tol=TOL, maxiter=MAXITER, with_iters=True)
+    s_ell(ks32), s_dia(ks32)  # warm-up
+    (ue, ie), ms_e = counted(lambda: s_ell(ks32))
+    (ud, idd), ms_d = counted(lambda: s_dia(ks32), want="K3r")
+    ye, yd = ell32.op.observe(ue), dia.op.observe(ud)
+    q_rel = float((torch.linalg.norm(ye - yd, dim=-1) / torch.linalg.norm(yd, dim=-1)).max())
+    ne, ndia = (torch.as_tensor(solution_indices(f), device="cuda") for f in (ell32, dia))
+    f_rel = float((torch.linalg.norm(ue[:, ne] - ud[:, ndia], dim=-1)
+                   / torch.linalg.norm(ud[:, ndia], dim=-1)).max())
+    say("P18", f"(a) float32 B={P18_ELL32_B} tol {TOL:g}: ELL plain PCG {ms_e:.1f} ms, counts mean "
+        f"{float(ie.float().mean()):.1f}; stencil K3r (deflated) {ms_d:.1f} ms, counts mean "
+        f"{float(idd.float().mean()):.1f}; ELL / K3r time {ms_e / ms_d:.2f}x; QoI rel diff max {q_rel:.3e} "
+        f"(gate {P18_ELL32_GATE:g}), field at the mesh nodes {f_rel:.3e}")
+    if not q_rel <= P18_ELL32_GATE or int(ie.max()) >= MAXITER:
+        fail(f"(a): ELL float32 QoI {q_rel:.3e} off K3r's, or a sample at the cap")
+    out = dict(ell=dict(f64_ms=ms64, f64_iters=float(it64.float().mean()), f32_ms=ms_e,
+                        f32_iters=float(ie.float().mean()), k3r_ms=ms_d, k3r_iters=float(idd.float().mean())))
+
+    # (b) the hand-coded adjoints against autograd, float64 on the card
+    k = np.array([0.7, 1.4, 2.2, 0.9, 1.1])
+    v = np.array([0.3, -0.2, 0.5, 0.1, -0.4])
+    for layout in ("ell", "dia"):
+        fin = FiveParamFin.create(resolution=P18_ADJ_RES, biot=0.1, dtype=torch.float64, device="cuda",
+                                  layout=layout, cg_tol=1e-12, cg_maxiter=4000)
+        data = fin.forward_batch(torch.ones(1, 5, dtype=torch.float64, device="cuda"))[0] * 1.02
+        g_adj, ms_g = counted(lambda: adjoint_gradient(fin.op, k, data, 0.01))
+        h_adj, ms_h = counted(lambda: adjoint_gn_hvp(fin.op, k, v, 0.01))
+        g_auto, h_auto = fin.gradient(k, data, 0.01), fin.gn_hvp(k, v, 0.01)
+        eg, eh = rel(g_adj, g_auto), rel(h_adj, h_auto)
+        say("P18", f"(b) res{P18_ADJ_RES} {layout} float64: adjoint_gradient vs autograd {eg:.3e} "
+            f"({ms_g:.1f} ms), adjoint_gn_hvp vs autograd {eh:.3e} ({ms_h:.1f} ms); gate {P18_ADJ_GATE:g}")
+        if not max(eg, eh) <= P18_ADJ_GATE:
+            fail(f"(b): {layout} adjoint off autograd by {max(eg, eh):.3e}")
+
+    # (c) an ELL pipeline beside the stencil build from the same config and seeds
+    b = P18_BUILD
+    cfg = PipelineConfig(
+        mesh=MeshConfig(resolution=4), fem=FEMConfig(biot=0.1, cg_tol=TOL, cg_maxiter=MAXITER),
+        rom=ROMConfig(n_snapshots=b["n_snapshots"], basis_size=b["basis_size"]),
+        surrogate=SurrogateConfig(hidden=b["hidden"], n_train=b["n_train"], epochs=b["epochs"]),
+        mcmc=MCMCConfig(noise_sigma=1e-2),
+    )
+    built = {}
+    for layout in ("ell", "dia"):
+        fin = FiveParamFin.create(resolution=4, biot=0.1, device="cuda", layout=layout, cg_tol=TOL,
+                                  cg_maxiter=MAXITER)
+        log = MetricsLogger()
+        pipe, ms = counted(lambda: api.build_pipeline(cfg, device="cuda", fin=fin, metrics=log),
+                           want=None if layout == "ell" else "K3r")
+        s = log.summary()
+        built[layout] = dict(ms=ms, holdout=s["holdout_rel_err"]["rom"], f64=s["rom_built"]["f64_offline"],
+                             orth=float(orthonormality_error(pipe.rom.V)), snap=s["snapshots"]["seconds"])
+    e, d = built["ell"], built["dia"]
+    say("P18", f"(c) build_pipeline res{cfg.mesh.resolution} float32 r = {b['basis_size']}: ELL {e['ms'] / 1e3:.2f} s (snapshots "
+        f"stage {e['snap']:.2f} s, f64_offline {e['f64']}), holdout rom {e['holdout']:.4e}, "
+        f"orthonormality_error {e['orth']:.3e}; stencil {d['ms'] / 1e3:.2f} s (snapshots {d['snap']:.2f} s, "
+        f"f64_offline {d['f64']}), holdout rom {d['holdout']:.4e}, orthonormality_error {d['orth']:.3e}; "
+        f"ratio {e['holdout'] / d['holdout']:.3f} (gate {P18_BUILD_GATE:g})")
+    if e["f64"] or not d["f64"] or not e["holdout"] <= P18_BUILD_GATE * d["holdout"]:
+        fail(f"(c): the ELL build's route or holdout rom error {e['holdout']:.4e} off")
+    out["build"] = built
+
+    # (d) the multigrid FCG against the kernels
+    rows = []
+    for res, B in P18_MG:
+        fin = _p18_fin(res)
+        cap = max(MAXITER, 120 * res)
+        ks_np = log_uniform(B)
+        ks = torch.tensor(ks_np, dtype=torch.float32, device="cuda")
+        mg = MGHierarchy.create(res, biot=0.1, dtype=torch.float32, device="cuda")
+        mg_solve = lambda: mg.solve(ks, tol=TOL, maxiter=P18_MG_MAXITER)
+        mg_solve()  # warm-up
+        (u_mg, it_mg), ms_mg = counted(mg_solve)
+        kname = "K4r" if K.layout_for(fin.op.n) == "single" else "K3r"
+        main = api.make_fom_solver(fin, tol=TOL, maxiter=cap, with_iters=True)
+        main(ks)  # warm-up
+        (u_k, it_k), ms_k = counted(lambda: main(ks), want=kname)
+        row = dict(res=res, B=B, n=fin.op.n, kernel=kname, mg_iters=it_mg.cpu().numpy(), mg_ms=ms_mg,
+                   k_iters=it_k.cpu().numpy(), k_ms=ms_k, cap=cap)
+        if kname == "K3r":
+            jac = api.make_fom_solver(fin, tol=TOL, maxiter=cap, deflate=False, with_iters=True)
+            jac(ks)  # warm-up
+            (_, it_j), ms_j = counted(lambda: jac(ks), want="K3r")
+            row.update(jac_iters=it_j.cpu().numpy(), jac_ms=ms_j)
+        else:
+            row.update(jac_iters=row["k_iters"], jac_ms=ms_k)  # K4r is Jacobi-PCG
+        nd = min(P18_MG_DIRECT, B)
+        mg_flat = F.pad(u_mg[:nd].reshape(nd, -1), (0, fin.op.n - fin.op.n_grid))
+        e_mg, _, _ = _direct_rel_err(fin, ks_np[:nd], mg_flat.double().cpu().numpy())
+        e_k, _, _ = _direct_rel_err(fin, ks_np[:nd], u_k[:nd].double().cpu().numpy())
+        gate = np.maximum(1e-4, 1.5 * e_k)
+        row.update(mg_err=e_mg, k_err=e_k)
+        rows.append(row)
+        st = lambda it: f"mean {it.mean():.1f} max {int(it.max())}"
+        say("P18", f"[{card}] (d) res{res} B={B} (n = {fin.op.n}): MG-FCG {len(mg.levels)} levels "
+            f"{ms_mg:.1f} ms ({B / ms_mg * 1e3:.1f} solves/s), counts {st(row['mg_iters'])}, "
+            f"{int((row['mg_iters'] >= P18_MG_MAXITER).sum())} at the cap {P18_MG_MAXITER}; {kname} "
+            f"{'deflated ' if kname == 'K3r' else ''}{ms_k:.1f} ms ({B / ms_k * 1e3:.1f} solves/s), counts "
+            f"{st(row['k_iters'])}, {int((row['k_iters'] >= cap).sum())} at the cap {cap}; Jacobi-PCG "
+            f"({kname}{' undeflated' if kname == 'K3r' else ''}) {row['jac_ms']:.1f} ms "
+            f"({B / row['jac_ms'] * 1e3:.1f} solves/s), counts {st(row['jac_iters'])}; error vs the float64 "
+            f"direct solve MG {[f'{x:.3e}' for x in e_mg]}, {kname} {[f'{x:.3e}' for x in e_k]} (gate "
+            f"{[f'{x:.3e}' for x in gate]})")
+        if not np.all(e_mg <= gate):
+            fail(f"(d): res{res} MG-FCG error {e_mg.max():.3e} above max(1e-4, 1.5x {kname}'s)")
+    out.update(launches=launches, mg=rows)
+    say("P18", f"launches over phase 18: {launches}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
                   ms: float, plain_ms: float, bound: tuple) -> dict:
     return {"name": name, "route": "cuda", "source": f"bayesianinferencedl_tpu_torch/csrc/{source}",
@@ -4245,6 +4482,7 @@ def main() -> None:
     p15_launches = _timed("P15", phase_persist_precision, pipe, inv, slice_log, inv_head, pipe8, inv8)
     p16_launches = _timed("P16", phase_mlda_workflow, card, pipe, pipe8, inv8)
     p17 = _timed("P17", phase_full_field, card)
+    p18 = _timed("P18", phase_ell_multigrid, card)
     say("time", f"seconds by phase {json.dumps(PHASE_SECONDS)}; {sum(PHASE_SECONDS.values()):.1f} s in all")
     t1 = lanes["times"][B_CHECK]
     t3 = k3["times"][1024]
@@ -4277,10 +4515,13 @@ def main() -> None:
         # greedy builds at res4) and phase 17's (the full-field build, truth
         # solves, DA's fine solves, MLDA's rungs at res4 and res2, the
         # evidence and the ell selection on nodal planes, the undeflated solver)
+        # and phase 18's (the stencil side of the ELL comparison at res8, the
+        # stencil build at res4, the multigrid's crossover at res8 and res16)
         _kernel_entry("pcg_stencil_tile_mma", "pcg_stencil_tile_mma.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385",
                       slice_launches["K3r"] + k3_launches + pt_launches + p12_launches + p13_launches
-                      + p14_launches + p15_launches + p16_launches + p17["launches"],
+                      + p14_launches + p15_launches + p16_launches + p17["launches"]
+                      + p18["launches"]["K3r"],
                       max(k3["max_abs_err"], lanes["max_abs"]["K3r"], p17["max_abs_err"]), t3["ms"],
                       t3["plain_ms"], t3["bound"]),
         # K3, off the main path since K3r: timed on the same inputs, for the record
@@ -4294,8 +4535,10 @@ def main() -> None:
         _kernel_entry("pcg_stencil_grid", "pcg_stencil_grid.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:58", 0,
                       max(k4["max_abs_err"]["K4"], k4c["max_abs_err"]["K4"]), t4["ms"], p40, t4["bound"]),
+        # K4r: the CLI's res32 commands and phase 18's multigrid crossover at res32
         _kernel_entry("pcg_stencil_grid_resident", "pcg_stencil_grid_resident.cu",
-                      "bayesianinferencedl_tpu/ops/pcg_stencil.py:58", k4_launches["K4r"],
+                      "bayesianinferencedl_tpu/ops/pcg_stencil.py:58",
+                      k4_launches["K4r"] + p18["launches"]["K4r"],
                       k4["max_abs_err"]["K4r"], t4r["ms"], t4r["plain_ms"], t4r["bound"]),
         # K5r carries the probe's entry point at res8; K5, the route's other
         # side, carries it at res16 (an H100) and is timed at res8 on K5r's shape

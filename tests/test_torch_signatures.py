@@ -35,9 +35,7 @@ EXCLUDED = {
     "mesh": "a jax.sharding.Mesh: multi-device routes are ROADMAP item 23",
 }
 # (qualified name, keyword) -> why
-EXCLUDED_AT = {
-    ("models.five_param.FiveParamFin.create", "layout"): "the ELL oracle layout is ROADMAP item 22",
-}
+EXCLUDED_AT = {}
 # flags of the reference CLI the port does not take
 EXCLUDED_FLAGS = {
     "--shard": "routes over more than one device, ROADMAP item 23 (the full-field commands take it "
