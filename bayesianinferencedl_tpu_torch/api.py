@@ -62,6 +62,7 @@ import math
 import time
 import warnings
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Callable, Optional, Union
 
@@ -126,7 +127,7 @@ from bayesianinferencedl_tpu_torch.rom.greedy import greedy_basis, orthonormaliz
 from bayesianinferencedl_tpu_torch.rom.pod import pod_basis, pod_basis_host
 from bayesianinferencedl_tpu_torch.rom.snapshots import generate_snapshots, sample_log_uniform
 from bayesianinferencedl_tpu_torch.utils.checkpoint import load_checkpoint, np_dtype, read_meta, save_checkpoint
-from bayesianinferencedl_tpu_torch.utils.device import resolve_device
+from bayesianinferencedl_tpu_torch.utils.device import child_generator as _child, resolve_device
 from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
 from bayesianinferencedl_tpu_torch.utils.ppc import noise_posterior, ppc_chi2_pvalue, ppc_shape_pvalue, thin_samples
 from bayesianinferencedl_tpu_torch.utils.predict import FieldPrediction, predict_field
@@ -569,12 +570,6 @@ class InversionResult:
     noise_sigma_post: Optional[dict] = None
 
 
-def _child(gen: torch.Generator) -> torch.Generator:
-    """A fresh generator seeded from ``gen``'s stream."""
-    seed = int(torch.randint(0, 2**62, (1,), generator=gen, device=gen.device).item())
-    return torch.Generator(device=gen.device).manual_seed(seed)
-
-
 def _observations(pipe: Pipeline, gen: torch.Generator, theta_true: Optional[torch.Tensor],
                   data: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
     """(theta_true, data), the data contract of every entry point here.
@@ -622,9 +617,21 @@ def _map_laplace(pipe: Pipeline, like: str, mk_misfit: Callable, data: torch.Ten
     return lap
 
 
+def _runner(mesh, plain: Callable) -> Callable:
+    """``plain`` (an ``infer`` runner ``run_<name>``), or with a mesh its
+    sharded counterpart ``parallel.sharding.sharded_<name>`` with the mesh
+    bound: the same arguments, the chain axis split over the ranks."""
+    if mesh is None:
+        return plain
+    from bayesianinferencedl_tpu_torch.parallel import sharding
+
+    return functools.partial(getattr(sharding, "sharded_" + plain.__name__[len("run_"):]), mesh)
+
+
 def _gradient_sampler_runner(kind: str, like: str, misfit_b: Callable, prior, theta0, *,
                              step: float, thin: int, n_leap: int, jitter: float,
-                             ref: Optional[tuple] = None, log: Optional[MetricsLogger] = None):
+                             ref: Optional[tuple] = None, log: Optional[MetricsLogger] = None,
+                             mesh=None):
     """(run, warm_run), each (gen, n_steps, n_burn) -> result, for a gradient
     sampler (kind "mala" or "hmc"), shared by the prior- and the Laplace-
     preconditioned entries of ``run_inversion``: on fom in segments (32
@@ -633,7 +640,8 @@ def _gradient_sampler_runner(kind: str, like: str, misfit_b: Callable, prior, th
     cross-chain ChEES criterion (``run_hmc_chees``, rom/rom_nn only) and
     logs the probe table as the "chees" event; its warm-up runs
     fixed-length HMC at the median candidate, which builds and allocates
-    what the probes use without running them twice."""
+    what the probes use without running them twice. mesh: the sharded
+    runners (``_runner``)."""
     if kind == "hmc" and n_leap == 0:
         if like == "fom":
             raise ValueError(
@@ -643,13 +651,14 @@ def _gradient_sampler_runner(kind: str, like: str, misfit_b: Callable, prior, th
             )
 
         def run_auto(g, n_steps, n_burn):
-            res, info = run_hmc_chees(misfit_b, prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
-                                      step=step, jitter=jitter, thin=thin, ref=ref)
+            res, info = _runner(mesh, run_hmc_chees)(misfit_b, prior, theta0, g, n_steps=n_steps,
+                                                      n_burn=n_burn, step=step, jitter=jitter,
+                                                      thin=thin, ref=ref)
             if log is not None:
                 log.log("chees", **info)
             return res
 
-        warm = lambda g, n_steps, n_burn: run_hmc(
+        warm = lambda g, n_steps, n_burn: _runner(mesh, run_hmc)(
             misfit_b, prior, theta0, g, n_steps=n_steps, n_burn=n_burn, step=step, n_leap=8,
             jitter=jitter, thin=thin, ref=ref)
         return run_auto, warm
@@ -659,11 +668,11 @@ def _gradient_sampler_runner(kind: str, like: str, misfit_b: Callable, prior, th
         plain, seg_fn = run_hmc, run_hmc_segmented
         kw, segment = dict(n_leap=n_leap, jitter=jitter), max(1, 32 // n_leap)
     if like == "fom":
-        run = lambda g, n_steps, n_burn: seg_fn(
+        run = lambda g, n_steps, n_burn: _runner(mesh, seg_fn)(
             misfit_b, prior, theta0, g, n_steps=n_steps, n_burn=n_burn, step=step,
             segment=segment, ref=ref, **kw)
     else:
-        run = lambda g, n_steps, n_burn: plain(
+        run = lambda g, n_steps, n_burn: _runner(mesh, plain)(
             misfit_b, prior, theta0, g, n_steps=n_steps, n_burn=n_burn, step=step, thin=thin,
             ref=ref, **kw)
     return run, run
@@ -678,6 +687,7 @@ def run_inversion(
     theta_true: Optional[torch.Tensor] = None,
     data: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
     metrics: Optional[MetricsLogger] = None,
 ) -> InversionResult:
     """Bayesian inversion with batched chains on pipe's device:
@@ -720,7 +730,15 @@ def run_inversion(
     timed run, which uses a fresh generator and is timed with CUDA events on
     a card. fom-likelihood runs re-solve up to 1,024 kept states and report
     the solver's iteration audit; tempered runs report the log evidence,
-    infer_noise runs the noise posterior and the scale-free PPC."""
+    infer_noise runs the noise posterior and the scale-free PPC.
+
+    mesh: a ``parallel.mesh.device_mesh``; every rank calls with the same
+    arguments (the same pipeline, one on each rank's card) and the chain
+    (group) axis of pcn, pt_pcn, da_pcn, pt_da_pcn, mlda_pcn and the
+    gradient samplers is split over the ranks (``parallel.sharding``), as is
+    init="eki"'s ensemble; every rank gets the whole result. cfg.n_chains
+    must divide by the world size. The Laplace-seeded laplace_mh and gpcn
+    run unsharded, as in the reference."""
     log = metrics or MetricsLogger()
     cfg = pipe.config.mcmc
     like = likelihood or cfg.likelihood
@@ -784,7 +802,7 @@ def run_inversion(
         # bulk instead of diffusing there through burn-in
         with log.timer("eki_init"):
             eki0 = run_eki(fwd_b, pipe.prior, data, cfg.noise_sigma, _child(gen),
-                           n_ensemble=cfg.n_chains)
+                           n_ensemble=cfg.n_chains, mesh=mesh)
         theta0 = eki0.ensemble
         log.log("eki_init", n_iters=len(eki0.ts) - 1, n_forward=eki0.n_forward)
     elif init == "vi":
@@ -810,28 +828,29 @@ def run_inversion(
         # where the posterior is not Gaussian
         run, run_warm = _gradient_sampler_runner(
             smp.replace("_lap", ""), like, misfit_d(), pipe.prior, theta0, ref=(lap.mean, lap.chol),
-            **grad_kw)
+            mesh=mesh, **grad_kw)
     elif smp in ("mala", "hmc"):
-        run, run_warm = _gradient_sampler_runner(smp, like, misfit_d(), pipe.prior, theta0, **grad_kw)
+        run, run_warm = _gradient_sampler_runner(smp, like, misfit_d(), pipe.prior, theta0,
+                                                 mesh=mesh, **grad_kw)
     elif smp == "pt_mala":
         misfit_pt = misfit_d()
-        run = lambda g, n_steps, n_burn: run_pt_mala(
+        run = lambda g, n_steps, n_burn: _runner(mesh, run_pt_mala)(
             misfit_pt, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn, step=cfg.mala_step,
             n_temps=cfg.n_temps, lambda_min=cfg.lambda_min, adapt_ladder=cfg.adapt_ladder,
         )
     elif smp == "pcn" and like == "fom":
         warm = _WARMUP_DA
-        run = lambda g, n_steps, n_burn: run_pcn_segmented(
+        run = lambda g, n_steps, n_burn: _runner(mesh, run_pcn_segmented)(
             misfit_b, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn, beta=cfg.beta,
             segment=64,
         )
     elif smp == "pcn":
-        run = lambda g, n_steps, n_burn: run_pcn(
+        run = lambda g, n_steps, n_burn: _runner(mesh, run_pcn)(
             misfit_b, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
             beta=cfg.beta, thin=cfg.thin,
         )
     elif smp == "pt_pcn":
-        run = lambda g, n_steps, n_burn: run_pt_pcn(
+        run = lambda g, n_steps, n_burn: _runner(mesh, run_pt_pcn)(
             misfit_b, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn, beta=cfg.beta,
             n_temps=cfg.n_temps, lambda_min=cfg.lambda_min, adapt_ladder=cfg.adapt_ladder,
         )
@@ -851,17 +870,17 @@ def run_inversion(
             mid = batched_fom_observe(fin_mid)
             to_theta = pipe.prior.to_theta
             misfits = (misfit_c, mk_misfit(lambda xs: mid(to_theta(xs))), misfit_b)
-            run = lambda g, n_steps, n_burn: run_mlda_segmented(
+            run = lambda g, n_steps, n_burn: _runner(mesh, run_mlda_segmented)(
                 misfits, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn, beta=da_beta,
                 subchains=(cfg.subchain, cfg.mlda_subchain), segment=32, inner=cfg.da_inner,
             )
         elif smp == "da_pcn":
-            run = lambda g, n_steps, n_burn: run_da_pcn_segmented(
+            run = lambda g, n_steps, n_burn: _runner(mesh, run_da_pcn_segmented)(
                 misfit_b, misfit_c, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
                 beta=da_beta, subchain=cfg.subchain, segment=64 if fom else 512, inner=cfg.da_inner,
             )
         else:
-            run = lambda g, n_steps, n_burn: run_pt_da_segmented(
+            run = lambda g, n_steps, n_burn: _runner(mesh, run_pt_da_segmented)(
                 misfit_b, misfit_c, pipe.prior, theta0, g, n_steps=n_steps, n_burn=n_burn,
                 beta=da_beta, subchain=cfg.subchain, n_temps=cfg.n_temps,
                 lambda_min=cfg.lambda_min, segment=32 if fom else 512, inner=cfg.da_inner,
@@ -1045,19 +1064,21 @@ def run_eki_inversion(
     theta_true: Optional[torch.Tensor] = None,
     data: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
     metrics: Optional[MetricsLogger] = None,
 ) -> tuple[EKIResult, torch.Tensor, torch.Tensor, float]:
     """Ensemble Kalman inversion (infer/eki.py): a derivative-free posterior
     approximation in ~10-20 batched forwards, with ``run_inversion``'s data
     contract. On the fom likelihood each iteration is one batched
     stencil-kernel solve over the whole ensemble. Exact only in the
-    linear-Gaussian limit. Returns (EKIResult, theta_true, data,
+    linear-Gaussian limit. mesh: the forward sweeps' ensemble axis over its
+    ranks (``infer.eki.run_eki``). Returns (EKIResult, theta_true, data,
     wall_seconds) and logs the "eki" event."""
     gen, theta_true, data = _approx_setup(pipe, generator, theta_true, data)
     fwd_b = pipe.working_forward_fn(likelihood)
     res, wall = _timed(pipe.device, lambda: run_eki(
         fwd_b, pipe.prior, data, pipe.config.mcmc.noise_sigma, _child(gen),
-        n_ensemble=n_ensemble, ess_target=ess_target))
+        n_ensemble=n_ensemble, ess_target=ess_target, mesh=mesh))
     if metrics is not None:
         metrics.log("eki", likelihood=likelihood, n_ensemble=n_ensemble, n_iters=len(res.ts) - 1,
                     n_forward=res.n_forward, misfit_final=res.misfit_trace[-1], wall_seconds=wall)
@@ -1075,17 +1096,19 @@ def run_vi_inversion(
     theta_true: Optional[torch.Tensor] = None,
     data: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
     metrics: Optional[MetricsLogger] = None,
 ) -> tuple[VIResult, torch.Tensor, torch.Tensor, float]:
     """ADVI (infer/vi.py): q = N(mu, L L^T) in the whitened prior frame by
     stochastic ELBO ascent, each step one forward and reverse pass of the
     differentiable forward over the n_mc draws; ``run_inversion``'s data
-    contract. Returns (VIResult, theta_true, data, wall_seconds) and logs
-    the "vi" event."""
+    contract. mesh: the draws over its ranks (``parallel.sharding.sharded_advi``).
+    Returns (VIResult, theta_true, data, wall_seconds) and logs the "vi"
+    event."""
     gen, theta_true, data = _approx_setup(pipe, generator, theta_true, data)
     misfit_b = gaussian_misfit(pipe.working_forward_fn(likelihood, differentiable=True), data,
                                pipe.config.mcmc.noise_sigma)
-    res, wall = _timed(pipe.device, lambda: run_advi(
+    res, wall = _timed(pipe.device, lambda: _runner(mesh, run_advi)(
         misfit_b, pipe.prior, _child(gen), n_steps=n_steps, n_mc=n_mc, rank=rank, lr=lr))
     if metrics is not None:
         metrics.log("vi", likelihood=likelihood, rank=rank, n_steps=n_steps, n_mc=n_mc,
@@ -1106,6 +1129,7 @@ def run_svgd_inversion(
     data: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     segment: Optional[int] = None,
+    mesh=None,
     metrics: Optional[MetricsLogger] = None,
 ) -> tuple[SVGDResult, torch.Tensor, torch.Tensor, float]:
     """SVGD (infer/svgd.py): n_particles prior-frame draws transported along
@@ -1114,12 +1138,13 @@ def run_svgd_inversion(
     products; ``run_inversion``'s data contract. Biased at finite J and
     without a density: certify its moment-matched Gaussian if needed.
     segment: the reference's scan chunk size, passed on to ``run_svgd``
-    (one eager loop: it changes nothing). Returns (SVGDResult, theta_true,
+    (one eager loop: it changes nothing). mesh: the particles over its ranks
+    (``parallel.sharding.sharded_svgd``). Returns (SVGDResult, theta_true,
     data, wall_seconds) and logs the "svgd" event."""
     gen, theta_true, data = _approx_setup(pipe, generator, theta_true, data)
     misfit_b = gaussian_misfit(pipe.working_forward_fn(likelihood, differentiable=True), data,
                                pipe.config.mcmc.noise_sigma)
-    res, wall = _timed(pipe.device, lambda: run_svgd(
+    res, wall = _timed(pipe.device, lambda: _runner(mesh, run_svgd)(
         misfit_b, pipe.prior, _child(gen), n_particles=n_particles, n_steps=n_steps, lr=lr,
         anneal_steps=anneal_steps, segment=segment))
     if metrics is not None:
@@ -1138,6 +1163,7 @@ def psis_certify(
     *,
     n_draws: int = 4096,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
     metrics: Optional[MetricsLogger] = None,
 ) -> PSISResult:
     """Certify and correct a Gaussian approximation N(q_mean, q_chol
@@ -1146,12 +1172,13 @@ def psis_certify(
     importance sampling (infer/psis.py): n_draws draws, one batched forward
     through the sampler's route (on fom, one stencil-kernel solve), the
     k-hat gate and the importance-weighted moments. The draws come from
-    ``generator``, else from cfg.seed + 7. Logs the "psis" event."""
+    ``generator``, else from cfg.seed + 7. mesh: the forward's draw axis over
+    its ranks. Logs the "psis" event."""
     cfg = pipe.config.mcmc
     gen = generator if generator is not None else torch.Generator(device=pipe.device).manual_seed(cfg.seed + 7)
     data = torch.as_tensor(data, dtype=pipe.prior.mean.dtype, device=pipe.device)
     misfit_b = gaussian_misfit(pipe.working_forward_fn(likelihood), data, cfg.noise_sigma)
-    res = psis_correct(misfit_b, pipe.prior, q_mean, q_chol, gen, n_draws=n_draws)
+    res = psis_correct(misfit_b, pipe.prior, q_mean, q_chol, gen, n_draws=n_draws, mesh=mesh)
     if metrics is not None:
         metrics.log("psis", likelihood=likelihood, n_draws=n_draws, k_hat=res.k_hat, ess=res.ess,
                     reliable=res.reliable)
@@ -1184,6 +1211,7 @@ def run_smc_evidence(
     max_stages: int = 64,
     theta_true: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
     metrics: Optional[MetricsLogger] = None,
 ) -> SMCEvidenceResult:
     """The log evidence by adaptive tempered SMC (infer/smc.py), unbiased in
@@ -1197,7 +1225,9 @@ def run_smc_evidence(
     n_groups populations of n_particles / n_groups run as one batch (one
     batched misfit a mutation sweep); each group's estimate is unbiased, so
     the combined estimate is their mean in Z and their spread the error
-    bar."""
+    bar. mesh: the groups become islands instead, one population of
+    n_particles / world size per rank (``parallel.sharding.sharded_smc``).
+    """
     log = metrics or MetricsLogger()
     cfg = pipe.config.mcmc
     like = likelihood or cfg.likelihood
@@ -1210,7 +1240,7 @@ def run_smc_evidence(
     return _smc_evidence_core(
         misfit_b, pipe.prior, _child(gen), n_particles=n_particles, n_groups=n_groups,
         n_mutations=n_mutations, ess_target=ess_target, max_stages=max_stages, log=log,
-        likelihood=like, event="smc_evidence", theta_true=theta_true, data=data,
+        likelihood=like, event="smc_evidence", theta_true=theta_true, data=data, mesh=mesh,
     )
 
 
@@ -1229,15 +1259,24 @@ def _smc_evidence_core(
     event: str,
     theta_true: torch.Tensor,
     data: torch.Tensor,
+    mesh=None,
 ) -> SMCEvidenceResult:
-    """The SMC-evidence engine: the groups as one batch, their unbiased-in-Z
-    combination, the timing (synchronised), the event and the result."""
-    if n_particles % n_groups:
-        raise ValueError(f"n_particles {n_particles} not divisible by n_groups {n_groups}")
-    res, wall = _timed(prior.mean.device, lambda: run_smc(
-        misfit_b, prior, gen, n_particles=n_particles // n_groups, n_groups=n_groups,
-        n_mutations=n_mutations, ess_target=ess_target, max_stages=max_stages))
-    lz = res.log_evidence
+    """The SMC-evidence engine: the groups as one batch (or, with a mesh,
+    one island a rank), their unbiased-in-Z combination, the timing
+    (synchronised), the event and the result."""
+    if mesh is not None:
+        from bayesianinferencedl_tpu_torch.parallel.sharding import sharded_smc
+
+        (res, lz), wall = _timed(prior.mean.device, lambda: sharded_smc(
+            mesh, misfit_b, prior, gen, n_particles=n_particles, n_mutations=n_mutations,
+            ess_target=ess_target, max_stages=max_stages))
+    else:
+        if n_particles % n_groups:
+            raise ValueError(f"n_particles {n_particles} not divisible by n_groups {n_groups}")
+        res, wall = _timed(prior.mean.device, lambda: run_smc(
+            misfit_b, prior, gen, n_particles=n_particles // n_groups, n_groups=n_groups,
+            n_mutations=n_mutations, ess_target=ess_target, max_stages=max_stages))
+        lz = res.log_evidence
     log_z = float(torch.logsumexp(lz, dim=0) - math.log(lz.shape[0]))
     log_z_std = float(torch.std(lz, correction=0))
     log.log(event, likelihood=likelihood, log_z=log_z, log_z_std=log_z_std,
@@ -1267,6 +1306,7 @@ def run_flow_vi_inversion(
     theta_true: Optional[torch.Tensor] = None,
     data: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
     metrics: Optional[MetricsLogger] = None,
 ) -> tuple[FlowVIResult, torch.Tensor, torch.Tensor, float]:
     """A normalizing-flow posterior approximation (infer/flow.py), the
@@ -1279,8 +1319,9 @@ def run_flow_vi_inversion(
     differentiable forward (``working_forward_fn(..., differentiable=True)``),
     for unimodal targets. ``run_inversion``'s data contract: the observations
     come first from ``generator`` (default cfg.seed), the fit's draws from a
-    child of it. Returns (FlowVIResult, theta_true, data, wall_seconds) and
-    logs the "flow_vi" event."""
+    child of it. mesh: SMC as islands and the refinement's draws over its
+    ranks (``infer.flow.flow_fit_pipeline``). Returns (FlowVIResult,
+    theta_true, data, wall_seconds) and logs the "flow_vi" event."""
     if pretrain not in ("smc", "none"):
         raise ValueError(f"pretrain must be 'smc' or 'none', got {pretrain!r}")
     gen, theta_true, data = _approx_setup(pipe, generator, theta_true, data)
@@ -1291,7 +1332,7 @@ def run_flow_vi_inversion(
         misfit_b, misfit_bd, pipe.prior, _child(gen), n_couplings=n_couplings, hidden=hidden,
         pretrain=pretrain, pretrain_particles=pretrain_particles, pretrain_steps=pretrain_steps,
         n_mutations=n_mutations, max_stages=max_stages, n_steps=n_steps, n_mc=n_mc, lr=lr,
-        anneal_steps=anneal_steps))
+        anneal_steps=anneal_steps, mesh=mesh))
     if metrics is not None:
         metrics.log("flow_vi", likelihood=likelihood, pretrain=pretrain, n_couplings=n_couplings,
                     n_steps=n_steps, smc_stages=n_stages, n_forward=res.n_forward,
@@ -1308,6 +1349,7 @@ def psis_certify_flow(
     n_draws: int = 4096,
     base_scale: float = 1.0,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
     metrics: Optional[MetricsLogger] = None,
 ) -> PSISResult:
     """``psis_certify`` for a flow fit: n_draws flow draws carrying their exact
@@ -1315,12 +1357,14 @@ def psis_certify_flow(
     stencil-kernel solve), the k-hat gate, the weighted moments and the
     evidence. base_scale > 1 widens the flow's base (defensive importance
     sampling). The draws come from ``generator``, else from cfg.seed + 7.
-    Logs the "psis_flow" event."""
+    mesh: the forward's draw axis over its ranks. Logs the "psis_flow"
+    event."""
     cfg = pipe.config.mcmc
     gen = generator if generator is not None else torch.Generator(device=pipe.device).manual_seed(cfg.seed + 7)
     data = torch.as_tensor(data, dtype=pipe.prior.mean.dtype, device=pipe.device)
     misfit_b = gaussian_misfit(pipe.working_forward_fn(likelihood), data, cfg.noise_sigma)
-    res = flow_psis_certify(misfit_b, pipe.prior, flow_res, gen, n_draws=n_draws, base_scale=base_scale)
+    res = flow_psis_certify(misfit_b, pipe.prior, flow_res, gen, n_draws=n_draws, base_scale=base_scale,
+                            mesh=mesh)
     if metrics is not None:
         metrics.log("psis_flow", likelihood=likelihood, n_draws=n_draws, base_scale=base_scale,
                     k_hat=res.k_hat, ess=res.ess, reliable=res.reliable)

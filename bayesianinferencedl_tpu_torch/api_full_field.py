@@ -39,6 +39,7 @@ from bayesianinferencedl_tpu_torch.api import (
     SMCEvidenceResult,
     _child,
     _gradient_sampler_runner,
+    _runner,
     _smc_evidence_core,
     _sync,
     _timed,
@@ -388,6 +389,7 @@ def run_full_field_evidence(
     z_true: Optional[torch.Tensor] = None,
     data: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
     metrics: Optional[MetricsLogger] = None,
 ) -> SMCEvidenceResult:
     """The log evidence of the full-field model by adaptive tempered SMC
@@ -396,7 +398,8 @@ def run_full_field_evidence(
     (default seed 0), so differences across likelihoods are log Bayes
     factors on the same data; data= takes external observations.
     infer_noise: the noise-marginalised potential under InvGamma(2,
-    noise_sigma^2). Logs the "ff_smc_evidence" event."""
+    noise_sigma^2). mesh: one SMC island a rank instead of the groups
+    (``parallel.sharding.sharded_smc``). Logs the "ff_smc_evidence" event."""
     log = metrics or MetricsLogger()
     gen = _gen(pipe, generator)
     z_true, data = _observations(pipe, gen, z_true, data, noise_sigma)
@@ -408,7 +411,7 @@ def run_full_field_evidence(
     return _smc_evidence_core(
         misfit_b, pipe.prior, _child(gen), n_particles=n_particles, n_groups=n_groups,
         n_mutations=n_mutations, ess_target=ess_target, max_stages=max_stages, log=log,
-        likelihood=likelihood, event="ff_smc_evidence", theta_true=z_true, data=data,
+        likelihood=likelihood, event="ff_smc_evidence", theta_true=z_true, data=data, mesh=mesh,
     )
 
 
@@ -433,6 +436,7 @@ def select_correlation_length(
     cg_maxiter: int = 2000,
     seed: int = 0,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
     metrics: Optional[MetricsLogger] = None,
     device="cuda",
 ) -> dict:
@@ -448,7 +452,7 @@ def select_correlation_length(
     experiments (log Z summed): with the fin's 5 observations one
     experiment's Bayes factor is dataset luck. Returns {"ells", "log_z",
     "log_z_std", "posterior", "ell_map", "z_true", "data"}, log_z the pooled
-    totals."""
+    totals. mesh: each evidence's SMC runs as islands over its ranks."""
     ells = [float(e) for e in ells]
     if data is None and ell_true is None:
         raise ValueError("provide external data= or ell_true to simulate from")
@@ -484,7 +488,7 @@ def select_correlation_length(
             res = run_full_field_evidence(
                 pipe, likelihood="fom", noise_sigma=noise_sigma, data=data[e],
                 n_particles=n_particles, n_groups=n_groups, n_mutations=n_mutations,
-                ess_target=ess_target, max_stages=max_stages, generator=g, metrics=log)
+                ess_target=ess_target, max_stages=max_stages, generator=g, mesh=mesh, metrics=log)
             tot += res.log_evidence
             var += res.log_evidence_std ** 2
         log_z.append(tot)
@@ -540,6 +544,7 @@ def run_full_field_inversion(
     z_true: Optional[torch.Tensor] = None,
     data: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
     metrics: Optional[MetricsLogger] = None,
 ):
     """MCMC over the RFF coefficients. Returns (result, z_true, data, ess,
@@ -566,7 +571,9 @@ def run_full_field_inversion(
     chains' starts, the warm-up run and the timed run, each from a child.
     An untimed warm-up run precedes the timed run (CUDA events on a card).
     On fom, up to 1,024 kept states are re-solved for the iteration audit
-    (the "fom_iter_audit" event, a warning at the cap)."""
+    (the "fom_iter_audit" event, a warning at the cap). mesh: the chain
+    (group) axis of every sampler but laplace_mh and gpcn is split over its
+    ranks (``api.run_inversion``'s contract)."""
     if sampler not in _SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r}")
     if sampler in ("da_pcn", "pt_da_pcn") and likelihood == "rom_nn":
@@ -636,23 +643,23 @@ def run_full_field_inversion(
                                         beta=beta)
     elif sampler == "lis_pcn":
         if fom:
-            run = lambda g, n, nb: run_lis_pcn_segmented(misfit_b, pipe.prior, lis, theta0, g, n_steps=n,
-                                                         n_burn=nb, beta=beta, segment=64)
+            run = lambda g, n, nb: _runner(mesh, run_lis_pcn_segmented)(
+                misfit_b, pipe.prior, lis, theta0, g, n_steps=n, n_burn=nb, beta=beta, segment=64)
         else:
-            run = lambda g, n, nb: run_lis_pcn(misfit_b, pipe.prior, lis, theta0, g, n_steps=n,
-                                               n_burn=nb, beta=beta)
+            run = lambda g, n, nb: _runner(mesh, run_lis_pcn)(
+                misfit_b, pipe.prior, lis, theta0, g, n_steps=n, n_burn=nb, beta=beta)
     elif sampler in ("mala", "mala_lap", "hmc", "hmc_lap"):
         ref = None if lap is None else (lap.mean, lap.chol)
         run, run_warm = _gradient_sampler_runner(
             sampler.replace("_lap", ""), likelihood, misfit_d(), pipe.prior, theta0, step=mala_step,
-            thin=1, n_leap=hmc_leap, jitter=hmc_jitter, ref=ref, log=log)
+            thin=1, n_leap=hmc_leap, jitter=hmc_jitter, ref=ref, log=log, mesh=mesh)
     elif sampler == "pt_pcn":
-        run = lambda g, n, nb: run_pt_pcn(misfit_b, pipe.prior, theta0, g, n_steps=n, n_burn=nb,
+        run = lambda g, n, nb: _runner(mesh, run_pt_pcn)(misfit_b, pipe.prior, theta0, g, n_steps=n, n_burn=nb,
                                           beta=beta, n_temps=n_temps, lambda_min=lambda_min,
                                           adapt_ladder=adapt_ladder)
     elif sampler == "pt_mala":
         misfit_pt = misfit_d()
-        run = lambda g, n, nb: run_pt_mala(misfit_pt, pipe.prior, theta0, g, n_steps=n, n_burn=nb,
+        run = lambda g, n, nb: _runner(mesh, run_pt_mala)(misfit_pt, pipe.prior, theta0, g, n_steps=n, n_burn=nb,
                                            step=mala_step, n_temps=n_temps, lambda_min=lambda_min,
                                            adapt_ladder=adapt_ladder)
     elif sampler in ("da_pcn", "pt_da_pcn", "mlda_pcn"):
@@ -662,23 +669,23 @@ def run_full_field_inversion(
         da_beta = mala_step if mala else beta
         if sampler == "mlda_pcn":
             misfits = (misfit_c, mk_misfit(coarse_fom_forward(pipe, mlda_resolution)), misfit_b)
-            run = lambda g, n, nb: run_mlda_segmented(
+            run = lambda g, n, nb: _runner(mesh, run_mlda_segmented)(
                 misfits, pipe.prior, theta0, g, n_steps=n, n_burn=nb, beta=da_beta,
                 subchains=(subchain, mlda_subchain), segment=32, inner=da_inner)
         elif sampler == "da_pcn":
-            run = lambda g, n, nb: run_da_pcn_segmented(
+            run = lambda g, n, nb: _runner(mesh, run_da_pcn_segmented)(
                 misfit_b, misfit_c, pipe.prior, theta0, g, n_steps=n, n_burn=nb, beta=da_beta,
                 subchain=subchain, segment=64 if fom else 512, inner=da_inner)
         else:
-            run = lambda g, n, nb: run_pt_da_segmented(
+            run = lambda g, n, nb: _runner(mesh, run_pt_da_segmented)(
                 misfit_b, misfit_c, pipe.prior, theta0, g, n_steps=n, n_burn=nb, beta=da_beta,
                 subchain=subchain, n_temps=n_temps, lambda_min=lambda_min,
                 segment=32 if fom else 512, inner=da_inner, adapt_ladder=adapt_ladder)
     elif fom:
-        run = lambda g, n, nb: run_pcn_segmented(misfit_b, pipe.prior, theta0, g, n_steps=n,
+        run = lambda g, n, nb: _runner(mesh, run_pcn_segmented)(misfit_b, pipe.prior, theta0, g, n_steps=n,
                                                  n_burn=nb, beta=beta, segment=64)
     else:
-        run = lambda g, n, nb: run_pcn(misfit_b, pipe.prior, theta0, g, n_steps=n, n_burn=nb,
+        run = lambda g, n, nb: _runner(mesh, run_pcn)(misfit_b, pipe.prior, theta0, g, n_steps=n, n_burn=nb,
                                        beta=beta)
 
     (run_warm or run)(_child(gen), min(n_steps, warm[0]), min(n_burn, warm[1]))
@@ -786,7 +793,7 @@ def run_sbc_check_ff(
 def run_eki_inversion_ff(pipe: FullFieldPipeline, likelihood: str = "rom_nn", *,
                          noise_sigma: float = 1e-3, n_ensemble: int = 1024, ess_target: float = 0.5,
                          z_true: Optional[torch.Tensor] = None, data: Optional[torch.Tensor] = None,
-                         generator: Optional[torch.Generator] = None,
+                         generator: Optional[torch.Generator] = None, mesh=None,
                          metrics: Optional[MetricsLogger] = None):
     """Ensemble Kalman inversion of the full-field model (``infer/eki.py``):
     the M-dimensional posterior approximated in ~10-20 batched forwards
@@ -796,7 +803,8 @@ def run_eki_inversion_ff(pipe: FullFieldPipeline, likelihood: str = "rom_nn", *,
     z_true, data = _observations(pipe, gen, z_true, data, noise_sigma)
     fwd_b = pipe.batched_forward_fn(likelihood)
     res, wall = _timed(pipe.device, lambda: run_eki(fwd_b, pipe.prior, data, noise_sigma, _child(gen),
-                                                    n_ensemble=n_ensemble, ess_target=ess_target))
+                                                    n_ensemble=n_ensemble, ess_target=ess_target,
+                                                    mesh=mesh))
     if metrics is not None:
         metrics.log("eki_ff", likelihood=likelihood, n_ensemble=n_ensemble, n_iters=len(res.ts) - 1,
                     n_forward=res.n_forward, misfit_final=res.misfit_trace[-1], wall_seconds=wall)
@@ -807,7 +815,7 @@ def run_vi_inversion_ff(pipe: FullFieldPipeline, likelihood: str = "rom_nn", *,
                         noise_sigma: float = 1e-3, rank: str = "full", n_steps: int = 1500,
                         n_mc: int = 32, lr: float = 0.05, z_true: Optional[torch.Tensor] = None,
                         data: Optional[torch.Tensor] = None,
-                        generator: Optional[torch.Generator] = None,
+                        generator: Optional[torch.Generator] = None, mesh=None,
                         metrics: Optional[MetricsLogger] = None):
     """ADVI of the full-field posterior (``infer/vi.py``): q = N(mu, L L^T)
     over z, rank "full" carrying the whole M x M covariance. Mode-seeking:
@@ -817,8 +825,8 @@ def run_vi_inversion_ff(pipe: FullFieldPipeline, likelihood: str = "rom_nn", *,
     z_true, data = _observations(pipe, gen, z_true, data, noise_sigma)
     misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood, differentiable=True), data,
                                noise_sigma)
-    res, wall = _timed(pipe.device, lambda: run_advi(misfit_b, pipe.prior, _child(gen), n_steps=n_steps,
-                                                     n_mc=n_mc, rank=rank, lr=lr))
+    res, wall = _timed(pipe.device, lambda: _runner(mesh, run_advi)(
+        misfit_b, pipe.prior, _child(gen), n_steps=n_steps, n_mc=n_mc, rank=rank, lr=lr))
     if metrics is not None:
         metrics.log("vi_ff", likelihood=likelihood, rank=rank, n_steps=n_steps, n_mc=n_mc,
                     n_forward=res.n_forward, elbo_final=float(torch.mean(res.elbo_trace[-50:])),
@@ -831,7 +839,7 @@ def run_svgd_inversion_ff(pipe: FullFieldPipeline, likelihood: str = "rom_nn", *
                           lr: float = 0.05, anneal_steps: Optional[int] = None,
                           z_true: Optional[torch.Tensor] = None, data: Optional[torch.Tensor] = None,
                           generator: Optional[torch.Generator] = None, segment: Optional[int] = None,
-                          metrics: Optional[MetricsLogger] = None):
+                          mesh=None, metrics: Optional[MetricsLogger] = None):
     """SVGD of the full-field posterior (``infer/svgd.py``): nonparametric
     and gradient-based; at d = M its spreads are lower bounds. Annealed by
     default. segment: the reference's scan chunk size (changes nothing
@@ -840,7 +848,7 @@ def run_svgd_inversion_ff(pipe: FullFieldPipeline, likelihood: str = "rom_nn", *
     z_true, data = _observations(pipe, gen, z_true, data, noise_sigma)
     misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood, differentiable=True), data,
                                noise_sigma)
-    res, wall = _timed(pipe.device, lambda: run_svgd(
+    res, wall = _timed(pipe.device, lambda: _runner(mesh, run_svgd)(
         misfit_b, pipe.prior, _child(gen), n_particles=n_particles, n_steps=n_steps, lr=lr,
         anneal_steps=anneal_steps, segment=segment))
     if metrics is not None:
@@ -853,7 +861,7 @@ def run_svgd_inversion_ff(pipe: FullFieldPipeline, likelihood: str = "rom_nn", *
 def psis_certify_ff(pipe: FullFieldPipeline, q_mean: torch.Tensor, q_chol: torch.Tensor,
                     data: torch.Tensor, likelihood: str = "rom_nn", *, noise_sigma: float = 1e-3,
                     n_draws: int = 4096, generator: Optional[torch.Generator] = None,
-                    metrics: Optional[MetricsLogger] = None):
+                    mesh=None, metrics: Optional[MetricsLogger] = None):
     """PSIS certify-and-correct of a Gaussian fit over z (``infer/psis.py``):
     one batched forward over n_draws proposal draws (on fom one K3r solve),
     the k-hat gate and the weighted moments. Draws from ``generator``, else
@@ -861,7 +869,7 @@ def psis_certify_ff(pipe: FullFieldPipeline, q_mean: torch.Tensor, q_chol: torch
     gen = _gen(pipe, generator, 7)
     data = torch.as_tensor(data, dtype=pipe.prior.mean.dtype, device=pipe.device)
     misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood), data, noise_sigma)
-    res = psis_correct(misfit_b, pipe.prior, q_mean, q_chol, gen, n_draws=n_draws)
+    res = psis_correct(misfit_b, pipe.prior, q_mean, q_chol, gen, n_draws=n_draws, mesh=mesh)
     if metrics is not None:
         metrics.log("psis_ff", likelihood=likelihood, n_draws=n_draws, k_hat=res.k_hat, ess=res.ess,
                     reliable=res.reliable)
@@ -875,7 +883,7 @@ def run_flow_vi_inversion_ff(pipe: FullFieldPipeline, likelihood: str = "rom_nn"
                              n_steps: Optional[int] = None, n_mc: int = 64, lr: float = 0.003,
                              anneal_steps: Optional[int] = None, z_true: Optional[torch.Tensor] = None,
                              data: Optional[torch.Tensor] = None,
-                             generator: Optional[torch.Generator] = None,
+                             generator: Optional[torch.Generator] = None, mesh=None,
                              metrics: Optional[MetricsLogger] = None):
     """A normalizing-flow approximation of the full-field posterior
     (``infer/flow.py``): tempered SMC distilled into a coupling flow by
@@ -893,7 +901,7 @@ def run_flow_vi_inversion_ff(pipe: FullFieldPipeline, likelihood: str = "rom_nn"
         misfit_b, misfit_bd, pipe.prior, _child(gen), n_couplings=n_couplings, hidden=hidden,
         pretrain=pretrain, pretrain_particles=pretrain_particles, pretrain_steps=pretrain_steps,
         n_mutations=n_mutations, max_stages=max_stages, n_steps=n_steps, n_mc=n_mc, lr=lr,
-        anneal_steps=anneal_steps))
+        anneal_steps=anneal_steps, mesh=mesh))
     if metrics is not None:
         metrics.log("flow_vi_ff", likelihood=likelihood, pretrain=pretrain, n_couplings=n_couplings,
                     smc_stages=n_stages, n_forward=res.n_forward, wall_seconds=wall)
@@ -903,7 +911,7 @@ def run_flow_vi_inversion_ff(pipe: FullFieldPipeline, likelihood: str = "rom_nn"
 def psis_certify_flow_ff(pipe: FullFieldPipeline, flow_res, data: torch.Tensor,
                          likelihood: str = "rom_nn", *, noise_sigma: float = 1e-3,
                          n_draws: int = 4096, base_scale: float = 1.0,
-                         generator: Optional[torch.Generator] = None,
+                         generator: Optional[torch.Generator] = None, mesh=None,
                          metrics: Optional[MetricsLogger] = None):
     """``psis_certify_ff`` for a flow fit: the flow's exact log densities
     make the k-hat gate and the weighted moments apply to it. Draws from
@@ -912,7 +920,7 @@ def psis_certify_flow_ff(pipe: FullFieldPipeline, flow_res, data: torch.Tensor,
     data = torch.as_tensor(data, dtype=pipe.prior.mean.dtype, device=pipe.device)
     misfit_b = gaussian_misfit(pipe.batched_forward_fn(likelihood), data, noise_sigma)
     res = flow_psis_certify(misfit_b, pipe.prior, flow_res, gen, n_draws=n_draws,
-                            base_scale=base_scale)
+                            base_scale=base_scale, mesh=mesh)
     if metrics is not None:
         metrics.log("psis_flow_ff", likelihood=likelihood, n_draws=n_draws, k_hat=res.k_hat,
                     ess=res.ess, reliable=res.reliable)

@@ -88,12 +88,26 @@ layout. ``pipeline`` is ``invert``. Every command that builds takes
 box on k; samples live in the probit coordinates, the JSON reports log k)
 and ``--online-precision highest|high|fast`` (the reduced solves' tier: full
 fp32, bf16x3, one bf16 pass).
+
+    python -m bayesianinferencedl_tpu_torch.cli invert --sampler pt_pcn --shard
+
+splits the chains over every card, one process (rank) a card on
+torch.distributed (``parallel/``): rank 0 builds the pipeline, every rank
+loads its save onto its own card, and rank 0 alone prints and writes files.
+``--shard N`` takes N ranks (with ``--device cpu``, N gloo ranks); on one
+card bare ``--shard`` does nothing, as the reference's. ``invert``,
+``pipeline``, ``evidence`` (one SMC island a rank), ``invert-ff`` and
+``evidence-ff`` take it; a process that torchrun started joins its world.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
+import os
+import sys
 import time
 
 import numpy as np
@@ -321,12 +335,13 @@ def cmd_invert(args) -> None:
             mala_step=args.mala_step,
         ))
     fin = _sensor_fin(args, cfg, log) if args.sensors else None
-    pipe = build_pipeline(cfg, device=args.device, dtype=_dtype(args), metrics=log, fin=fin)
+    pipe = _shared_pipeline(args, lambda: build_pipeline(cfg, device=args.device, dtype=_dtype(args),
+                                                         metrics=log, fin=fin), fin)
     obs = None
     if args.data:
         obs = torch.as_tensor(np.load(args.data)["data"])
         log.log("external_data", path=args.data, n_obs=int(obs.shape[0]))
-    inv = run_inversion(pipe, init=args.init, data=obs, metrics=log)
+    inv = run_inversion(pipe, init=args.init, data=obs, metrics=log, mesh=getattr(args, "mesh", None))
     post_mean = pipe.prior.to_theta(inv.result.samples).mean(dim=(0, 1))
     out = {
         "likelihood": args.likelihood,
@@ -462,8 +477,8 @@ def _build_for(args):
 
     log = MetricsLogger(args.metrics, run_config=vars(args))
     mcmc = MCMCConfig(noise_sigma=args.noise, likelihood=args.likelihood, seed=args.seed)
-    pipe = build_pipeline(_pipeline_config(args, mcmc), device=args.device, dtype=_dtype(args),
-                          metrics=log)
+    pipe = _shared_pipeline(args, lambda: build_pipeline(
+        _pipeline_config(args, mcmc), device=args.device, dtype=_dtype(args), metrics=log))
     obs = None
     if getattr(args, "data", None):
         obs = torch.as_tensor(np.load(args.data)["data"])
@@ -634,7 +649,8 @@ def cmd_evidence(args) -> None:
 
     pipe, log, _ = _build_for(args)
     ev = run_smc_evidence(pipe, n_particles=args.particles, n_groups=args.groups,
-                          n_mutations=args.mutations, ess_target=args.ess_target, metrics=log)
+                          n_mutations=args.mutations, ess_target=args.ess_target,
+                          mesh=getattr(args, "mesh", None), metrics=log)
     print(json.dumps({
         "likelihood": args.likelihood,
         "estimator": "smc (adaptive tempered, unbiased in Z)",
@@ -683,12 +699,73 @@ def cmd_sbc(args) -> None:
     }))
 
 
-def _shard(args) -> None:
-    """--shard routes the chains over more than one device; on one device it
-    does nothing, as in the reference."""
-    if args.shard and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--shard across more than one card is ROADMAP item 23 "
-                                  "(multi-GPU), not yet ported")
+_SHARD_HELP = ("split the chains (evidence: one SMC island a rank) over N ranks, one process a "
+               "card, rank 0 alone printing and writing files; bare --shard takes every card and "
+               "does nothing on one, as the reference; with --device cpu, N gloo ranks")
+
+
+def _add_shard(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--shard", nargs="?", type=int, const=0, default=None, metavar="N",
+                   help=_SHARD_HELP)
+
+
+def _n_ranks(args) -> int:
+    """The world --shard asks for: N, or bare every card (1 on the CPU)."""
+    if getattr(args, "shard", None) is None:
+        return 1
+    if args.shard > 0:
+        return args.shard
+    return torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
+
+
+def _rank_main(mesh, argv: list) -> None:
+    """One rank of a --shard run: the command on the rank's card with the
+    mesh; every rank but 0 runs silent, with no metrics or output files."""
+    from bayesianinferencedl_tpu_torch.parallel.mesh import rank_of
+
+    args = _parser().parse_args(argv)
+    args.mesh = mesh
+    if torch.device(args.device).type == "cuda":
+        args.device = f"cuda:{torch.cuda.current_device()}"
+    if rank_of(mesh) == 0:
+        args.fn(args)
+        return
+    for k in ("metrics", "out", "predict_out"):
+        if hasattr(args, k):
+            setattr(args, k, None)
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        args.fn(args)
+
+
+def _shared_pipeline(args, build, fin=None):
+    """build()'s pipeline, the same bits on every rank of a --shard run:
+    rank 0 builds and saves it, then every rank loads the file onto its own
+    card (``Pipeline.save`` / ``Pipeline.load``), with ``fin`` (a sensor
+    design's, made on each rank) in place of the config's. Without a mesh,
+    build()."""
+    mesh = getattr(args, "mesh", None)
+    if mesh is None:
+        return build()
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from bayesianinferencedl_tpu_torch.api import Pipeline
+    from bayesianinferencedl_tpu_torch.parallel.mesh import rank_of
+
+    g = mesh.get_group()
+    box = [tempfile.mkdtemp(prefix="bidl_pipe_") if rank_of(mesh) == 0 else None]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(g, 0), group=g)
+    path = os.path.join(box[0], "pipeline.npz")
+    if rank_of(mesh) == 0:
+        build().save(path)
+    dist.barrier(group=g)
+    pipe = Pipeline.load(path, device=args.device, dtype=_dtype(args))
+    dist.barrier(group=g)
+    if rank_of(mesh) == 0:
+        shutil.rmtree(box[0])
+    return pipe if fin is None else dataclasses.replace(pipe, fin=fin)
 
 
 def _build_ff(args, log):
@@ -723,7 +800,6 @@ def cmd_invert_ff(args) -> None:
     from bayesianinferencedl_tpu_torch.utils.ppc import noise_posterior, ppc_chi2_pvalue, ppc_shape_pvalue
 
     log = MetricsLogger(args.metrics, run_config=vars(args))
-    _shard(args)
     pipe = _build_ff(args, log)
     obs = _load_obs(args, log)
     dev = pipe.device
@@ -735,7 +811,8 @@ def cmd_invert_ff(args) -> None:
         mlda_resolution=args.mlda_resolution, mlda_subchain=args.mlda_subchain,
         hmc_leap=args.hmc_leap, mala_step=args.mala_step, lis_points=args.lis_points,
         lis_rank=args.lis_rank, lis_tol=args.lis_tol, infer_noise=args.infer_noise,
-        generator=torch.Generator(device=dev).manual_seed(args.seed), metrics=log,
+        generator=torch.Generator(device=dev).manual_seed(args.seed),
+        mesh=getattr(args, "mesh", None), metrics=log,
     )
     z_post = res.samples.mean(dim=(0, 1))
     fwd = pipe.forward_fn(args.likelihood)
@@ -822,13 +899,12 @@ def cmd_evidence_ff(args) -> None:
     from bayesianinferencedl_tpu_torch.utils.metrics import MetricsLogger
 
     log = MetricsLogger(args.metrics, run_config=vars(args))
-    _shard(args)
     pipe = _build_ff(args, log)
     ev = run_full_field_evidence(
         pipe, likelihood=args.likelihood, noise_sigma=args.noise, n_particles=args.particles,
         n_groups=args.groups, n_mutations=args.mutations, ess_target=args.ess_target,
         data=_load_obs(args), generator=torch.Generator(device=pipe.device).manual_seed(args.seed),
-        metrics=log,
+        mesh=getattr(args, "mesh", None), metrics=log,
     )
     print(json.dumps({
         "likelihood": args.likelihood,
@@ -996,6 +1072,7 @@ def _add_invert(p: argparse.ArgumentParser) -> None:
     p.add_argument("--sensors", type=str, default=None,
                    help="design npz from `design --out`: invert its pointwise sensor observables "
                         "instead of the five subfin averages")
+    _add_shard(p)
     p.add_argument("--predict-at", action="append", default=None, metavar="X,Y",
                    help="the posterior predictive temperature at a point (repeatable; exact P1 "
                         "interpolation of a batched FOM solve over the posterior)")
@@ -1004,7 +1081,7 @@ def _add_invert(p: argparse.ArgumentParser) -> None:
                         "per mesh node) as npz")
 
 
-def main(argv=None) -> None:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="bayesianinferencedl_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -1141,6 +1218,7 @@ def main(argv=None) -> None:
     p.add_argument("--groups", type=int, default=8, help="independent populations (error bar)")
     p.add_argument("--mutations", type=int, default=5, help="pCN sweeps per tempering stage")
     p.add_argument("--ess-target", type=float, default=0.5, help="ESS/N kept per stage")
+    _add_shard(p)
     p.set_defaults(fn=cmd_evidence)
 
     p = sub.add_parser("invert-ff", help="full-field (nodal k) inversion")
@@ -1171,8 +1249,7 @@ def main(argv=None) -> None:
     p.add_argument("--data", type=str, default=None, help=data_help)
     p.add_argument("--infer-noise", action="store_true",
                    help="integrate the noise out under InvGamma(2, noise^2); report its posterior")
-    p.add_argument("--shard", action="store_true",
-                   help="route over every card (does nothing on one card)")
+    _add_shard(p)
     p.add_argument("--predict-at", action="append", default=None, metavar="X,Y",
                    help="posterior-predictive temperature at a point (repeatable)")
     p.add_argument("--predict-out", type=str, default=None,
@@ -1204,7 +1281,7 @@ def main(argv=None) -> None:
     p.add_argument("--mutations", type=int, default=5, help="pCN sweeps per tempering stage")
     p.add_argument("--ess-target", type=float, default=0.5, help="ESS/N kept per stage")
     p.add_argument("--data", type=str, default=None, help=data_help)
-    p.add_argument("--shard", action="store_true", help="does nothing on one card")
+    _add_shard(p)
     p.set_defaults(fn=cmd_evidence_ff)
 
     p = sub.add_parser("select-ell", help="the full-field prior's correlation length by evidence")
@@ -1225,8 +1302,22 @@ def main(argv=None) -> None:
     p.add_argument("--max-stages", type=int, default=128)
     p.set_defaults(fn=cmd_select_ell)
 
-    args = ap.parse_args(argv)
-    args.fn(args)
+    return ap
+
+
+def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = _parser().parse_args(argv)
+    if getattr(args, "shard", None) is not None and "WORLD_SIZE" in os.environ:
+        from bayesianinferencedl_tpu_torch.parallel.mesh import device_mesh
+
+        _rank_main(device_mesh(device=args.device), argv)  # a rank that torchrun started
+    elif _n_ranks(args) > 1:
+        from bayesianinferencedl_tpu_torch.parallel.mesh import launch
+
+        launch(_rank_main, _n_ranks(args), argv, device=args.device)
+    else:
+        args.fn(args)
 
 
 if __name__ == "__main__":

@@ -69,12 +69,18 @@ def run_eki(
     max_iters: int = 50,
     theta0: Optional[torch.Tensor] = None,
     rng: Optional[np.random.Generator] = None,
+    mesh=None,
 ) -> EKIResult:
     """Adaptive-tempering EKI to t = 1. forward_batch: (J, d) -> (J, m) in
     working coordinates. The initial ensemble is theta0 (J, d), else J
     prior draws from gen; the perturbed observations come from rng, else
     from a NumPy generator seeded by one draw of gen (the reference seeds
-    it from its key the same way)."""
+    it from its key the same way). mesh: the forward sweeps' ensemble axis
+    is sharded over its ranks (J divisible by the world size) and gathered
+    back; the ensemble algebra is the same on every rank."""
+    from bayesianinferencedl_tpu_torch.parallel.sharding import sharded_rows_fn
+
+    forward_batch = sharded_rows_fn(mesh, forward_batch)
     if theta0 is None:
         theta = prior.sample(gen, (n_ensemble,))
     else:

@@ -47,7 +47,8 @@ from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior
 from bayesianinferencedl_tpu_torch.infer.psis import PSISResult, psis_correct_draws
 from bayesianinferencedl_tpu_torch.infer.samplers import inv_chol
 from bayesianinferencedl_tpu_torch.models.surrogate import MLP, adam_init, adam_update
-from bayesianinferencedl_tpu_torch.utils.device import resolve_device
+from bayesianinferencedl_tpu_torch.parallel.mesh import mean_all
+from bayesianinferencedl_tpu_torch.utils.device import child_generator, resolve_device
 from bayesianinferencedl_tpu_torch.utils.precision import fp32_matmul
 
 # kept latent samples are pushed to working coordinates about this many rows at a time
@@ -211,6 +212,7 @@ def run_flow_vi(
     segment: Optional[int] = None,
     eps: Optional[torch.Tensor] = None,
     summary_Z: Optional[torch.Tensor] = None,
+    group=None,
 ) -> FlowVIResult:
     """Fit the coupling flow by annealed reparameterised ELBO ascent and
     return it with a Monte-Carlo moment summary in working coordinates.
@@ -228,7 +230,11 @@ def run_flow_vi(
     params), each step's normals (n_mc, d), the n_summary summary draws.
     eps (n_steps, n_mc, d) and summary_Z (n_summary, d) pass them in.
     ``segment``, the reference's scan chunk size, is accepted and changes
-    nothing: one eager loop runs every step."""
+    nothing: one eager loop runs every step. group: the mesh the Monte
+    Carlo axis is sharded over (``parallel.sharding.sharded_flow_vi``):
+    n_mc and eps are this rank's, the gradients and the reported ELBO
+    become means over the ranks, and params and summary_Z must be the same
+    on every rank."""
     if n_steps <= 0:
         raise ValueError("run_flow_vi needs n_steps > 0")
     d = prior.dim
@@ -259,6 +265,8 @@ def run_flow_vi(
             grads = torch.autograd.grad(loss, leaves)
         # the lambda = 1 negative ELBO is the one reported
         nelbo = torch.mean(phi.detach() + prior_nlp.detach()) - torch.mean(logdet.detach())
+        if group is not None:
+            nelbo, *grads = mean_all(group, [nelbo, *grads])
         opt = adam_update(leaves, grads, opt, lr * (1.0 - (1.0 - lr_decay) * g / max(n_steps, 1)))
         trace.append(-nelbo)
 
@@ -378,6 +386,7 @@ def flow_fit_pipeline(
     n_mc: int = 64,
     lr: float = 0.003,
     anneal_steps: Optional[int] = None,
+    mesh=None,
 ) -> tuple[FlowVIResult, Optional[int]]:
     """The production flow fit: tempered SMC (one population of
     pretrain_particles, n_mutations pCN sweeps a stage) -> MLE distillation
@@ -392,17 +401,29 @@ def flow_fit_pipeline(
     too-wide pseudo-posterior that the MLE fit would inherit: that raises
     RuntimeError. Tight noise needs a long schedule (the lambda range grows
     like 1 / noise^2). Every draw comes from gen: SMC's, then the MLE's, then
-    the refinement's."""
+    the refinement's. mesh: SMC runs as islands, one population per rank
+    (``parallel.sharding.sharded_smc``), and the refinement's Monte Carlo
+    axis is sharded (``sharded_flow_vi``); the three draw from children of
+    gen taken first, so the MLE fit between them is the same on every rank."""
     if pretrain not in ("smc", "none"):
         raise ValueError(f"pretrain must be 'smc' or 'none', got {pretrain!r}")
     params, n_stages, res = None, None, None
     if n_steps is None:
         n_steps = 0 if pretrain == "smc" else 3000
+    g_smc = g_mle = g_run = gen
+    if mesh is not None:
+        g_smc, g_mle, g_run = (child_generator(gen) for _ in range(3))
     if pretrain == "smc":
         from bayesianinferencedl_tpu_torch.infer.smc import run_smc
 
-        smc = run_smc(misfit_b, prior, gen, n_particles=pretrain_particles, n_mutations=n_mutations,
-                      max_stages=max_stages)
+        if mesh is None:
+            smc = run_smc(misfit_b, prior, gen, n_particles=pretrain_particles,
+                          n_mutations=n_mutations, max_stages=max_stages)
+        else:
+            from bayesianinferencedl_tpu_torch.parallel.sharding import sharded_smc
+
+            smc, _ = sharded_smc(mesh, misfit_b, prior, g_smc, n_particles=pretrain_particles,
+                                 n_mutations=n_mutations, max_stages=max_stages)
         n_stages = int(smc.n_stages.max())
         lam_final = float(smc.lambdas[-1].min())
         if n_stages >= max_stages and lam_final < 1.0:
@@ -412,13 +433,21 @@ def flow_fit_pipeline(
                 "Raise max_stages (tight-noise posteriors need a long adaptive schedule) and/or "
                 "n_mutations."
             )
-        res = fit_flow_mle(smc.particles.reshape(pretrain_particles, prior.dim), prior, gen,
+        res = fit_flow_mle(smc.particles.reshape(pretrain_particles, prior.dim), prior, g_mle,
                            n_couplings=n_couplings, hidden=hidden, n_steps=pretrain_steps)
         params = res.flow
         anneal_steps = 0  # a warm-started refinement never re-anneals
     if n_steps > 0 or res is None:
-        res = run_flow_vi(misfit_bd, prior, gen, n_couplings=n_couplings, hidden=hidden,
-                          n_steps=n_steps, n_mc=n_mc, lr=lr, anneal_steps=anneal_steps, params=params)
+        if mesh is None:
+            res = run_flow_vi(misfit_bd, prior, gen, n_couplings=n_couplings, hidden=hidden,
+                              n_steps=n_steps, n_mc=n_mc, lr=lr, anneal_steps=anneal_steps,
+                              params=params)
+        else:
+            from bayesianinferencedl_tpu_torch.parallel.sharding import sharded_flow_vi
+
+            res = sharded_flow_vi(mesh, misfit_bd, prior, g_run, n_couplings=n_couplings,
+                                  hidden=hidden, n_steps=n_steps, n_mc=n_mc, lr=lr,
+                                  anneal_steps=anneal_steps, params=params)
     return res, n_stages
 
 
@@ -431,15 +460,17 @@ def flow_psis_certify(
     n_draws: int = 4096,
     base_scale: float = 1.0,
     Z: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> PSISResult:
     """PSIS with the flow as the proposal (infer/psis.py): n_draws flow draws
     with their exact log q, one batched misfit, the k-hat gate, the weighted
     moments and the evidence. base_scale > 1 certifies through a
     base-widened proposal (flow_sample). Z (n_draws, d): the base points,
     else drawn from gen. Like any PSIS gate it cannot see a basin the
-    proposal never visits."""
+    proposal never visits. mesh: the misfit's draw axis is sharded over its
+    ranks (``psis_correct_draws``)."""
     theta, log_q = flow_sample(res, gen, (n_draws,), with_logq=True, base_scale=base_scale, Z=Z)
-    return psis_correct_draws(misfit_fn, prior, theta, log_q)
+    return psis_correct_draws(misfit_fn, prior, theta, log_q, mesh=mesh)
 
 
 def neutra_misfit(res: FlowVIResult, misfit_fn: Callable, prior: GaussianPrior):

@@ -41,6 +41,7 @@ from bayesianinferencedl_tpu_torch.infer.mala import (
     segmented,
 )
 from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior
+from bayesianinferencedl_tpu_torch.parallel.mesh import mean_all
 
 TARGET_ACCEPT_HMC = 0.651
 
@@ -177,7 +178,7 @@ def run_hmc_segmented(
 def _chees_probe(
     misfit_fn, prior, ref_mean, ref_chol, state: MALAState, log_h: torch.Tensor, t0: float,
     gen: Optional[torch.Generator] = None, *, n_leap: int, jitter: float, n_adapt: int,
-    n_meas: int, normals=None, jitters=None, uniforms=None,
+    n_meas: int, normals=None, jitters=None, uniforms=None, group=None,
 ):
     """One trajectory-length probe: n_adapt steps of step-size adaptation at
     this n_leap (global clock from t0), then n_meas frozen-h steps
@@ -187,7 +188,10 @@ def _chees_probe(
     rejected move contributes 0. Divided by n_leap (by the caller) it is
     the criterion per gradient evaluation. Draws (n_adapt + n_meas, ...)
     as for ``run_hmc``. Returns (state, log_h, chees, accept_rate), the last
-    two Python floats."""
+    two Python floats. group: the mesh over which the chain batch is
+    sharded (``parallel.sharding.sharded_hmc_chees``); the centring mean
+    and the two statistics become means over its ranks, so every rank
+    scores every candidate alike."""
     _, eval_fn = _make_nlp(misfit_fn, prior, ref_mean, ref_chol)
     draws = _hmc_draws(gen, normals, jitters, uniforms)
     for t in range(n_adapt):
@@ -197,12 +201,17 @@ def _chees_probe(
     js, accs = [], []
     for t in range(n_adapt, n_adapt + n_meas):
         mu = torch.mean(state.y, 0)
+        if group is not None:
+            mu = mean_all(group, mu)
         r0 = torch.sum((state.y - mu) ** 2, -1)
         state, acc = hmc_step(eval_fn, h, n_leap, jitter, state, **draws(t))
         r1 = torch.sum((state.y - mu) ** 2, -1)
         js.append(torch.mean((r1 - r0) ** 2))
         accs.append(torch.mean(acc.to(state.y.dtype)))
-    return state, log_h, float(torch.mean(torch.stack(js))), float(torch.mean(torch.stack(accs)))
+    chees, acc = torch.mean(torch.stack(js)), torch.mean(torch.stack(accs))
+    if group is not None:
+        chees, acc = mean_all(group, chees), mean_all(group, acc)
+    return state, log_h, float(chees), float(acc)
 
 
 def run_hmc_chees(
@@ -221,6 +230,7 @@ def run_hmc_chees(
     thin: int = 1,
     ref: Optional[tuple] = None,
     draws: Optional[dict] = None,
+    group=None,
 ):
     """HMC with the trajectory length chosen by measurement: each candidate
     n_leap is probed with the ChEES criterion per gradient evaluation and
@@ -233,6 +243,9 @@ def run_hmc_chees(
     carry through), then ``run_hmc`` for the remaining burn-in (at least 8)
     and the kept run at the winner. draws: {"pre": d, "probes": [d, ...],
     "main": d}, each d a dict of ``run_hmc``'s draw arrays for that part.
+
+    group: the mesh the chain batch is sharded over, passed to the probes
+    (``_chees_probe``); the runs before and after them are chain-local.
 
     Returns (MALAResult, info), info = {"n_leap", "candidates",
     "chees_per_grad", "accept"}."""
@@ -253,7 +266,7 @@ def run_hmc_chees(
         state, log_h, j, a = _chees_probe(
             misfit_fn, prior, ref_mean, ref_chol, state, log_h,
             float(pre + i * (n_adapt + n_meas)), gen, n_leap=L, jitter=jitter, n_adapt=n_adapt,
-            n_meas=n_meas, **probe_draws[i])
+            n_meas=n_meas, group=group, **probe_draws[i])
         chees.append(j / L)  # per gradient evaluation
         accept.append(a)
     L_star = cands[max(range(len(cands)), key=lambda i: chees[i])]

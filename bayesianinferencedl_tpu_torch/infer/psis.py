@@ -100,6 +100,8 @@ def psis_correct_draws(
     prior: GaussianPrior,
     theta: torch.Tensor,
     log_q: torch.Tensor,
+    *,
+    mesh=None,
 ) -> PSISResult:
     """PSIS from explicit proposal draws theta (K, d) over working
     coordinates, with their log density log_q (K,): the (2 pi)^(d/2)
@@ -109,9 +111,13 @@ def psis_correct_draws(
 
     Non-finite weights (a forward that fails at an extreme draw) are zeroed
     and void the certificate: a proposal with mass where the model cannot
-    be evaluated does not cover the posterior."""
+    be evaluated does not cover the posterior. mesh: the misfit's draw axis
+    is sharded over its ranks (K divisible by the world size) and gathered
+    back; the smoothing runs on every rank alike."""
+    from bayesianinferencedl_tpu_torch.parallel.sharding import sharded_rows_fn
+
     with torch.no_grad():
-        phi = misfit_fn(theta)
+        phi = sharded_rows_fn(mesh, misfit_fn)(theta)
     th = theta.detach().double().cpu().numpy()
     phi64 = phi.double().cpu().numpy()
     pm = prior.mean.double().cpu().numpy()
@@ -159,13 +165,16 @@ def psis_correct(
     *,
     n_draws: int = 4096,
     eps: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> PSISResult:
     """Importance-correct a Gaussian approximation q = N(q_mean, q_chol
     q_chol^T) over working coordinates toward p ~ exp(-misfit - prior): one
     batched misfit over n_draws draws, then the host tail smoothing. Any
     (mean, chol) pair works: a VIResult's (theta_mean, theta_chol), a
     Laplace fit, a moment-matched ensemble. eps (n_draws, d): the draws'
-    standard normals, else drawn from gen."""
+    standard normals, else drawn from gen. mesh: the misfit sweep's draw
+    axis is sharded over its ranks (n_draws divisible by the world size)
+    and gathered back, as in ``psis_correct_draws``."""
     dtype, dev = prior.mean.dtype, prior.mean.device
     d = prior.dim
     q_mean = torch.as_tensor(q_mean, dtype=dtype, device=dev)
@@ -178,4 +187,4 @@ def psis_correct(
     # eps are exactly the draws' whitened coordinates under q
     log_det_q = torch.sum(torch.log(torch.abs(torch.diagonal(q_chol))))
     log_q = -0.5 * torch.sum(eps * eps, dim=1) - log_det_q
-    return psis_correct_draws(misfit_fn, prior, theta, log_q)
+    return psis_correct_draws(misfit_fn, prior, theta, log_q, mesh=mesh)

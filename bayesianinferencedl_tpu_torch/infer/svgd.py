@@ -33,6 +33,7 @@ from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior
 from bayesianinferencedl_tpu_torch.infer.samplers import inv_chol
 from bayesianinferencedl_tpu_torch.infer.vi import LR_DECAY
 from bayesianinferencedl_tpu_torch.models.surrogate import adam_init, adam_update
+from bayesianinferencedl_tpu_torch.parallel.mesh import gather_rows, mean_all, rank_of, size_of
 from bayesianinferencedl_tpu_torch.utils.precision import fp32_matmul
 
 
@@ -90,6 +91,7 @@ def run_svgd(
     theta0: Optional[torch.Tensor] = None,
     ref=None,
     segment: Optional[int] = None,
+    group=None,
 ) -> SVGDResult:
     """Transport J = n_particles draws to the posterior by SVGD. misfit_fn
     is batched and differentiable, on working coordinates.
@@ -103,7 +105,12 @@ def run_svgd(
     the posterior (the JAX package scores 0.5 |Y|^2 in the ref frame, which
     is the prior term only when ref is the prior's frame). One eager loop
     runs every step: ``segment``, the reference's scan chunk size, is
-    accepted and changes nothing."""
+    accepted and changes nothing. group: the mesh the particle axis is
+    sharded over (``parallel.sharding.sharded_svgd``): theta0 holds this
+    rank's rows; each step gathers the ensemble and its scores in rank
+    order (one all-gather), forms the full-ensemble Stein direction and keeps the rank's
+    rows, and the misfit trace is the mean over the ranks. The result's
+    particles are the rank's."""
     dtype, dev = prior.mean.dtype, prior.mean.device
     d = prior.dim
     ref_mean, ref_chol = ref if ref is not None else (prior.mean, prior.chol)
@@ -115,7 +122,9 @@ def run_svgd(
     else:
         with fp32_matmul():
             Y = (torch.as_tensor(theta0, dtype=dtype, device=dev) - ref_mean) @ inv_chol(ref_chol).T
-    J = int(Y.shape[0])  # a given theta0 sets J, and n_forward counts what ran
+    J_local = int(Y.shape[0])
+    # a given theta0 sets J, and n_forward counts what ran
+    J = J_local * (1 if group is None else size_of(group))
     opt = adam_init([Y])
 
     trace = []
@@ -130,11 +139,17 @@ def run_svgd(
             w = Yg if Li is None else (theta - prior.mean) @ Li.T
             nlp = beta * phi + 0.5 * torch.sum(w * w, dim=-1)
             (grad,) = torch.autograd.grad(torch.sum(nlp), Yg)
-        direction = _stein_direction(Y, -grad, J)
+        if group is None:
+            direction = _stein_direction(Y, -grad, J)
+        else:
+            Yg_all = gather_rows(group, torch.cat([Y, -grad], 1))  # one gather of both
+            direction = _stein_direction(Yg_all[:, :d], Yg_all[:, d:], J)
+            direction = direction[rank_of(group) * J_local:(rank_of(group) + 1) * J_local]
         lr_t = lr * (1.0 - (1.0 - lr_decay) * frac / max(n_steps, 1))
         # Adam minimises: the negative Stein direction is the gradient
         opt = adam_update([Y], [-direction], opt, lr_t)
-        trace.append(torch.mean(phi.detach()))
+        phi_mean = torch.mean(phi.detach())
+        trace.append(phi_mean if group is None else mean_all(group, phi_mean))
 
     with fp32_matmul():
         particles = ref_mean + Y @ ref_chol.T

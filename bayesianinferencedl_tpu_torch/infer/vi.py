@@ -28,6 +28,7 @@ import torch
 from bayesianinferencedl_tpu_torch.infer.priors import GaussianPrior
 from bayesianinferencedl_tpu_torch.infer.samplers import inv_chol
 from bayesianinferencedl_tpu_torch.models.surrogate import adam_init, adam_update
+from bayesianinferencedl_tpu_torch.parallel.mesh import mean_all
 from bayesianinferencedl_tpu_torch.utils.precision import fp32_matmul
 
 # the default of lr_decay: the step size decays linearly from lr to lr * lr_decay
@@ -83,6 +84,7 @@ def run_advi(
     ref=None,
     segment: Optional[int] = None,
     eps: Optional[torch.Tensor] = None,
+    group=None,
 ) -> VIResult:
     """Fit q = N(mu, L L^T) in the whitened ref frame by maximising the
     reparameterised ELBO and return it pushed back to working coordinates.
@@ -95,7 +97,10 @@ def run_advi(
     normals for every step, else drawn from gen in step order. One eager
     loop runs every step: ``segment``, the reference's scan chunk size, is
     accepted and changes nothing (its segments run on the global step
-    index, so neither does it there)."""
+    index, so neither does it there). group: the mesh the Monte Carlo axis
+    is sharded over (``parallel.sharding.sharded_advi``): n_mc and eps are
+    this rank's, and the loss and each gradient become means over the
+    ranks before every replicated Adam update."""
     if rank not in ("full", "meanfield"):
         raise ValueError(f"rank must be 'full' or 'meanfield', got {rank!r}")
     d = prior.dim
@@ -128,6 +133,8 @@ def run_advi(
             mu, raw = (p.detach().requires_grad_() for p in params)
             loss = loss_of(mu, raw, e)
             grads = torch.autograd.grad(loss, (mu, raw))
+        if group is not None:
+            loss, *grads = mean_all(group, [loss.detach(), *grads])
         frac = torch.tensor(t, dtype=dtype, device=dev) / max(n_steps, 1)
         opt = adam_update(params, list(grads), opt, lr * (1.0 - (1.0 - lr_decay) * frac))
         elbo.append(-loss.detach())  # the ELBO up to the dropped entropy constant

@@ -20,6 +20,7 @@ its TPU compile path could not build a factorisation).
 
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
 
 import numpy as np
@@ -146,8 +147,8 @@ def _eig_modes(As, Mext, biot: float, mask: np.ndarray, m: int) -> np.ndarray:
     """(n, m) f64 orthonormal: the m lowest generalized eigenvectors of
     (A(1), D(1)) at the geometric-mean conductivity, via shift-invert
     Lanczos on the symmetrically scaled S = D^-1/2 A D^-1/2 (off-domain
-    rows get identity so S is SPD). Deterministic start vector for
-    reproducible builds."""
+    rows get identity so S is SPD). A fixed start vector and restart seed,
+    for reproducible builds."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
@@ -162,8 +163,13 @@ def _eig_modes(As, Mext, biot: float, mask: np.ndarray, m: int) -> np.ndarray:
     lu = spla.splu(S)
     op = spla.LinearOperator(S.shape, matvec=lu.solve)
     v0 = np.full(n, 1.0 / np.sqrt(n))
+    # the restarts' random vectors from a fixed seed: where the wanted modes
+    # reach the padding rows' eigenvalue 1 (res1, m = 128), ARPACK restarts
+    # inside that degenerate eigenspace, and unseeded draws made every build
+    # differ (SciPy >= 1.15 takes rng; older ones seed ARPACK themselves)
+    seed = {"rng": 0} if "rng" in inspect.signature(spla.eigsh).parameters else {}
     # preconditioner-grade modes only need the right subspace to a few digits
-    _, vecs = spla.eigsh(S, k=m, sigma=0, which="LM", OPinv=op, tol=1e-4, v0=v0)
+    _, vecs = spla.eigsh(S, k=m, sigma=0, which="LM", OPinv=op, tol=1e-4, v0=v0, **seed)
     V = Dm @ vecs  # undo the scaling: generalized modes of (A, D)
     V[~mask] = 0.0
     W, _ = np.linalg.qr(V)

@@ -1,5 +1,6 @@
 """Structured JSONL metrics: every stage emits typed events (ROM rel-err,
-NN loss, acceptance rate, ESS/sec, stage timings)."""
+NN loss, acceptance rate, ESS/sec, stage timings), and ``profile_trace``,
+a Chrome trace of a block of code from ``torch.profiler``."""
 
 from __future__ import annotations
 
@@ -41,6 +42,41 @@ class MetricsLogger:
         for e in self.events:
             out[e["event"]] = {k: v for k, v in e.items() if k != "event"}
         return out
+
+
+class profile_trace:
+    """Context manager that records ``torch.profiler`` activity (the CPU's,
+    and the card's when one is present) over its block and writes a Chrome
+    trace, ``trace.json``, into ``log_dir``:
+
+        with profile_trace("traces/run"):
+            run_hot_path()
+
+    A profiler that fails to start raises: nothing runs untraced in its
+    place. ``self.profiler`` holds the finished profile (``key_averages``)."""
+
+    def __init__(self, log_dir: str | Path):
+        self.log_dir = Path(log_dir)
+        self.profiler = None
+
+    @property
+    def path(self) -> Path:
+        return self.log_dir / "trace.json"
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.profiler = profile(activities=acts)
+        self.profiler.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.profiler.__exit__(*exc)
+        self.profiler.export_chrome_trace(str(self.path))
+        return False
 
 
 class _Timer:

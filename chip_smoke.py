@@ -374,6 +374,15 @@ Phases, one or more lines each; any failure exits non-zero with no result:
               both layouts at res4 in float64; (c) an ELL build_pipeline at
               res4 beside the stencil build; (d) MG-FCG against K3r (res8,
               res16) and K4r (res32), times, counts and errors
+ 19. P19      the multi-device path on torch.distributed (phase_parallel's
+              docstring holds the gates): a world of 1 under NCCL on cuda:0,
+              in-process; (a) run_inversion(da_pcn, fom, mesh=) on phase 6's
+              res8 build bit-identical to the unsharded run from the same
+              generator; (b) sharded_snapshots at res32, B = 16, bit-identical
+              to the unsharded kernel route; (c) solve_fom_domain_sharded at
+              res8 in float64 within 1e-8 of the direct solve; (d) the dryrun
+              over every sharded family (and, on a machine with more cards,
+              at a world of every card)
 
 The last three lines are the kernel summary (JSON: time, launches, bound,
 plain time of each kernel), the nvidia-smi line, and
@@ -4442,6 +4451,141 @@ def phase_ell_multigrid(card):
     say("P18", f"launches over phase 18: {launches}; the phase took {time.perf_counter() - t_phase:.1f} s")
     return out
 
+P19_DA = dict(n_chains=256, n_steps=6, n_burn=2)  # "a few outer steps" of phase 6's da_pcn
+P19_SNAP = dict(res=32, B=16)
+P19_DOMAIN = dict(res=8, tol=1e-12, maxiter=20000, gate=1e-8)
+
+
+def _p19_dryrun_rank(mesh) -> None:
+    """One rank of phase 19's dryrun over every card."""
+    from bayesianinferencedl_tpu_torch.parallel.dryrun import dryrun
+
+    dryrun(mesh, log=False)
+
+
+def phase_parallel(card, pipe8):
+    """Phase 19: the multi-device path (parallel/) on the card, through a
+    world of 1 under NCCL on cuda:0 started in this process (a FileStore in
+    a temporary directory): the sharded paths' collectives all run, over one
+    rank. Every FOM kernel's count is set to 0 before each sharded entry
+    point and read after it.
+
+    (a) run_inversion(sampler="da_pcn", likelihood="fom", mesh=) on phase
+    6's res8 build and data-generating seed, 256 chains, 6 outer steps (2
+    burn-in), subchains of 64, in turns with the unsharded run (sharded,
+    unsharded, unsharded, sharded): samples, accept rates and betas of
+    every run equal the first's from the same generator bit for bit (rank 0
+    draws from the caller's generator, a one-rank gather is a copy); K3r
+    carries every fine solve and the first run's launches join the kernels
+    line; each run's timed seconds printed, and the overhead of the sharded
+    path at a world of 1 as the ratio of the two medians.
+    (b) sharded_snapshots at res32, B = 16, tol 1e-7, the CLI's cap: equal
+    to the unsharded route (solve_fom_stencil, K4r) bit for bit; K4r's
+    launches join the kernels line. (c) solve_fom_domain_sharded at res8 in
+    float64 (tol 1e-12): within 1e-8 of the float64 direct solve. (d) the
+    dryrun over every sharded family, each finite; on a machine with more
+    than one card also at a world of every card (one rank a card, launched
+    as processes), else a line says so. Returns the K3r and K4r launches."""
+    import torch
+    import torch.distributed as dist
+
+    from bayesianinferencedl_tpu_torch import api
+    from bayesianinferencedl_tpu_torch.models.five_param import FiveParamFin
+    from bayesianinferencedl_tpu_torch.ops import pcg_stencil as K
+    from bayesianinferencedl_tpu_torch.parallel.domain import solve_fom_domain_sharded
+    from bayesianinferencedl_tpu_torch.parallel.dryrun import dryrun
+    from bayesianinferencedl_tpu_torch.parallel.mesh import device_mesh, launch
+    from bayesianinferencedl_tpu_torch.parallel.sharding import sharded_snapshots
+
+    t_phase = time.perf_counter()
+    counters = {"K1": "launches", "K3": "tile_launches", "K3r": "tile_mma_launches", "K4": "grid_launches",
+                "K4r": "grid_resident_launches", "K4c": "grid_cluster_launches"}
+
+    def counted(fn, want):
+        for attr in counters.values():
+            setattr(K, attr, 0)
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: getattr(K, attr) for k, attr in counters.items()}
+        if any(n for k, n in got.items() if k != want) or not got[want]:
+            fail(f"P19: kernel launches {got}, expected only {want}")
+        return out, got[want]
+
+    t0 = time.perf_counter()
+    mesh = device_mesh(1, device="cuda")
+    say("P19", f"[{card}] world of {dist.get_world_size()} under {dist.get_backend()} on "
+        f"{torch.cuda.get_device_name(0)}, mesh {mesh.mesh_dim_names} in {time.perf_counter() - t0:.2f} s")
+    try:
+        # (a) da_pcn on fom through run_inversion(mesh=)
+        pipe = _with_mcmc(pipe8, **P19_DA)
+        gen = lambda: torch.Generator(device="cuda").manual_seed(pipe8.config.mcmc.seed)
+        inv_sh, k3r = counted(lambda: api.run_inversion(pipe, generator=gen(), mesh=mesh), "K3r")
+        runs = [("sharded", inv_sh), ("unsharded", api.run_inversion(pipe, generator=gen())),
+                ("unsharded", api.run_inversion(pipe, generator=gen())),
+                ("sharded", api.run_inversion(pipe, generator=gen(), mesh=mesh))]
+        fields = ("samples", "phi_trace", "accept_rate", "inner_accept_rate", "beta")
+        same = {f: all(bool(torch.equal(getattr(inv.result, f), getattr(inv_sh.result, f)))
+                       for _, inv in runs[1:]) for f in fields}
+        wall = {k: float(np.median([inv.wall_seconds for kk, inv in runs if kk == k]))
+                for k in ("sharded", "unsharded")}
+        say("P19", f"(a) da_pcn fom res{pipe8.fin.op.resolution}, {P19_DA['n_chains']} chains x "
+            f"{P19_DA['n_steps']} outer steps, in turns: "
+            + ", ".join(f"{k} {inv.wall_seconds:.3f} s" for k, inv in runs)
+            + f"; medians {wall['sharded']:.3f} / {wall['unsharded']:.3f} s (overhead "
+            f"{wall['sharded'] / wall['unsharded'] - 1:+.1%}); launches K3r {k3r}; bit-identical: {same}")
+        if not all(same.values()):
+            fail(f"P19 (a): the world-1 sharded da_pcn differs from the unsharded run: {same}")
+
+        # (b) sharded snapshots at res32 through K4r
+        c = P19_SNAP
+        fin32 = FiveParamFin.create(resolution=c["res"], biot=0.1, dtype=torch.float32, device="cuda",
+                                    cg_tol=TOL, cg_maxiter=max(480, 120 * c["res"]))
+        ks = torch.exp(torch.empty((c["B"], 5), device="cuda").uniform_(
+            np.log(0.1), np.log(10.0), generator=torch.Generator(device="cuda").manual_seed(19)))
+        kw = dict(tol=fin32.cg_tol, maxiter=fin32.cg_maxiter)
+        S_pl = K.solve_fom_stencil(fin32.op, ks, **kw)[0]  # also builds and warms K4r
+        ms_sh, (S_sh, k4r) = _time_once_ms(lambda: counted(
+            lambda: sharded_snapshots(mesh, fin32.op, ks, **kw), "K4r"))
+        ms_pl, S_pl2 = _time_once_ms(lambda: K.solve_fom_stencil(fin32.op, ks, **kw)[0])
+        same_s = bool(torch.equal(S_sh, S_pl)) and bool(torch.equal(S_pl2, S_pl))
+        say("P19", f"(b) sharded_snapshots res{c['res']} B={c['B']}: {ms_sh:.1f} ms beside the unsharded "
+            f"{ms_pl:.1f} ms; launches K4r {k4r}; bit-identical: {same_s}")
+        if not same_s or not bool(torch.isfinite(S_sh).all()):
+            fail("P19 (b): the world-1 sharded snapshots differ from the unsharded route")
+
+        # (c) the domain-decomposed solve in float64 against the direct solve
+        c = P19_DOMAIN
+        fin64 = FiveParamFin.create(resolution=c["res"], biot=0.1, dtype=torch.float64, device="cuda")
+        k = np.array([0.4, 1.7, 3.1, 0.9, 1.2])
+        ms_d, (u, it) = _time_once_ms(lambda: solve_fom_domain_sharded(
+            mesh, fin64.op, torch.tensor(k, device="cuda"), tol=c["tol"], maxiter=c["maxiter"]))
+        _, u_star, _ = _direct_solve(fin64, k)
+        err = float(np.linalg.norm(u.cpu().numpy() - u_star) / np.linalg.norm(u_star))
+        say("P19", f"(c) solve_fom_domain_sharded res{c['res']} float64 tol {c['tol']:g}: {int(it)} "
+            f"iterations, {ms_d:.1f} ms, error vs the float64 direct solve {err:.3e} (gate {c['gate']:g})")
+        if not err < c["gate"] or int(it) >= c["maxiter"]:
+            fail(f"P19 (c): domain solve error {err:.3e} or at the cap")
+
+        # (d) the dryrun over every family
+        t0 = time.perf_counter()
+        fam = dryrun(mesh, log=False)
+        say("P19", f"(d) dryrun at a world of 1: {len(fam)} families in {time.perf_counter() - t0:.1f} s "
+            f"{json.dumps(fam)}")
+    finally:
+        dist.destroy_process_group()
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        t0 = time.perf_counter()
+        launch(_p19_dryrun_rank, n_cards, device="cuda")
+        say("P19", f"(d) dryrun at a world of {n_cards} cards, one rank a card: "
+            f"{time.perf_counter() - t0:.1f} s")
+    else:
+        say("P19", "(d) one card on this machine: the dryrun at a world of every card is the world of 1")
+    say("P19", f"launches over phase 19: K3r {k3r}, K4r {k4r}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"K3r": k3r, "K4r": k4r}
+
+
 def _kernel_entry(name: str, source: str, replaces: str, launches: int, max_abs_err: float,
                   ms: float, plain_ms: float, bound: tuple) -> dict:
     return {"name": name, "route": "cuda", "source": f"bayesianinferencedl_tpu_torch/csrc/{source}",
@@ -4483,6 +4627,7 @@ def main() -> None:
     p16_launches = _timed("P16", phase_mlda_workflow, card, pipe, pipe8, inv8)
     p17 = _timed("P17", phase_full_field, card)
     p18 = _timed("P18", phase_ell_multigrid, card)
+    p19 = _timed("P19", phase_parallel, card, pipe8)
     say("time", f"seconds by phase {json.dumps(PHASE_SECONDS)}; {sum(PHASE_SECONDS.values()):.1f} s in all")
     t1 = lanes["times"][B_CHECK]
     t3 = k3["times"][1024]
@@ -4517,11 +4662,12 @@ def main() -> None:
         # evidence and the ell selection on nodal planes, the undeflated solver)
         # and phase 18's (the stencil side of the ELL comparison at res8, the
         # stencil build at res4, the multigrid's crossover at res8 and res16)
+        # and phase 19's (the sharded da_pcn's fine solves at res8)
         _kernel_entry("pcg_stencil_tile_mma", "pcg_stencil_tile_mma.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:385",
                       slice_launches["K3r"] + k3_launches + pt_launches + p12_launches + p13_launches
                       + p14_launches + p15_launches + p16_launches + p17["launches"]
-                      + p18["launches"]["K3r"],
+                      + p18["launches"]["K3r"] + p19["K3r"],
                       max(k3["max_abs_err"], lanes["max_abs"]["K3r"], p17["max_abs_err"]), t3["ms"],
                       t3["plain_ms"], t3["bound"]),
         # K3, off the main path since K3r: timed on the same inputs, for the record
@@ -4535,10 +4681,11 @@ def main() -> None:
         _kernel_entry("pcg_stencil_grid", "pcg_stencil_grid.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:58", 0,
                       max(k4["max_abs_err"]["K4"], k4c["max_abs_err"]["K4"]), t4["ms"], p40, t4["bound"]),
-        # K4r: the CLI's res32 commands and phase 18's multigrid crossover at res32
+        # K4r: the CLI's res32 commands, phase 18's multigrid crossover at
+        # res32 and phase 19's sharded snapshots at res32
         _kernel_entry("pcg_stencil_grid_resident", "pcg_stencil_grid_resident.cu",
                       "bayesianinferencedl_tpu/ops/pcg_stencil.py:58",
-                      k4_launches["K4r"] + p18["launches"]["K4r"],
+                      k4_launches["K4r"] + p18["launches"]["K4r"] + p19["K4r"],
                       k4["max_abs_err"]["K4r"], t4r["ms"], t4r["plain_ms"], t4r["bound"]),
         # K5r carries the probe's entry point at res8; K5, the route's other
         # side, carries it at res16 (an H100) and is timed at res8 on K5r's shape

@@ -37,7 +37,9 @@ print(" ".join(names))
 print(len(names))
 """
 # modules the later slices added, which the walk must reach
-NEW_MODULES = ("fem.assemble", "fem.operators", "fem.oracle", "utils.adjoint", "experimental.multigrid")
+NEW_MODULES = ("fem.assemble", "fem.operators", "fem.oracle", "utils.adjoint", "experimental.multigrid",
+               "parallel.mesh", "parallel.sharding", "parallel.domain", "parallel.dryrun",
+               "utils.roofline")
 
 
 def test_port_imports_without_jax():

@@ -32,21 +32,17 @@ EXCLUDED = {
     "batched_fine": "the port's misfits and forwards are always batched",
     "batched_coarse": "the port's misfits and forwards are always batched",
     "use_pallas": "the port routes by device: the kernels on a card, their plain versions on the CPU",
-    "mesh": "a jax.sharding.Mesh: multi-device routes are ROADMAP item 23",
 }
 # (qualified name, keyword) -> why
 EXCLUDED_AT = {}
 # flags of the reference CLI the port does not take
-EXCLUDED_FLAGS = {
-    "--shard": "routes over more than one device, ROADMAP item 23 (the full-field commands take it "
-               "and do nothing on one card, as the reference does)",
-}
+EXCLUDED_FLAGS = {}
 
 
 def _modules(pkg):
     out = {}
     for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-        if m.name.endswith(".cli") or ".experimental" in m.name or ".parallel" in m.name:
+        if m.name.endswith(".cli") or ".experimental" in m.name:
             continue
         out[m.name[len(pkg.__name__) + 1:]] = importlib.import_module(m.name)
     return out
@@ -128,6 +124,18 @@ def test_every_reference_flag_is_accepted(monkeypatch):
     assert not any(refused.values()), refused
     for c in ("invert-ff", "evidence-ff"):
         assert "--shard" in port[c]
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Each .py module of the JAX package has a module at the same path in
+    the port."""
+    from pathlib import Path
+
+    ref_root, port_root = Path(R.__file__).parent, Path(P.__file__).parent
+    mods = sorted(p.relative_to(ref_root) for p in ref_root.rglob("*.py"))
+    assert len(mods) > 60
+    missing = [str(m) for m in mods if not (port_root / m).is_file()]
+    assert not missing, missing
 
 
 # --- replays -------------------------------------------------------------------

@@ -20,6 +20,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.linalg  # noqa: F401  (loads SciPy's OpenBLAS before the thread limit)
+import scipy.sparse.linalg  # noqa: F401
+import threadpoolctl
 import torch
 
 from bayesianinferencedl_tpu import config as jcfg
@@ -53,6 +56,14 @@ def _run_dir(name: str) -> Path:
 jax.config.update("jax_compilation_cache_dir", str(_run_dir("bidl_jax_cache")))
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+
+# NumPy's and SciPy's OpenBLAS (SciPy loads its own copy, so it is imported
+# first) and OpenMP on one thread in each worker process, as torch's intra-op
+# threads are pinned to one: the test workers share the machine's cores, and
+# with a full thread pool in every worker, OpenBLAS's spinning threads made
+# the host linear algebra (the deflation eigensolve, the POD) several times
+# slower. Every worker imports this module when it collects.
+threadpoolctl.threadpool_limits(1)
 
 
 def _cfg(cg_tol, cfg=tcfg, **mcmc):
